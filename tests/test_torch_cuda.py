@@ -3,7 +3,10 @@ at small shapes and options that chip_smoke.py's full-width run does not
 reach: audio shorter than one frame and the log-energy column (K1), batch
 rows split over several passes and idle hidden units (K2), one-beam and
 full-warp beams, V above a warp, a non-zero blank and zero lengths (K4),
-and the encoder on CUDA against the same weights on the CPU.
+T = 1, odd T, one row and batch rows split over passes (K2-bwd), small and
+large S, a non-zero blank and zero-length rows (K3, K3-bwd), input each
+kernel must refuse, and the encoder and one training step on CUDA against
+the same weights on the CPU.
 
 Every test needs a CUDA card and skips without one. On the card, from the
 repository root (the package ``uasr`` and JAX are not needed there):
@@ -20,7 +23,7 @@ from uasr_torch.frontend import cuda_frontend
 from uasr_torch.frontend.features import compute_features, make_frontend_state
 from uasr_torch.models import cuda_gru
 from uasr_torch.models.models import build_model
-from uasr_torch.ops import cuda_beam
+from uasr_torch.ops import cuda_beam, cuda_ctc
 
 pytestmark = pytest.mark.cuda
 
@@ -152,3 +155,175 @@ def test_wrappers_launch_only_for_cuda_tensors(dev):
         cuda_frontend.log_mel_fused_cuda(audio, make_frontend_state(cfg, device=dev),
                                          cfg.frame_length, cfg.frame_shift, cfg.n_fft,
                                          precision="tf32")
+
+
+def _gru_problem(dev, T, B, H, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(1, T + 1, (B,), device=dev, generator=gen)
+    lengths[0] = T
+    tpos = torch.arange(T, device=dev)[:, None]
+    tmask = torch.stack([tpos < lengths[None], tpos >= (T - lengths)[None]], 1)
+    p0, p1 = (0.5 * torch.randn(T, B, 3 * H, device=dev, generator=gen) for _ in range(2))
+    wh = torch.randn(2, H, 3 * H, device=dev, generator=gen) / H ** 0.5
+    bh = 0.1 * torch.randn(2, 3 * H, device=dev, generator=gen)
+    dout = torch.randn(T, B, 2 * H, device=dev, generator=gen)
+    return (p0, p1, wh, bh), tmask, dout
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("T,B,H", [(1, 3, 8), (9, 1, 8), (7, 5, 24), (6, 300, 16),
+                                   (11, 40, 64)])
+def test_bigru_bwd_kernel_matches_plain(dev, T, B, H, dtype, tol):
+    """K2-bwd against its plain version; tolerance relative to the largest
+    reference value (bf16: one bf16 ulp, for a product that another
+    summation order rounds the other way)."""
+    arrays, tmask, dout = _gru_problem(dev, T, B, H, T * B + H)
+    args = tuple(x.to(dtype).contiguous() for x in arrays) + (tmask,)
+    out = cuda_gru.bigru_scan_cuda(*args)
+    before = cuda_gru.LAUNCHES_BWD
+    got = cuda_gru.bigru_scan_bwd_cuda(*args, out, dout.to(dtype))
+    ref = cuda_gru.bigru_scan_bwd_reference(*args, out, dout.to(dtype))
+    torch.cuda.synchronize()
+    assert cuda_gru.LAUNCHES_BWD == before + 1
+    scale = max(float(r.float().abs().max()) for r in ref)
+    for a, r in zip(got, ref):
+        assert a.dtype == dtype and a.shape == r.shape
+        assert float((a.float() - r.float()).abs().max()) <= tol * scale
+
+
+def test_bigru_autograd_on_card_matches_cpu(dev):
+    """Gradients through BiGRUScan (K2 + K2-bwd) against the same function
+    on CPU tensors (plain versions), f32."""
+    arrays, tmask, dout = _gru_problem(dev, 13, 6, 32, 5)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        leaves = [x.detach().to(d).requires_grad_() for x in arrays]
+        out = cuda_gru.bigru_scan(*leaves, tmask.to(d))
+        (out * dout.to(d)).sum().backward()
+        grads.append([x.grad.cpu() for x in leaves])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+def test_bigru_bwd_kernel_rejects_bad_input(dev):
+    arrays, tmask, dout = _gru_problem(dev, 4, 2, 16, 0)
+    args = tuple(x.contiguous() for x in arrays) + (tmask,)
+    out = cuda_gru.bigru_scan_cuda(*args)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_gru.bigru_scan_bwd_cuda(*args, out, dout.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_gru.bigru_scan_bwd_cuda(*(x.half() for x in arrays), tmask, out.half(), dout.half())
+
+
+def _ctc_problem(dev, B, T, U, V, blank, seed):
+    rng = np.random.RandomState(seed)
+    llen = rng.randint(1, T + 1, B)
+    llen[0] = T
+    if B > 2:
+        llen[2] = 0  # batch padding row
+    ulen = np.minimum(rng.randint(0, U + 1, B), llen // 2)
+    ulen[0] = min(U, T // 2)
+    nonblank = np.array([v for v in range(V) if v != blank])
+    labels = nonblank[rng.randint(0, V - 1, (B, U))]
+    labels[np.arange(U)[None] >= ulen[:, None]] = 0
+    logits = torch.tensor(rng.randn(B, T, V) * 3.0, dtype=torch.float32, device=dev)
+    return logits, *(torch.tensor(a, device=dev) for a in (llen, labels, ulen))
+
+
+@pytest.mark.parametrize("T,U,V,blank", [(1, 0, 5, 0), (7, 2, 6, 3), (40, 12, 30, 0),
+                                         (50, 600, 9, 1), (30, 2000, 40, 5)])
+def test_ctc_kernels_match_plain(dev, T, U, V, blank):
+    """K3 and K3-bwd against their plain versions: S from 1 to 4001 (more
+    states than threads), a non-zero blank, a zero-length row."""
+    logits, llen, labels, ulen = _ctc_problem(dev, 4, T, U, V, blank, T + U)
+    emit, act, skip, svalid, finals = cuda_ctc.ctc_inputs(logits, llen, labels, ulen, blank)
+    traj = cuda_ctc.ctc_alpha_cuda(emit, act, skip, svalid)
+    ref = cuda_ctc.ctc_alpha_reference(emit, act, skip, svalid)
+    ll = cuda_ctc.final_ll(ref[-1], finals)
+    g = torch.tensor([1.0, -0.5, 2.0, 0.3], device=dev)
+    demit = cuda_ctc.ctc_beta_cuda(emit, act, skip, finals, ref, ll, g)
+    demit_ref = cuda_ctc.ctc_beta_reference(emit, act, skip, finals, ref, ll, g)
+    torch.cuda.synchronize()
+    assert float(((traj - ref).abs() / (1 + ref.abs())).max()) <= 1e-6
+    assert float((demit - demit_ref).abs().max()) <= 1e-5
+    assert not demit[:, 2].any()
+
+
+def test_ctc_loss_kernel_on_card_matches_cpu(dev):
+    """Loss and logits gradient of ctc_loss_kernel (K3 + K3-bwd on CUDA)
+    against the same function on CPU tensors and F.ctc_loss."""
+    logits, llen, labels, ulen = _ctc_problem(dev, 5, 60, 20, 12, 0, 3)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        lg = logits.detach().to(d).requires_grad_()
+        per = cuda_ctc.ctc_loss_kernel(lg, llen.to(d), labels.to(d), ulen.to(d))
+        per.sum().backward()
+        res.append((per.detach().cpu(), lg.grad.cpu()))
+    (pc, gc), (pp, gp) = res
+    assert float((pc - pp).abs().max()) <= 1e-4 * float(pp.abs().max())
+    assert float((gc - gp).abs().max()) <= 2e-4
+    ref = torch.nn.functional.ctc_loss(torch.log_softmax(logits, -1).transpose(0, 1),
+                                       labels.long(), llen, ulen, reduction="none",
+                                       zero_infinity=True)
+    assert float((pc - ref.cpu()).abs().max()) <= 1e-3
+
+
+def test_ctc_kernels_reject_bad_input(dev):
+    logits, llen, labels, ulen = _ctc_problem(dev, 2, 10, 3, 5, 0, 0)
+    emit, act, skip, svalid, finals = cuda_ctc.ctc_inputs(logits, llen, labels, ulen)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_ctc.ctc_alpha_cuda(emit.double(), act, skip, svalid)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_ctc.ctc_alpha_cuda(emit, act, skip.t().contiguous().t(), svalid)
+    big = torch.zeros(2, 1, 8193, device=dev)
+    with pytest.raises(ValueError, match="S <= 8192"):
+        cuda_ctc.ctc_alpha_cuda(big, act[:2, :1].contiguous(), big[0], big[0])
+
+
+def test_training_step_on_card_matches_cpu(dev):
+    """CTCTrainer on CUDA (K1, K2, K2-bwd, K3, K3-bwd) against the same
+    trainer on the CPU (plain versions), f32, same weights and batches:
+    first-step gradients per tensor, then two steps' losses and gradient
+    norms. SpecAugment's draws come from a CPU generator, so its masks are
+    the same on both devices."""
+    import itertools
+
+    from uasr_torch import config as tc
+    from uasr_torch import train
+    from uasr_torch.data.dataset import batch_iterator, make_synthetic_dataset
+    from uasr_torch.frontend.specaugment import spec_augment
+
+    examples, vocab = make_synthetic_dataset(num_utts=8, num_phones=6, seed=3)
+    batches = list(itertools.islice(batch_iterator(examples, 4, 16000, 8, shuffle=False), 2))
+    cfg = tc.Config(frontend=tc.FrontendConfig(num_mel_bins=16),
+                    model=tc.ModelConfig(hidden_size=16, num_gru_layers=2, conv_channels=4,
+                                         gru_pallas=True),
+                    ctc=tc.CTCConfig(use_pallas=True),
+                    train=tc.TrainConfig(lr=1e-3, lr_schedule="constant"), vocab_size=len(vocab))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        trainer = train.CTCTrainer(cfg, device=d)
+        state = trainer.init_state()
+        init = {k: v.detach().clone() for k, v in state.params.items()}
+        before = (cuda_gru.LAUNCHES_BWD, cuda_ctc.LAUNCHES_BWD)
+        _, grads = trainer.loss_and_grads(init, batches[0], trainer.step_generator(0))
+        if d.type == "cuda":
+            assert (cuda_gru.LAUNCHES_BWD, cuda_ctc.LAUNCHES_BWD) == (before[0] + 2,
+                                                                      before[1] + 1)
+        steps = []
+        for b in batches:
+            state, aux = trainer.train_step(state, b)
+            steps.append((float(aux["loss"]), float(aux["grad_norm"])))
+        runs.append(({k: g.cpu() for k, g in grads.items()}, steps))
+    (g_card, s_card), (g_cpu, s_cpu) = runs
+    for k, g in g_cpu.items():
+        assert float((g_card[k] - g).norm() / g.norm().clamp_min(1e-30)) <= 1e-4, k
+    for (loss_c, norm_c), (loss_p, norm_p) in zip(s_card, s_cpu):
+        assert abs(loss_c - loss_p) <= 1e-4 * abs(loss_p)
+        assert abs(norm_c - norm_p) <= 1e-3 * norm_p
+    fcfg = tc.FrontendConfig(specaug_freq_mask=5, specaug_freq_masks=2, specaug_time_mask=7,
+                             specaug_time_masks=2)
+    feat, flen = torch.randn(3, 40, 16), torch.tensor([40, 22, 9])
+    masked = [spec_augment(torch.Generator().manual_seed(5), feat.to(d), flen.to(d), fcfg).cpu()
+              for d in (dev, torch.device("cpu"))]
+    assert torch.equal(*masked)

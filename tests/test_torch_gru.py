@@ -76,3 +76,59 @@ def test_cpu_tensors_run_plain_version():
     np.testing.assert_array_equal(cuda_gru.bigru_scan(*args, tmask).numpy(),
                                   cuda_gru.bigru_scan_reference(*args, tmask).numpy())
     assert cuda_gru.LAUNCHES == before
+
+
+def _grad_problem(T, seed):
+    rng = np.random.RandomState(seed)
+    B, H = 4, 8
+    p0, p1 = (rng.randn(T, B, 3 * H).astype(np.float32) * 0.5 for _ in range(2))
+    wh = rng.randn(2, H, 3 * H).astype(np.float32) * 0.3
+    bh = rng.randn(2, 3 * H).astype(np.float32) * 0.1
+    tmask = _tmask(T, np.array([T, T - 3, 5, 1]))
+    w_out = rng.randn(T, B, 2 * H).astype(np.float32)
+    return (p0, p1, wh, bh), tmask, w_out
+
+
+# f32: the bar of tests/test_pallas_gru.py. bf16: both sides round dxp,
+# dhn and dhproj to bf16 at the same points and agree bit for bit at these
+# sizes; the bar allows one bf16 ulp (2^-8 relative) of the largest
+# gradient (~4 here), for a product that another summation order would
+# round the other way.
+GRAD_BARS = {"float32": dict(atol=2e-4, rtol=1e-3), "bfloat16": dict(atol=2e-2, rtol=1e-2)}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T", [10, 11])  # even T: dy_fused branch of _bwd2_rule; odd: padded
+def test_backward_matches_pallas_interpret(dtype, T):
+    """d(p0, p1, wh, bh) of a weighted sum of the output through the
+    port's autograd function on CPU tensors (K2 / K2-bwd's plain versions)
+    against jax.grad of pallas_bigru_scan in interpret mode."""
+    jdt, tdt, _ = DTYPES[dtype]
+    arrays, tmask, w_out = _grad_problem(T, seed=T)
+
+    def jloss(*a):
+        out = pallas_bigru_scan(*a, jnp.asarray(tmask), True).astype(jnp.float32)
+        return jnp.sum(out * w_out)
+
+    j_grads = jax.grad(jloss, argnums=(0, 1, 2, 3))(*(jnp.asarray(a, jdt) for a in arrays))
+    leaves = [torch.tensor(a).to(tdt).requires_grad_() for a in arrays]
+    out = cuda_gru.bigru_scan(*leaves, torch.tensor(tmask))
+    (out.float() * torch.tensor(w_out)).sum().backward()
+    for leaf, jg, name in zip(leaves, j_grads, ["dp0", "dp1", "dwh", "dbh"]):
+        assert leaf.grad.dtype == tdt, name
+        np.testing.assert_allclose(leaf.grad.float().numpy(), np.asarray(jg.astype(jnp.float32)),
+                                   err_msg=name, **GRAD_BARS[dtype])
+
+
+@pytest.mark.parametrize("T", [1, 6])
+def test_backward_plain_matches_autograd_of_forward(T):
+    """K2-bwd's plain version against autograd through K2's plain version
+    (f32, so the two differ only in summation order)."""
+    arrays, tmask, w_out = _grad_problem(T, seed=20 + T)
+    grads = []
+    for fn in (cuda_gru.bigru_scan, cuda_gru.bigru_scan_reference):
+        leaves = [torch.tensor(a, dtype=torch.float64).float().requires_grad_() for a in arrays]
+        (fn(*leaves, torch.tensor(tmask)) * torch.tensor(w_out)).sum().backward()
+        grads.append([x.grad for x in leaves])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)

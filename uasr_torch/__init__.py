@@ -23,8 +23,8 @@ def resolve_device(device) -> torch.device:
     card is present (the port never drops to the CPU by itself)."""
     if isinstance(device, (list, tuple)):
         raise NotImplementedError(
-            "multi-device decode is not ported yet (ROADMAP.md Queue 1, "
-            "slice 5: serving and scale); pass one device"
+            "several devices (multi-device decode or training) are not ported "
+            "yet (ROADMAP.md Queue 1, slice 5: serving and scale); pass one device"
         )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

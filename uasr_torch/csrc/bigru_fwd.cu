@@ -33,62 +33,12 @@
 // ms). Per step the cost is the barrier plus one CTA's 3 * H FMAs per
 // thread on CUDA cores; tensor-core products are the next step.
 
-#include "common.cuh"
+#include "grid_sync.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int PAD = 4;  // floats of row padding in shared memory
-constexpr int LINE = 32;  // uint32 per 128-byte line of the barrier words
-
-// 16-byte L2 load (past L1, which other SMs' writes do not update) of
-// 16 / sizeof(T) consecutive elements, widened to f32
-__device__ __forceinline__ void load16_l2(const float* p, float* out) {
-  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
-}
-__device__ __forceinline__ void load16_l2(const __nv_bfloat16* p, float* out) {
-  const uint4 v = __ldcg(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
-  unsigned v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// Barrier of the nblk CTAs of one direction (all co-resident: cooperative
-// launch). bar[0] counts arrivals, bar[LINE] is the generation, on its own
-// line so polling does not slow the arrivals; both start at zero. A wait
-// beyond ~10 s traps, so a fault surfaces as a launch error instead of a
-// hung card.
-__device__ void dir_barrier(unsigned* bar, unsigned nblk) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned* count = bar;
-    unsigned* gen = bar + LINE;
-    const unsigned g = ld_acquire(gen);
-    __threadfence();
-    if (atomicAdd(count, 1u) == nblk - 1) {
-      atomicExch(count, 0u);
-      __threadfence();
-      atomicAdd(gen, 1u);
-    } else {
-      for (unsigned long long spins = 0; ld_acquire(gen) == g; ++spins) {
-        if (spins > (1ull << 28)) __trap();
-        __nanosleep(32);
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -182,14 +132,9 @@ template <typename T>
 cudaError_t launch(const void* p0, const void* p1, const void* wh, const void* bh,
                    const float* tmask, void* out, unsigned* bar, int Tn, int B, int H,
                    cudaStream_t stream, int* units) {
-  int dev = 0, sms = 0, smem_max = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  int sms = 0, smem_max = 0;
+  cudaError_t e = uasr_coop_limits(&sms, &smem_max);
   if (e != cudaSuccess) return e;
-  if (!coop) return cudaErrorNotSupported;
   auto kernel = bigru_fwd_kernel<T>;
   // smallest unit slice that still gives every thread a (row, unit) pair
   // and lets both directions' CTAs be resident at once

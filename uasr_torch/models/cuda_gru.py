@@ -1,10 +1,14 @@
-"""K2, the two-stream BiGRU forward recurrence: wrapper of
-``csrc/bigru_fwd.cu`` and its plain PyTorch version.
+"""K2 and K2-bwd, the two-stream BiGRU recurrence and its backward:
+wrappers of ``csrc/bigru_fwd.cu`` and ``csrc/bigru_bwd.cu``, their plain
+PyTorch versions, and the ``torch.autograd.Function`` that joins them.
 
 Counterpart of ``uasr/models/pallas_gru.py::pallas_bigru_scan`` (TPU
-kernel ``_fwd2_kernel``), forward only; the backward kernel comes with
-the training slice. ``bigru_scan`` launches the kernel for CUDA tensors
-and runs ``bigru_scan_reference`` for CPU tensors.
+kernels ``_fwd2_kernel`` and ``_bwd2_kernel`` with the custom VJP
+``_fwd2_rule`` / ``_bwd2_rule``). ``bigru_scan`` is differentiable: its
+forward launches K2 and its backward K2-bwd for CUDA tensors, and both
+run their plain versions for CPU tensors. The weight gradients dwh and
+dbh are whole-trajectory products outside the kernel, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -15,8 +19,10 @@ import torch
 
 from uasr_torch import _build
 
-LAUNCHES = 0  # kernel launches by bigru_scan (read by chip_smoke.py)
-LAST_UNITS = None  # hidden units per CTA of the last launch
+LAUNCHES = 0  # K2 launches by bigru_scan_cuda (read by chip_smoke.py)
+LAUNCHES_BWD = 0  # K2-bwd launches by bigru_scan_bwd_cuda
+LAST_UNITS = None  # hidden units per CTA of the last K2 launch
+LAST_UNITS_BWD = None  # hidden units per CTA of the last K2-bwd launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -97,8 +103,154 @@ def bigru_scan_cuda(p0, p1, wh, bh, tmask):
     return out
 
 
+def _prev_states(out):
+    """h_prev trajectories in frame order: stream 0's at frame u is
+    ys0[u-1], stream 1's at frame f is ys1[f+1] (zero at the ends)."""
+    H = out.shape[-1] // 2
+    ys0, ys1 = out[..., :H], out[..., H:]
+    z1 = torch.zeros_like(ys0[:1])
+    return torch.cat([z1, ys0[:-1]]), torch.cat([ys1[1:], z1])
+
+
+def bigru_scan_bwd_reference(p0, p1, wh, bh, tmask, out, dout):
+    """Plain version of K2-bwd, step for step.
+
+    Same inputs as K2 plus its output ``out`` and the cotangent ``dout``
+    [T, B, 2H]. Returns (dxp0, dxp1, dhn0, dhn1) in frame order and p0's
+    dtype: d of the input projections [T, B, 3H] and of the n block of
+    h_prev @ wh [T, B, H]. Phase 1 recomputes the gates from h_prev (read
+    in the stored dtype) into per-step coefficients; phase 2 runs the
+    reverse chain with dh carried in f32 and dhproj rounded to wh's dtype
+    before its product, as the kernel does.
+    """
+    T, B, H3 = p0.shape
+    H = H3 // 3
+    f32 = torch.float32
+    w = wh.to(f32)
+    bias = bh.to(f32)
+    outs = []
+    for g, (p, h) in enumerate(zip((p0, p1), _prev_states(out))):
+        # phase 1 in frame order; stream 1's frame f is kernel step T-1-f
+        mf = (tmask[:, g] if g == 0 else tmask[:, g].flip(0)).to(f32)[..., None]
+        h_prev = h.to(f32)
+        hp = h_prev @ w[g] + bias[g]
+        xr, xz, xn = p.to(f32).split(H, -1)
+        hr, hz, hn = hp.split(H, -1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        c_n2 = mf * ((1.0 - z) * (1.0 - n * n))
+        c_r = c_n2 * (hn * (r * (1.0 - r)))
+        c_z = mf * ((h_prev - n) * (z * (1.0 - z)))
+        c_nh = c_n2 * r
+        ch = (1.0 - mf) + mf * z
+        # phase 2: kernel steps u = T-1 .. 0
+        dy = dout[..., g * H:(g + 1) * H]
+        w_t = w[g].T
+        dh = torch.zeros(B, H, dtype=f32, device=p0.device)
+        dxp = torch.empty(T, B, H3, dtype=p0.dtype, device=p0.device)
+        dhn = torch.empty(T, B, H, dtype=p0.dtype, device=p0.device)
+        for u in reversed(range(T)):
+            f = u if g == 0 else T - 1 - u
+            d = dh + dy[f].to(f32)
+            e_r, e_z, e_n, e_nh = c_r[f] * d, c_z[f] * d, c_n2[f] * d, c_nh[f] * d
+            dxp[f] = torch.cat([e_r, e_z, e_n], -1).to(p0.dtype)
+            dhn[f] = e_nh.to(p0.dtype)
+            dhproj = torch.cat([e_r, e_z, e_nh], -1).to(wh.dtype).to(f32)
+            dh = ch[f] * d + dhproj @ w_t
+        outs.append((dxp, dhn))
+    (dxp0, dhn0), (dxp1, dhn1) = outs
+    return dxp0, dxp1, dhn0, dhn1
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("bigru_bwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.uasr_bigru_bwd.argtypes = [P] * 14 + [I, I, I, I, P, I, P]
+    lib.uasr_bigru_bwd.restype = I
+    return lib
+
+
+def bigru_scan_bwd_cuda(p0, p1, wh, bh, tmask, out, dout):
+    """Launch K2-bwd on CUDA tensors; same contract as the plain version."""
+    global LAUNCHES_BWD, LAST_UNITS_BWD
+    T, B, H3 = p0.shape
+    H = H3 // 3
+    dt = p0.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"bigru backward kernel takes float32 or bfloat16, got {dt}")
+    for t, shape in ((p0, (T, B, H3)), (p1, (T, B, H3)), (wh, (2, H, H3)), (bh, (2, H3)),
+                     (out, (T, B, 2 * H)), (dout, (T, B, 2 * H))):
+        if t.shape != shape or t.dtype != dt or t.device != p0.device or not t.is_contiguous():
+            raise ValueError(f"bigru backward kernel: expected contiguous {dt} {shape} "
+                             f"on {p0.device}")
+    if H % 8:
+        raise ValueError(f"bigru backward kernel takes a hidden size that is a multiple of 8, "
+                         f"got {H}")
+    if tmask.shape != (T, 2, B):
+        raise ValueError(f"bigru backward kernel: tmask must be [T, 2, B], got "
+                         f"{tuple(tmask.shape)}")
+    dev = p0.device
+    mask = tmask.to(device=dev, dtype=torch.float32).contiguous()
+    dxp0, dxp1 = (torch.empty(T, B, H3, dtype=dt, device=dev) for _ in range(2))
+    dhn0, dhn1 = (torch.empty(T, B, H, dtype=dt, device=dev) for _ in range(2))
+    coef = torch.empty(2, T, 5, B, H, dtype=torch.float32, device=dev)  # phase-1 scratch
+    xch = torch.empty(2, 2, B, H3, dtype=dt, device=dev)  # per-step exchange rows
+    bar = torch.zeros(4 * 32, dtype=torch.int32, device=dev)  # barrier words
+    units = ctypes.c_int(0)
+    lib = _lib_bwd()
+    code = lib.uasr_bigru_bwd(
+        p0.data_ptr(), p1.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), dxp0.data_ptr(), dxp1.data_ptr(), dhn0.data_ptr(),
+        dhn1.data_ptr(), coef.data_ptr(), xch.data_ptr(), bar.data_ptr(), T, B, H, _DTYPES[dt],
+        torch.cuda.current_stream(dev).cuda_stream,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        ctypes.byref(units),
+    )
+    _build.check(lib, code, "bigru_bwd kernel")
+    LAUNCHES_BWD += 1
+    LAST_UNITS_BWD = units.value
+    return dxp0, dxp1, dhn0, dhn1
+
+
+def _weight_grads(out, dxp0, dxp1, dhn0, dhn1, wh_dtype, bh_dtype):
+    """dwh [2, H, 3H] and dbh [2, 3H] as whole-trajectory products of the
+    h_prev trajectories with (dxp's r, z blocks, dhn), f32 accumulation,
+    returned in wh's and bh's dtypes (``_bwd2_rule``)."""
+    H = out.shape[-1] // 2
+    f32 = torch.float32
+    dwh, dbh = [], []
+    for h, dxp, dhn in zip(_prev_states(out), (dxp0, dxp1), (dhn0, dhn1)):
+        hf = h.to(f32).reshape(-1, H)
+        drz = dxp[..., :2 * H].to(f32).reshape(-1, 2 * H)
+        dn = dhn.to(f32).reshape(-1, H)
+        dwh.append(torch.cat([hf.T @ drz, hf.T @ dn], -1))
+        dbh.append(torch.cat([drz.sum(0), dn.sum(0)]))
+    return torch.stack(dwh).to(wh_dtype), torch.stack(dbh).to(bh_dtype)
+
+
+class BiGRUScan(torch.autograd.Function):
+    """K2 forward, K2-bwd backward (``pallas_bigru_scan``'s custom VJP):
+    the forward saves (p0, p1, wh, bh, tmask, out), as ``_fwd2_rule``
+    does."""
+
+    @staticmethod
+    def forward(ctx, p0, p1, wh, bh, tmask):
+        fn = bigru_scan_cuda if p0.is_cuda else bigru_scan_reference
+        out = fn(p0, p1, wh, bh, tmask)
+        ctx.save_for_backward(p0, p1, wh, bh, tmask, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        p0, p1, wh, bh, tmask, out = ctx.saved_tensors
+        fn = bigru_scan_bwd_cuda if dout.is_cuda else bigru_scan_bwd_reference
+        dxp0, dxp1, dhn0, dhn1 = fn(p0, p1, wh, bh, tmask, out, dout.contiguous())
+        dwh, dbh = _weight_grads(out, dxp0, dxp1, dhn0, dhn1, wh.dtype, bh.dtype)
+        return dxp0, dxp1, dwh, dbh, None
+
+
 def bigru_scan(p0, p1, wh, bh, tmask):
-    """Two-stream BiGRU recurrence: K2 for CUDA tensors, the plain
-    version for CPU tensors."""
-    fn = bigru_scan_cuda if p0.is_cuda else bigru_scan_reference
-    return fn(p0, p1, wh, bh, tmask)
+    """Two-stream BiGRU recurrence, differentiable: K2 / K2-bwd for CUDA
+    tensors, their plain versions for CPU tensors."""
+    return BiGRUScan.apply(p0, p1, wh, bh, tmask)

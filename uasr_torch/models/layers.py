@@ -119,8 +119,10 @@ class BiGRU(nn.Module):
     Both directions' input projections are computed in frame order; the
     recurrence runs both streams at once (the reversed stream reads frame
     T-1-u at step u, its first T - len steps masked as padding). With
-    ``use_pallas`` and CUDA tensors the recurrence is kernel K2
-    (``cuda_gru.bigru_scan``); otherwise it is K2's plain version.
+    ``use_pallas`` the recurrence is ``cuda_gru.bigru_scan``, whose
+    forward is kernel K2 and backward kernel K2-bwd for CUDA tensors (their
+    plain versions for CPU tensors); otherwise autograd runs through K2's
+    plain version.
     Parameters grouped [2, ...]: index 0 = forward, 1 = backward; gate
     order r, z, n (reset-after, cuDNN convention).
     """

@@ -6,8 +6,9 @@ model. ``build_model`` raises ``NotImplementedError`` for the other
 families until their slices land (ROADMAP.md Queue 1).
 
 All encoders take (features [B, T, D], lengths [B]) and return
-(logits [B, T', V], lengths [B]). Inference only so far: dropout is a
-training-time layer and is absent from the forward pass.
+(logits [B, T', V], lengths [B]). ``model.dropout`` acts after each BiGRU
+in ``train()`` mode only; ``build_model`` returns the model in ``eval()``
+mode and the trainer switches it.
 """
 
 from __future__ import annotations
@@ -140,6 +141,8 @@ class ConvBiGRUEncoder(nn.Module):
         x = x.transpose(0, 1)
         for i in range(cfg.num_gru_layers):
             x = getattr(self, f"bigru{i}")(x, lengths)
+            if cfg.dropout > 0:
+                x = F.dropout(x, cfg.dropout, self.training)
         logits = self.logits(x, torch.float32)
         return logits.transpose(0, 1), lengths
 
