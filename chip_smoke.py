@@ -17,7 +17,11 @@ and prints no result line):
    B=32, H=512 in f32 and bf16, K4 CTC prefix beam at T=400, B=32, W=16,
    V=32 without an LM and with bigram and trigram tables; K2-bwd BiGRU
    backward at T=400, B=32, H=512 in f32 and bf16, K3 CTC alpha and
-   K3-bwd CTC beta at T=400, B=32, U=256 (S=513), V=32;
+   K3-bwd CTC beta at T=400, B=32, U=256 (S=513), V=32; K7 unfused
+   log-mel on one streaming chunk of 64 streams (240 + 64 x 160 samples)
+   in each tier, K4 at V=4233, W=8 over one chunk's 32 logits frames from
+   a carried state and over a 12 s utterance's 600 (backpointers and
+   state bit-equal);
 3. the decode path: ``run_inference`` at the full width of
    configs/librispeech_ctc_bigru.yaml on four requests of 32 seeded
    random utterances (4, 8, 12 and 16 s buckets), beam 16 and greedy,
@@ -29,7 +33,18 @@ and prints no result line):
    one step per bucket, each with its launch counts (1 K1, 3 K2, 3 K2-bwd,
    1 K3, 1 K3-bwd), a profile of one 16 s step, and the first step's loss
    and gradients on the kernel path against the plain path, bf16 and f32;
-5. one JSON line listing every ported kernel with its check, times and
+5. the streaming path of configs/aishell_streaming.yaml at full width
+   (random cnn weights, the blank bias raised so ~4 characters per second
+   are emitted, V = 4233 stand-in): 64 streams of 1 to 12 s through
+   ``StreamingRecognizer`` init / step / finish, greedy partials against
+   the offline greedy decode and beam-8 finals against ``run_inference``
+   with beam 8, exactly 1 K7, 1 K4 and 0 K1 per step, per-chunk latency at
+   B=64 and B=8, a profile of one step;
+6. the TCP daemon on localhost with 8 slots: 8 staggered clients with a
+   ninth refused as busy, then 8 clients streaming 3 utterances each back
+   to back (the sustained audio-s/s), every final equal to the offline
+   beam decode;
+7. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -56,6 +71,12 @@ K4_T, K4_B, K4_W, K4_V = 400, 32, 16, 32
 # the training step's CTC: 400 encoder frames, labels padded to
 # max_label_len 256 (S = 513), V = 32
 K3_T, K3_B, K3_U, K3_V = 400, 32, 256, 32
+# the streaming path (configs/aishell_streaming.yaml): 64 streams of up to
+# 12 s in chunks of 64 frames; K7 takes the glued chunk of 240 + 64 * 160
+# pre-emphasised samples, K4 one chunk's 32 logits frames (600 for a 12 s
+# utterance offline) over the stand-in vocabulary of 4233 symbols, beam 8
+STREAM_B, STREAM_SECONDS, STREAM_V, STREAM_W = 64, 12, 4233, 8
+DAEMON_SLOTS = 8
 
 # NVIDIA H100 SXM data sheet, dense: HBM bytes/s, FLOP/s by operand type
 PEAK_BYTES = 3.35e12
@@ -244,26 +265,48 @@ def phase_kernels(torch, np, results: dict) -> None:
     for name, (tab, order) in tables.items():
         lm = None if tab is None else torch.tensor(tab, dtype=torch.float32, device=dev)
         args = (logp, lengths, W, 0, lm, order, 0.5, 0.3)
-        got = k4.beam_traceback(*k4.ctc_beam_cuda(*args))
-        ref = k4.beam_traceback(*k4.ctc_beam_reference(*args))
-        torch.cuda.synchronize()
-        check(bool(torch.equal(got[0], ref[0])), f"K4 {name}: ids differ")
-        check(bool(torch.equal(got[1], ref[1])), f"K4 {name}: lengths differ")
-        err = float((got[2] - ref[2]).abs().max())
-        check(err <= 1e-4, f"K4 {name}: score max|d| {err:.3e} > 1e-4")
+        res = check_beam(torch, k4, args, f"K4 {name}")
         ms = cuda_ms(torch, lambda: k4.ctc_beam_cuda(*args), 10)
         plain = cuda_ms(torch, lambda: k4.ctc_beam_reference(*args), 1, warmup=0)
-        # work of the steps this run's lengths keep active
-        steps = int(torch.clamp(lengths, max=T).sum())
-        K = W * V + W
-        ops = steps * (W * V * (2 + 4 * (order > 0)) + 8 * W + 6 * W * W + 2 * W * K + 20 * W)
-        nbytes = 4 * (B * T * V + B + (0 if tab is None else tab.size) + 2 * T * B * W + 2 * B * W)
-        bms, by = bound(nbytes, ops, "float32")
-        print(f"K4 beam    {name:8s} T={T} B={B} W={W} V={V}: ids equal, score max|d| "
-              f"{err:.3e} kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.6f} ms ({by})",
-              flush=True)
-        results[f"K4:{name}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                                     bound_by=by, library_ms=None)
+        bms, by = beam_bound(lengths, T, B, W, V, 0 if tab is None else tab.size, order)
+        print(f"K4 beam    {name:8s} T={T} B={B} W={W} V={V}: backpointers, state and ids "
+              f"equal, score max|d| {res['max_abs_err']:.3e} kernel {ms:.4f} ms plain "
+              f"{plain:.4f} ms bound {bms:.6f} ms ({by})", flush=True)
+        results[f"K4:{name}"] = dict(res, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                     library_ms=None)
+
+
+def check_beam(torch, k4, args, what: str, state=None) -> dict:
+    """K4 against its plain version on the same inputs (and start state):
+    backpointers and the state out bit-equal, tracebacks equal, best
+    scores to 1e-4."""
+    got = k4.ctc_beam_cuda(*args, state=state)
+    ref = k4.ctc_beam_reference(*args, state=state)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got[0], ref[0])), f"{what}: parents differ")
+    check(bool(torch.equal(got[1], ref[1])), f"{what}: chars differ")
+    for field, a, b in zip(ref[2]._fields, got[2], ref[2]):
+        check(bool(torch.equal(a, b)), f"{what}: state {field} differs")
+    blank = args[3]
+    ids, n, score = k4.beam_traceback(got[0], got[1], got[2].p_b, got[2].p_nb, blank)
+    r_ids, r_n, r_score = k4.beam_traceback(ref[0], ref[1], ref[2].p_b, ref[2].p_nb, blank)
+    check(bool(torch.equal(ids, r_ids)) and bool(torch.equal(n, r_n)), f"{what}: ids differ")
+    err = float((score - r_score).abs().max())
+    check(err <= 1e-4, f"{what}: score max|d| {err:.3e} > 1e-4")
+    return dict(max_abs_err=err)
+
+
+def beam_bound(lengths, T: int, B: int, W: int, V: int, lm_size: int, order: int):
+    """K4's least time: the work of the steps this run's lengths keep
+    active (the W*V extends with their LM terms, the fold, one top-W
+    selection pass of ~2 comparisons per candidate over the W*V + W
+    candidates, the rebuild), and the bytes of log-probs, lengths, LM
+    table, backpointers and state."""
+    steps = int(lengths.clamp(max=T).sum())
+    K = W * V + W
+    ops = steps * (W * V * (2 + 4 * (order > 0)) + 8 * W + 6 * W * W + 2 * K + 20 * W)
+    nbytes = 4 * (B * T * V + B + lm_size + 2 * T * B * W + 2 * 6 * B * W)
+    return bound(nbytes, ops, "float32")
 
 
 def phase_train_kernels(torch, np, results: dict) -> None:
@@ -392,6 +435,74 @@ def phase_train_kernels(torch, np, results: dict) -> None:
                              bound_by=by_b, library_ms=lib_b)
 
 
+def phase_stream_kernels(torch, np, results: dict) -> None:
+    """K7 and K4 at the shapes the streaming path gives them: K7 on one
+    chunk of 64 streams in each GEMM tier; K4 at V = 4233, W = 8 over one
+    chunk's 32 logits frames from a carried state, and over a 12 s
+    utterance's 600 from a fresh one."""
+    from uasr_torch.config import FrontendConfig
+    from uasr_torch.frontend import cuda_frontend as k7
+    from uasr_torch.frontend.features import make_frontend_state
+    from uasr_torch.ops import cuda_beam as k4
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    # ---- K7 at B=64 x one chunk (64 frames)
+    fcfg = FrontendConfig(num_mel_bins=80, cmvn="streaming", streaming_chunk_frames=64)
+    fstate = make_frontend_state(fcfg, device=dev)
+    FL, FS, NFFT = fcfg.frame_length, fcfg.frame_shift, fcfg.n_fft
+    B, T = STREAM_B, fcfg.streaming_chunk_frames
+    L = (FL - FS) + T * FS
+    audio = 0.1 * torch.randn(B, L, device=dev, generator=gen)
+    NB, M = NFFT // 2 + 1, fcfg.num_mel_bins
+    nbytes = 4 * (B * L + FL + 2 * FL * NB + NB * M + B * T * M)
+    flop = B * T * FL + 2 * B * T * FL * 2 * NB + 2 * B * T * NB * M
+    for tier, tol, products, dtype in (("highest", 1e-4, 1, "float32"),
+                                       ("high", 5e-4, 3, "bfloat16"),
+                                       ("bfloat16", 2e-2, 1, "bfloat16")):
+        args = (audio, fstate, FL, FS, NFFT)
+        got = k7.log_mel_unfused_cuda(*args, precision=tier)
+        ref = k7.log_mel_unfused_reference(*args, precision=tier)
+        torch.cuda.synchronize()
+        check(got.shape == (B, T, M), f"K7 {tier}: shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"K7 {tier}: non-finite output")
+        err = float((got - ref).abs().max())
+        check(err <= tol, f"K7 {tier}: max|d| {err:.3e} > {tol}")
+        ms = cuda_ms(torch, lambda: k7.log_mel_unfused_cuda(*args, precision=tier), 50)
+        plain = cuda_ms(torch, lambda: k7.log_mel_unfused_reference(*args, precision=tier), 20)
+        bms, by = bound(nbytes, products * flop, dtype)
+        print(f"K7 log_mel {tier:8s} B={B} L={L} T={T}: max|d| {err:.3e} (tol {tol}) "
+              f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+        results[f"K7:{tier}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                                     bound_by=by, library_ms=None)
+
+    # ---- K4 at V=4233, W=8: one chunk from a carried state, then 12 s
+    V, W = STREAM_V, STREAM_W
+    chunk_t, full_t = T // 2, STREAM_SECONDS * 50
+    for what, T4, carried in (("chunk", chunk_t, True), ("offline", full_t, False)):
+        logp = torch.log_softmax(4.0 * torch.randn(B, T4, V, device=dev, generator=gen),
+                                 -1).contiguous()
+        lengths = torch.randint(0, T4 + 1, (B,), device=dev, generator=gen)
+        lengths[0], lengths[1] = T4, (0 if carried else 1)
+        state = None
+        if carried:  # the state a previous chunk of 32 frames left
+            first = torch.log_softmax(4.0 * torch.randn(B, T4, V, device=dev, generator=gen),
+                                      -1).contiguous()
+            state = k4.ctc_beam_reference(first, torch.full((B,), T4, device=dev), W)[2]
+        args = (logp, lengths, W, 0)
+        res = check_beam(torch, k4, args, f"K4 V={V} {what}", state=state)
+        ms = cuda_ms(torch, lambda: k4.ctc_beam_cuda(*args, state=state), 20 if carried else 5)
+        plain = cuda_ms(torch, lambda: k4.ctc_beam_reference(*args, state=state), 1, warmup=0)
+        bms, by = beam_bound(lengths, T4, B, W, V, 0, 0)
+        print(f"K4 beam    {what:8s} T={T4} B={B} W={W} V={V} "
+              f"{'carried' if carried else 'fresh'} state: backpointers, state and ids equal, "
+              f"score max|d| {res['max_abs_err']:.3e} kernel {ms:.4f} ms plain {plain:.4f} ms "
+              f"bound {bms:.4f} ms ({by})", flush=True)
+        results[f"K4:V{V}:{what}"] = dict(res, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                                          library_ms=None)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route every kernel wrapper to its plain PyTorch version, so the
@@ -402,6 +513,7 @@ def plain_versions():
     from uasr_torch.ops import cuda_ctc as k3
 
     swaps = [(k1, "log_mel_fused_cuda", k1.log_mel_fused_reference),
+             (k1, "log_mel_unfused_cuda", k1.log_mel_unfused_reference),
              (k2, "bigru_scan_cuda", k2.bigru_scan_reference),
              (k2, "bigru_scan_bwd_cuda", k2.bigru_scan_bwd_reference),
              (k3, "ctc_alpha_cuda", k3.ctc_alpha_reference),
@@ -422,7 +534,8 @@ def _counters():
     from uasr_torch.models import cuda_gru
     from uasr_torch.ops import cuda_beam, cuda_ctc
 
-    return {"K1": (cuda_frontend, "LAUNCHES"), "K2": (cuda_gru, "LAUNCHES"),
+    return {"K1": (cuda_frontend, "LAUNCHES"), "K7": (cuda_frontend, "LAUNCHES_UNFUSED"),
+            "K2": (cuda_gru, "LAUNCHES"),
             "K2-bwd": (cuda_gru, "LAUNCHES_BWD"), "K3": (cuda_ctc, "LAUNCHES"),
             "K3-bwd": (cuda_ctc, "LAUNCHES_BWD"), "K4": (cuda_beam, "LAUNCHES")}
 
@@ -505,7 +618,7 @@ def phase_slice(torch, np, launches: dict) -> None:
         if use_beam:
             check(infer.LAST_BEAM_IMPL == "cuda", f"beam ran {infer.LAST_BEAM_IMPL}")
             check(counts["K4"] > 0, f"beam: K4 not launched {counts}")
-            check(counts["K2-bwd"] == counts["K3"] == counts["K3-bwd"] == 0,
+            check(counts["K2-bwd"] == counts["K3"] == counts["K3-bwd"] == counts["K7"] == 0,
                   f"decode launched a training kernel {counts}")
             launches.update({k: counts[k] for k in ("K1", "K2", "K4")})
             profile_call(torch, lambda: infer.run_inference(run_cfg, model, fstate,
@@ -580,7 +693,7 @@ def phase_train(torch, np, launches: dict) -> None:
     torch.cuda.synchronize()
     print(f"  set-up step (16 s bucket): wall {(time.perf_counter() - t0) * 1e3:.2f} ms, "
           f"loss {loss:.4f}, grad_norm {gnorm:.4f}", flush=True)
-    want = {"K1": 1, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1, "K4": 0}
+    want = {"K1": 1, "K7": 0, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1, "K4": 0}
     total = dict.fromkeys(want, 0)
     for b in batches:
         reset_launches()
@@ -635,6 +748,347 @@ def phase_train(torch, np, launches: dict) -> None:
         check(worst[0] <= tw, f"{dtype}: gradient of {worst[1]} off by {worst[0]:.3e}")
 
 
+def aishell_config():
+    """configs/aishell_streaming.yaml (BASELINE.json config #4) as the
+    recipe gives it; its vocabulary file is absent, so V is the 4233 of
+    the public AISHELL-1 character recipes."""
+    from uasr_torch.config import load_config
+
+    return load_config(os.path.join(REPO, "configs", "aishell_streaming.yaml")).replace(
+        vocab_size=STREAM_V)
+
+
+def aishell_vocab():
+    """Stand-in character set of the AISHELL-1 recipes' size: blank,
+    <unk>, 4230 characters and <sos/eos> (V = 4233)."""
+    from uasr_torch.vocab import BLK, UNK, Vocab
+
+    return Vocab(tokens=[BLK, UNK, *(f"c{i:04d}" for i in range(STREAM_V - 3)), "<sos/eos>"],
+                 blank_id=0)
+
+
+def make_streams(np, cfg, B: int, seed: int):
+    """B seeded random utterances of 1 to 12 s (the first exactly 12 s),
+    zero-padded to whole chunks, with ~4 characters per second of labels:
+    a Batch whose audio the streams are cut from."""
+    from uasr_torch.data.dataset import Batch
+
+    rng = np.random.RandomState(seed)
+    sr = cfg.frontend.sample_rate
+    cs = cfg.frontend.streaming_chunk_frames * cfg.frontend.frame_shift
+    secs = rng.uniform(1.0, STREAM_SECONDS, B)
+    secs[0] = STREAM_SECONDS
+    lens = (secs * sr).astype(np.int32)
+    L = -(-int(lens.max()) // cs) * cs
+    audio = (0.1 * rng.randn(B, L)).astype(np.float32)
+    audio[np.arange(L)[None, :] >= lens[:, None]] = 0.0
+    ulen = np.minimum((secs * 4).astype(np.int32), cfg.data.max_label_len)
+    labels = rng.randint(2, cfg.dim_output - 1, (B, cfg.data.max_label_len)).astype(np.int32)
+    labels[np.arange(labels.shape[1])[None, :] >= ulen[:, None]] = 0
+    return Batch(audio, lens, labels, ulen)
+
+
+def offline_ids(cfg, model, fstate, batch, vocab, dev, use_beam: bool) -> list:
+    """The offline decode (``run_inference``, ``--mode infer``) of a batch:
+    each utterance's token ids, read back from its hypothesis file."""
+    import tempfile
+
+    from uasr_torch import infer
+
+    run_cfg = dataclasses.replace(cfg, ctc=dataclasses.replace(cfg.ctc, use_beam=use_beam))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "hyp.txt")
+        infer.run_inference(run_cfg, model, fstate, [batch], vocab=vocab, hyp_path=path,
+                            device=dev)
+        with open(path) as f:
+            lines = [line.rstrip("\n").split("\t") for line in f]
+    check(len(lines) == len(batch.audio_lengths), f"{len(lines)} hypotheses")
+    if use_beam:
+        check(infer.LAST_BEAM_IMPL == "cuda", f"offline beam ran {infer.LAST_BEAM_IMPL}")
+    return [vocab.encode(toks.split()) if toks else [] for _, toks in lines]
+
+
+def stream_batch(torch, np, rec, batch, per_step=None):
+    """Feed a batch's streams chunk by chunk (host audio, as a server
+    receives it) through init / step / finish. Returns the concatenated
+    step outputs, finish's outputs and each step's latency (s, host clock,
+    ended by reading the step's ids back). ``per_step(launch delta)`` sees
+    each step's kernel launches."""
+    B = len(batch.audio_lengths)
+    cs = rec.chunk_samples
+    st = rec.init(B, batch.audio_lengths)
+    partial = [[] for _ in range(B)]
+    lat = []
+    for off in range(0, batch.audio.shape[1], cs):
+        before = read_launches()
+        t0 = time.perf_counter()
+        st, ids, n = rec.step(st, batch.audio[:, off:off + cs])
+        ids, n = ids.cpu().numpy(), n.cpu().numpy()
+        lat.append(time.perf_counter() - t0)
+        if per_step is not None:
+            after = read_launches()
+            per_step({k: after[k] - before[k] for k in after})
+        for b in range(B):
+            partial[b] += ids[b, : n[b]].tolist()
+    st, ids, n = rec.finish(st)
+    ids, n = ids.cpu().numpy(), n.cpu().numpy()
+    return partial, [ids[b, : n[b]].tolist() for b in range(B)], lat, st
+
+
+def phase_stream(torch, np, launches: dict) -> None:
+    """The streaming path of configs/aishell_streaming.yaml at full width:
+    64 streams of 1 to 12 s through StreamingRecognizer, greedy and beam 8,
+    against the offline decode of the same chunk-padded audio; launch
+    counts per step; latency at B = 64 and B = 8; a profile of one step."""
+    from uasr_torch.frontend.features import make_frontend_state
+    from uasr_torch.models.models import build_model
+    from uasr_torch.serve import StreamingRecognizer
+
+    dev = torch.device(DEVICE)
+    cfg = aishell_config()
+    vocab = aishell_vocab()
+    check(len(vocab) == cfg.dim_output, f"vocabulary of {len(vocab)}")
+    model = build_model(cfg.model, cfg.dim_output, cfg.frontend.dim_input,
+                        generator=torch.Generator().manual_seed(SEED), device=dev)
+    fstate = make_frontend_state(cfg.frontend, device=dev)
+    batch = make_streams(np, cfg, STREAM_B, SEED + 3)
+    calibrate_blank(torch, cfg, model, fstate, batch, dev)
+    rec = StreamingRecognizer(cfg, model, device=dev)
+    chunk_s = rec.chunk_samples / cfg.frontend.sample_rate
+    print(f"stream: {cfg.name} cnn H={cfg.model.hidden_size}, {cfg.model.dtype}, V="
+          f"{cfg.dim_output}, beam {cfg.ctc.beam_width}, {STREAM_B} streams of "
+          f"{batch.audio_lengths.min() / 16000:.2f}-{batch.audio_lengths.max() / 16000:.2f} s, "
+          f"chunk {rec.chunk} frames ({chunk_s} s), window {rec.window} frames", flush=True)
+
+    # offline references: --mode infer on the same chunk-padded audio (the
+    # first call also pays cuDNN / cuBLAS set-up)
+    ref_greedy = offline_ids(cfg, model, fstate, batch, vocab, dev, use_beam=False)
+    ref_beam = offline_ids(cfg, model, fstate, batch, vocab, dev, use_beam=True)
+    cap = cfg.data.max_label_len
+    over = sum(len(r) > cap for r in ref_beam)
+    print(f"  offline: greedy {np.mean([len(r) for r in ref_greedy]):.1f} tokens per "
+          f"utterance, beam {np.mean([len(r) for r in ref_beam]):.1f}; {over} beam transcripts "
+          f"over the {cap}-token prefix cap", flush=True)
+
+    # greedy: the partials, concatenated with finish's tail, are the offline
+    # greedy decode
+    greedy = StreamingRecognizer(
+        dataclasses.replace(cfg, ctc=dataclasses.replace(cfg.ctc, use_beam=False)), model,
+        device=dev)
+    want_greedy = {"K1": 0, "K7": 1, "K2": 0, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0}
+
+    def greedy_step(d):
+        check(d == want_greedy, f"greedy step launches {d}, expected {want_greedy}")
+
+    part, tail, _, _ = stream_batch(torch, np, greedy, batch, greedy_step)
+    got = [p + t for p, t in zip(part, tail)]
+    bad = [b for b in range(STREAM_B) if got[b] != ref_greedy[b]]
+    print(f"  greedy: streamed == offline for {STREAM_B - len(bad)} of {STREAM_B} streams",
+          flush=True)
+    check(not bad, f"greedy streams {bad[:8]} differ from the offline decode")
+
+    # beam 8, the recipe's mode: the main path of this slice, counted
+    want = dict(want_greedy, K4=1)
+    steps = 0
+
+    def beam_step(d):
+        nonlocal steps
+        steps += 1
+        check(d == want, f"beam step launches {d}, expected {want}")
+
+    reset_launches()
+    part, final, lat, _ = stream_batch(torch, np, rec, batch, beam_step)
+    counts = read_launches()
+    print(f"  beam: {steps} steps + finish, launches {counts}", flush=True)
+    check(counts["K7"] == steps and counts["K4"] == steps + 1 and counts["K1"] == 0,
+          f"beam path launches {counts}")
+    launches.update({"K7": counts["K7"], "K4:stream": counts["K4"]})
+    check(sum(len(p) for p in part) > 0, "beam mode emitted no greedy partials")
+    bad = [b for b in range(STREAM_B) if final[b] != ref_beam[b][:cap]]
+    print(f"  beam: finish == offline beam {cfg.ctc.beam_width} for {STREAM_B - len(bad)} of "
+          f"{STREAM_B} streams", flush=True)
+    check(not bad, f"beam streams {bad[:8]} differ from the offline beam decode")
+    report_latency(np, f"B={STREAM_B}", lat[1:], STREAM_B, chunk_s)
+
+    # 8 streams: the daemon's slot count
+    small = make_streams(np, cfg, DAEMON_SLOTS, SEED + 4)
+    _, _, lat8, _ = stream_batch(torch, np, rec, small)
+    report_latency(np, f"B={DAEMON_SLOTS}", lat8[1:], DAEMON_SLOTS, chunk_s)
+
+    # one mid-stream step of 64 streams under the profiler
+    st = rec.init(STREAM_B, batch.audio_lengths)
+    cs = rec.chunk_samples
+    mid = batch.audio.shape[1] // cs // 2
+    for k in range(mid):
+        st, _, _ = rec.step(st, batch.audio[:, k * cs:(k + 1) * cs])
+
+    def one_step():
+        rec.step(st, batch.audio[:, mid * cs:(mid + 1) * cs])[1].cpu()
+
+    profile_call(torch, one_step, f"one streaming step of {STREAM_B} streams")
+
+
+def calibrate_blank(torch, cfg, model, fstate, batch, dev) -> None:
+    """Random weights emit a character at nearly every frame; a trained
+    CTC model emits blank at most. Raise the blank logit's bias to the
+    96th percentile of (best character - blank) over this batch's frames,
+    so few frames emit a character and a 12 s utterance's beam transcript
+    stays under the 64-token prefix cap (data.max_label_len)."""
+    from uasr_torch.frontend.features import compute_features
+
+    audio = torch.as_tensor(batch.audio, device=dev)
+    alen = torch.as_tensor(batch.audio_lengths, device=dev, dtype=torch.long)
+    with torch.inference_mode():
+        logits, n = model(*compute_features(audio, alen, fstate, cfg.frontend))
+        valid = torch.arange(logits.shape[1], device=dev)[None, :] < n[:, None]
+        blank = cfg.ctc.blank_id
+        margin = logits.clone()
+        margin[..., blank] = -float("inf")
+        margin = (margin.max(-1).values - logits[..., blank])[valid]
+        shift = float(torch.quantile(margin.float(), 0.96))
+    with torch.no_grad():
+        model.logits.bias[blank] += shift
+    print(f"  blank logit bias raised by {shift:.4f}", flush=True)
+
+
+def report_latency(np, what: str, lat: list, B: int, chunk_s: float) -> None:
+    """Per-chunk step latency (host clock; each step ends by reading its
+    ids back, which waits for the device) and the real-time factors."""
+    ms = np.asarray(lat) * 1e3
+    p50, p95 = float(np.percentile(ms, 50)), float(np.percentile(ms, 95))
+    print(f"  latency {what}: per-chunk step p50 {p50:.3f} ms p95 {p95:.3f} ms over "
+          f"{len(ms)} steps; one stream runs {chunk_s * 1e3 / p50:.1f}x real time, the batch "
+          f"{B * chunk_s * 1e3 / float(np.mean(ms)):.1f} audio-s/s", flush=True)
+
+
+def phase_daemon(torch, np) -> None:
+    """The TCP serving daemon on localhost with 8 slots. Staggered: 8
+    clients stream their utterances while a ninth is refused as busy.
+    Sustained: 8 clients stream 3 utterances each, one connection per
+    utterance, back to back, with the engine's tick statistics. Every
+    final transcript equals the offline beam decode. Every socket and
+    wait has a timeout."""
+    import threading
+
+    from uasr_torch.frontend.features import make_frontend_state
+    from uasr_torch.models.models import build_model
+    from uasr_torch.tools.serve_daemon import StreamClient, TickStats, create_server
+
+    dev = torch.device(DEVICE)
+    cfg = aishell_config()
+    vocab = aishell_vocab()
+    model = build_model(cfg.model, cfg.dim_output, cfg.frontend.dim_input,
+                        generator=torch.Generator().manual_seed(SEED), device=dev)
+    fstate = make_frontend_state(cfg.frontend, device=dev)
+    rounds = 4
+    batch = make_streams(np, cfg, DAEMON_SLOTS * rounds, SEED + 5)
+    calibrate_blank(torch, cfg, model, fstate, batch, dev)
+    cap = cfg.data.max_label_len
+    ref = [r[:cap] for r in offline_ids(cfg, model, fstate, batch, vocab, dev, use_beam=True)]
+    sr = cfg.frontend.sample_rate
+    wait_s = 120.0
+    server, engine = create_server(cfg, model, port=0, batch=DAEMON_SLOTS, device=dev)
+    srv = threading.Thread(target=server.serve_forever, daemon=True)
+    srv.start()
+    host, port = server.server_address[:2]
+    finals, errors = {}, []
+
+    def stream(c, i):
+        a = batch.audio[i, : batch.audio_lengths[i]]
+        piece = 5120  # 0.32 s per message: the server re-chunks
+        for off in range(0, len(a), piece):
+            c.send_audio(a[off:off + piece])
+        finals[i] = c.finish()
+
+    def connect():
+        """A started client; a refusal while a finished client's slot is
+        being freed is retried."""
+        deadline = time.perf_counter() + wait_s
+        while True:
+            c = StreamClient(host, port, timeout=wait_s)
+            try:
+                c.start()
+                return c
+            except RuntimeError:
+                c.close()
+                check(time.perf_counter() < deadline, "no daemon slot came free")
+                time.sleep(0.001)
+
+    def run_threads(fn):
+        threads = [threading.Thread(target=fn, args=(i,), daemon=True)
+                   for i in range(DAEMON_SLOTS)]
+        for t in threads:
+            t.start()
+        return threads
+
+    def join(threads, what):
+        for t in threads:
+            t.join(wait_s)
+        check(not any(t.is_alive() for t in threads), f"{what}: a client did not finish")
+
+    started = threading.Barrier(DAEMON_SLOTS + 1, timeout=wait_s)
+    go = threading.Event()
+
+    def staggered(i):
+        try:
+            c = StreamClient(host, port, timeout=wait_s)
+            c.start()
+            started.wait()
+            check(go.wait(wait_s), "the clients were never released")
+            time.sleep(0.02 * i)
+            stream(c, i)
+        except Exception as e:  # reported below, after the threads end
+            errors.append(f"client {i}: {e!r}")
+            started.abort()
+
+    def sustained(i):
+        try:
+            for k in range(1, rounds):
+                stream(connect(), i + k * DAEMON_SLOTS)
+        except Exception as e:
+            errors.append(f"client {i}: {e!r}")
+
+    try:
+        threads = run_threads(staggered)
+        started.wait()  # every slot is held
+        extra = StreamClient(host, port, timeout=wait_s)
+        try:
+            extra.start()
+            refused = False
+        except RuntimeError as e:
+            refused = "busy" in str(e)
+        extra.close()
+        go.set()
+        join(threads, "staggered")
+        check(not errors, f"daemon clients failed: {errors}")
+        engine.stats = TickStats()
+        t0 = time.perf_counter()
+        join(run_threads(sustained), "sustained")
+        wall = time.perf_counter() - t0
+        ts = engine.stats
+    finally:
+        server.shutdown()
+        server.server_close()
+        engine.stop()
+        srv.join(wait_s)
+    check(not errors, f"daemon clients failed: {errors}")
+    check(refused, "the ninth client was not refused as busy")
+    check(not srv.is_alive() and not engine._thread.is_alive(), "the daemon did not stop")
+    bad = [i for i in range(len(ref)) if finals[i] != ref[i]]
+    check(not bad, f"daemon finals {bad} differ from the offline beam decode")
+    secs = float(np.sum(batch.audio_lengths[DAEMON_SLOTS:])) / sr
+    n = DAEMON_SLOTS * (rounds - 1)
+    print(f"daemon: {DAEMON_SLOTS} slots; {DAEMON_SLOTS} staggered clients with a ninth refused "
+          f"busy, then {DAEMON_SLOTS} clients x {rounds - 1} utterances back to back; all "
+          f"{len(ref)} finals == offline beam {cfg.ctc.beam_width}; sustained: {n} utterances, "
+          f"{secs:.2f} s of audio in {wall:.3f} s, {secs / wall:.1f} audio-s/s", flush=True)
+    ticks = max(ts.ticks, 1)
+    print(f"  engine, sustained part: {ts.ticks} ticks, {ts.chunks / ticks:.2f} chunks and "
+          f"{ts.live / ticks:.2f} live slots per tick (of {DAEMON_SLOTS}); idle "
+          f"{ts.idle_s:.3f} s, batching window {ts.linger_s:.3f} s over {ts.lingers} waits, "
+          f"ticks {ts.busy_s:.3f} s ({ts.busy_s / ticks * 1e3:.3f} ms per tick)", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -657,9 +1111,12 @@ def main() -> int:
     results: dict = {}
     phase_kernels(torch, np, results)
     phase_train_kernels(torch, np, results)
+    phase_stream_kernels(torch, np, results)
     launches: dict = {}
     phase_slice(torch, np, launches)
     phase_train(torch, np, launches)
+    phase_stream(torch, np, launches)
+    phase_daemon(torch, np)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",
@@ -674,6 +1131,11 @@ def main() -> int:
          "uasr/ops/pallas_ctc.py:64", "K3", "K3"),
         ("K3-bwd CTC beta / d(emit)", "uasr_torch/csrc/ctc_beta.cu",
          "uasr/ops/pallas_ctc.py:89", "K3-bwd", "K3-bwd"),
+        ("K7 unfused log-mel (streaming chunk)", "uasr_torch/csrc/log_mel.cu",
+         "uasr/frontend/pallas_frontend.py:73", "K7", "K7:highest"),
+        (f"K4 CTC prefix beam (streaming chunk, V={STREAM_V}, W={STREAM_W})",
+         "uasr_torch/csrc/ctc_beam.cu", "uasr/ops/pallas_beam.py:70", "K4:stream",
+         f"K4:V{STREAM_V}:chunk"),
     ]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[key], **results[res])

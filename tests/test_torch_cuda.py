@@ -1,12 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and options that chip_smoke.py's full-width run does not
-reach: audio shorter than one frame and the log-energy column (K1), batch
-rows split over several passes and idle hidden units (K2), one-beam and
-full-warp beams, V above a warp, a non-zero blank and zero lengths (K4),
+reach: audio shorter than one frame and the log-energy column (K1, K7),
+batch rows split over several passes and idle hidden units (K2), one-beam
+and full-warp beams, V above a warp and at 4233, a non-zero blank, zero
+lengths, and a decode fed in chunks from a carried state (K4),
 T = 1, odd T, one row and batch rows split over passes (K2-bwd), small and
 large S, a non-zero blank and zero-length rows (K3, K3-bwd), input each
-kernel must refuse, and the encoder and one training step on CUDA against
-the same weights on the CPU.
+kernel must refuse, and the encoder, one training step and the streaming
+recognizer on CUDA against the same weights on the CPU.
 
 Every test needs a CUDA card and skips without one. On the card, from the
 repository root (the package ``uasr`` and JAX are not needed there):
@@ -91,8 +92,16 @@ def test_bigru_kernel_rejects_bad_input(dev, H):
         cuda_gru.bigru_scan_cuda(x, x, wh, bh, tm)
 
 
-@pytest.mark.parametrize("lm_order", [0, 2, 3])
-@pytest.mark.parametrize("W,V,blank", [(1, 5, 0), (3, 40, 2), (32, 7, 0), (8, 12, 11)])
+# small vocabularies (a one-warp CTA) with every LM order; V = 300 and
+# W * V just past 2048 (eight warps); V = 4233, the AISHELL character
+# recipes, where the first version of the kernel asked for more shared
+# memory than a block may have (a trigram table there would not fit)
+BEAM_SMALL = ((1, 5, 0), (3, 40, 2), (32, 7, 0), (8, 12, 11), (16, 300, 0), (32, 65, 3))
+BEAM_CASES = ([(W, V, blank, lm) for W, V, blank in BEAM_SMALL for lm in (0, 2, 3)]
+              + [(W, 4233, 0, lm) for W in (8, 16, 32) for lm in (0, 2)])
+
+
+@pytest.mark.parametrize("W,V,blank,lm_order", BEAM_CASES)
 def test_beam_kernel_matches_plain(dev, W, V, blank, lm_order):
     rng = np.random.RandomState(W * V + lm_order)
     B, T = 5, 23
@@ -108,14 +117,118 @@ def test_beam_kernel_matches_plain(dev, W, V, blank, lm_order):
     got = cuda_beam.ctc_beam_cuda(*args)
     ref = cuda_beam.ctc_beam_reference(*args)
     torch.cuda.synchronize()
-    for a, b in zip(got[:2], ref[:2]):  # backpointers bit-equal
+    _assert_beam_equal(got, ref, blank)
+
+
+def _assert_beam_equal(got, ref, blank):
+    """Backpointers and the carried state bit-equal, and the tracebacks."""
+    for a, b in zip(got[:2], ref[:2]):
         assert torch.equal(a, b)
-    for a, b in zip(got[2:], ref[2:]):
-        assert float((a - b).abs().max()) <= 1e-4
-    ids, n, score = cuda_beam.beam_traceback(*got, blank)
-    r_ids, r_n, r_score = cuda_beam.beam_traceback(*ref, blank)
+    for name, a, b in zip(got[2]._fields, got[2], ref[2]):
+        assert torch.equal(a, b), name
+    ids, n, score = cuda_beam.beam_traceback(*got[:2], got[2].p_b, got[2].p_nb, blank)
+    r_ids, r_n, r_score = cuda_beam.beam_traceback(*ref[:2], ref[2].p_b, ref[2].p_nb, blank)
     assert torch.equal(ids, r_ids) and torch.equal(n, r_n)
     assert float((score - r_score).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("lm_order", [0, 3])
+def test_beam_kernel_carried_chunks_equal_one_pass(dev, lm_order):
+    """K4 fed chunks of one log-prob sequence, each from the state the
+    previous one left, gives one pass's backpointers and state."""
+    rng = np.random.RandomState(11)
+    B, T, V, W = 4, 40, 50, 8
+    logp = torch.log_softmax(torch.tensor(rng.randn(B, T, V) * 3.0, dtype=torch.float32,
+                                          device=dev), -1).contiguous()
+    lengths = torch.tensor([T, 33, 16, 0], device=dev)
+    lm = None
+    if lm_order:
+        lm = torch.tensor(np.log(rng.dirichlet(np.ones(V), (V + 1) ** 2)), dtype=torch.float32,
+                          device=dev)
+    kw = dict(lm_table=lm, lm_order=lm_order, lm_weight=0.5, lm_bonus=0.3)
+    p1, c1, s1 = cuda_beam.ctc_beam_cuda(logp, lengths, W, 0, **kw)
+    state, ps, cs = None, [], []
+    for a, b in ((0, 16), (16, 17), (17, 40)):
+        p, c, state = cuda_beam.ctc_beam_cuda(logp[:, a:b].contiguous(),
+                                              torch.clamp(lengths - a, min=0), W, 0,
+                                              state=state, **kw)
+        ps.append(p)
+        cs.append(c)
+    assert torch.equal(torch.cat(ps), p1) and torch.equal(torch.cat(cs), c1)
+    for name, a, b in zip(s1._fields, s1, state):
+        assert torch.equal(a, b), name
+    _assert_beam_equal((p1, c1, s1), cuda_beam.ctc_beam_reference(logp, lengths, W, 0, **kw), 0)
+
+
+def test_beam_kernel_rejects_beyond_limits(dev):
+    logp = torch.zeros(1, 2, 5, device=dev)
+    before = cuda_beam.LAUNCHES
+    with pytest.raises(ValueError, match="beam_width"):
+        cuda_beam.ctc_beam_cuda(logp, torch.tensor([2], device=dev), 33)
+    with pytest.raises(ValueError, match="vocabulary"):
+        cuda_beam.ctc_beam_cuda(torch.zeros(1, 2, cuda_beam.MAX_VOCAB + 1, device=dev),
+                                torch.tensor([2], device=dev), 8)
+    with pytest.raises(ValueError, match="blank_id"):
+        cuda_beam.ctc_beam_cuda(logp, torch.tensor([2], device=dev), 4, 5)
+    assert cuda_beam.LAUNCHES == before
+
+
+@pytest.mark.parametrize("want_energy", [False, True])
+@pytest.mark.parametrize("precision", sorted(K1_TOL))
+def test_log_mel_unfused_kernel_matches_plain(dev, precision, want_energy):
+    """K7 at the streaming chunk's shape (240 + 64 * 160 samples, 64 frames)
+    and on input shorter than one frame."""
+    cfg = FrontendConfig(num_mel_bins=80)
+    state = make_frontend_state(cfg, device=dev)
+    for L in (240 + 64 * 160, 300):
+        audio = torch.tensor(np.random.RandomState(L).randn(3, L).astype(np.float32) * 0.1,
+                             device=dev)
+        args = (audio, state, cfg.frame_length, cfg.frame_shift, cfg.n_fft)
+        before = cuda_frontend.LAUNCHES_UNFUSED
+        got = cuda_frontend.log_mel_unfused_cuda(*args, precision=precision,
+                                                 want_energy=want_energy)
+        ref = cuda_frontend.log_mel_unfused_reference(*args, precision=precision,
+                                                      want_energy=want_energy)
+        torch.cuda.synchronize()
+        assert cuda_frontend.LAUNCHES_UNFUSED == before + 1
+        assert got.shape == ref.shape == (3, max(1 + (L - 400) // 160, 1), 80 + want_energy)
+        assert float((got - ref).abs().max()) <= K1_TOL[precision]
+
+
+@pytest.mark.parametrize("beam", [False, True])
+def test_streaming_on_card_matches_cpu(dev, beam):
+    """StreamingRecognizer on CUDA (one K7 and, with beam, one K4 per step,
+    no K1) against the same recognizer on the CPU, seeded cnn weights."""
+    from uasr_torch.config import Config, CTCConfig
+    from uasr_torch.serve import StreamingRecognizer
+
+    cfg = Config(frontend=FrontendConfig(num_mel_bins=40, cmvn="streaming",
+                                         streaming_chunk_frames=32),
+                 model=ModelConfig(encoder="cnn", hidden_size=32, conv_kernel=5),
+                 ctc=CTCConfig(use_beam=beam, beam_width=4), vocab_size=12)
+    rng = np.random.RandomState(2)
+    lens = np.array([4 * 5120, 2 * 5120 + 77])
+    audio = (0.3 * rng.randn(2, 4 * 5120)).astype(np.float32)
+    audio[1, lens[1]:] = 0.0
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        model = build_model(cfg.model, 12, 40, generator=torch.Generator().manual_seed(1),
+                            device=d)
+        rec = StreamingRecognizer(cfg, model, device=d)
+        st, got = rec.init(2, lens), []
+        for off in range(0, audio.shape[1], 5120):
+            counts = (cuda_frontend.LAUNCHES, cuda_frontend.LAUNCHES_UNFUSED, cuda_beam.LAUNCHES)
+            st, ids, n = rec.step(st, audio[:, off:off + 5120])
+            got.append((ids.cpu(), n.cpu()))
+            if d.type == "cuda":
+                after = (cuda_frontend.LAUNCHES, cuda_frontend.LAUNCHES_UNFUSED,
+                         cuda_beam.LAUNCHES)
+                assert after == (counts[0], counts[1] + 1, counts[2] + int(beam))
+        _, ids, n = rec.finish(st)
+        got.append((ids.cpu(), n.cpu()))
+        outs.append(got)
+    for (a, na), (b, nb) in zip(*outs):
+        assert torch.equal(a, b) and torch.equal(na, nb)
 
 
 @pytest.mark.parametrize("front", ["conv2d", "patch"])

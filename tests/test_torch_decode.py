@@ -1,21 +1,27 @@
 """The port's decoders (uasr_torch.ops) against the JAX package on the CPU:
 greedy, K4's plain version through ctc_beam_search_decode against the
 Pallas beam kernel in interpret mode and the exact XLA fold beam, with and
-without bigram/trigram LM tables, and batch_edit_distance."""
+without bigram/trigram LM tables, the carried beam state (chunks equal one
+pass; the streaming beam_advance against the JAX package's), and
+batch_edit_distance."""
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from uasr.ops.decode import ctc_beam_init as jax_beam_init
 from uasr.ops.decode import ctc_beam_search_decode as jax_beam
 from uasr.ops.decode import ctc_greedy_decode as jax_greedy
 from uasr.ops.edit_distance import batch_edit_distance as jax_edit_distance
 from uasr.ops.pallas_beam import ctc_beam_search_decode_pallas
+from uasr.serve import beam_advance as jax_beam_advance
 from uasr_torch.ops import cuda_beam
 from uasr_torch.ops.decode import ctc_beam_search_decode, ctc_greedy_decode
 from uasr_torch.ops.edit_distance import batch_edit_distance
+from uasr_torch.serve import beam_advance
 
 
 def _logits(seed, B=4, T=18, V=10, scale=2.0):
@@ -97,3 +103,68 @@ def test_edit_distance_matches_jax(seed):
     ref = jax_edit_distance(*(jnp.asarray(a) for a in (refs, rl, hyps, hl)))
     got = batch_edit_distance(*(torch.tensor(a, dtype=torch.long) for a in (refs, rl, hyps, hl)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_beam_init_matches_jax():
+    j, t = jax_beam_init(3, 5), cuda_beam.beam_init(3, 5)
+    for name, a, b in zip(t._fields, j, t):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a).astype(b.numpy().dtype),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("lm_order", [0, 2])
+@pytest.mark.parametrize("W,V", [(4, 10), (8, 8)])
+def test_beam_steps_chunks_equal_one_pass(W, V, lm_order):
+    """The recursion fed in chunks, each from the state the previous one
+    left, gives one pass's bits: backpointers, and the state after each
+    chunk (lengths end inside and before chunks)."""
+    logits, lengths, rng = _logits(7, B=4, T=18, V=V)
+    logp = torch.log_softmax(torch.tensor(logits), -1)
+    lens = torch.tensor(lengths, dtype=torch.long)
+    lm = torch.tensor(_lm(rng, lm_order, V)) if lm_order else None
+    kw = dict(lm_table=lm, lm_order=lm_order, lm_weight=0.5, lm_bonus=0.3)
+    p1, c1, s1 = cuda_beam.ctc_beam_steps(logp, lens, W, 0, **kw)
+    state, parts = None, []
+    for a, b in ((0, 5), (5, 6), (6, 18)):
+        p, c, state = cuda_beam.ctc_beam_steps(logp[:, a:b].contiguous(),
+                                               torch.clamp(lens - a, min=0), W, 0,
+                                               state=state, **kw)
+        parts.append((p, c))
+    assert torch.equal(torch.cat([p for p, _ in parts]), p1)
+    assert torch.equal(torch.cat([c for _, c in parts]), c1)
+    for name, a, b in zip(s1._fields, s1, state):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("W,V", [(8, 8), (4, 40), (8, 300)])
+def test_beam_advance_matches_jax(W, V):
+    """The streaming beam over three chunks against the JAX package's
+    beam_advance (ctc_beam_scan, exact candidate set): prefixes and their
+    lengths bit-equal, p_b / p_nb to 1e-4."""
+    B, K, L = 3, 6, 12
+    rng = np.random.RandomState(V)
+    logp = np.asarray(jax.nn.log_softmax(jnp.asarray(rng.randn(B, 3 * K, V) * 3.0), -1),
+                      np.float32)
+    ulen = np.array([3 * K, 2 * K - 2, 4])
+    jb, jp, jl = jax_beam_init(B, W), jnp.full((B, W, L), -1, jnp.int32), jnp.zeros((B, W),
+                                                                                    jnp.int32)
+    tb, tp = cuda_beam.beam_init(B, W), torch.full((B, W, L), -1, dtype=torch.int32)
+    tl = torch.zeros(B, W, dtype=torch.long)
+    step = jax.jit(lambda b, p, n, x, m: jax_beam_advance(b, p, n, x, m, prune=V))
+    for k in range(3):
+        lp = logp[:, k * K:(k + 1) * K]
+        lens = np.clip(ulen - k * K, 0, K)
+        jb, jp, jl = step(jb, jp, jl, jnp.asarray(lp), jnp.asarray(lens))
+        tb, tp, tl = beam_advance(tb, tp, tl, torch.tensor(lp), torch.tensor(lens))
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp), err_msg=f"chunk {k}")
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl), err_msg=f"chunk {k}")
+        for name in ("p_b", "p_nb"):
+            np.testing.assert_allclose(getattr(tb, name).numpy(), np.asarray(getattr(jb, name)),
+                                       rtol=0, atol=1e-4, err_msg=f"chunk {k} {name}")
+    # the best beam's prefix is the offline beam decode of the whole logp,
+    # cut at the prefix cap L
+    best = cuda_beam._logaddexp(tb.p_b, tb.p_nb).argmax(1)
+    ids, n, _ = ctc_beam_search_decode(torch.tensor(logp), torch.tensor(ulen), W)
+    for b in range(B):
+        got = tp[b, best[b], : tl[b, best[b]]].tolist()
+        assert got == ids[b, : min(int(n[b]), L)].tolist()

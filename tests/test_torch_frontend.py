@@ -97,12 +97,20 @@ def test_log_mel_fused_on_cpu_runs_plain_version():
                                               cfg.frame_shift, cfg.n_fft).numpy())
 
 
-def test_streaming_cmvn_not_ported():
-    cfg = FrontendConfig(cmvn="streaming")
-    audio, lengths = _audio(B=1)
-    with pytest.raises(NotImplementedError, match="streaming"):
-        compute_features(torch.tensor(audio), torch.tensor(lengths),
-                         make_frontend_state(cfg, device="cpu"), cfg)
+def test_streaming_cmvn_matches_jax():
+    """cmvn="streaming" (the chunked frontend) with deltas, splice and
+    downsample matches the jitted JAX compute_features."""
+    kw = dict(num_mel_bins=24, cmvn="streaming", streaming_chunk_frames=8, add_deltas=True,
+              splice_left=1, downsample=2)
+    jcfg, cfg = JaxFrontendConfig(**kw), FrontendConfig(**kw)
+    audio, lengths = _audio(B=2)
+    jstate = jax_make_state(jcfg)
+    jf, jl = jax.jit(lambda a, n: jax_compute_features(a, n, jstate, jcfg))(audio, lengths)
+    tf, tl = compute_features(torch.tensor(audio), torch.tensor(lengths),
+                              make_frontend_state(cfg, device="cpu"), cfg)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    assert tf.shape == jf.shape
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=0, atol=1e-4)
 
 
 def test_frontend_state_from_config_matches_jax(tmp_path):

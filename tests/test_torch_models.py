@@ -1,5 +1,6 @@
-"""The port's ConvBiGRUEncoder (uasr_torch.models) on weights converted from
-flax (uasr_torch.convert) against the JAX package's encoder on the CPU."""
+"""The port's ConvBiGRUEncoder and CNNEncoder (uasr_torch.models) on weights
+converted from flax (uasr_torch.convert) against the JAX package's encoders
+on the CPU."""
 
 import numpy as np
 import pytest
@@ -77,9 +78,58 @@ def test_seeded_init_and_families():
     wh = a.bigru0.wh[0]
     np.testing.assert_allclose((wh @ wh.T).detach().numpy(), np.eye(8), atol=1e-5)  # orthonormal rows
     assert encoder_time_subsample(cfg) == 4
-    for enc in ("cnn", "transformer", "conformer", "uni_gru", "lc_bigru", "classifier"):
+    for enc in ("transformer", "conformer", "uni_gru", "lc_bigru", "classifier"):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(ModelConfig(encoder=enc), V, D, device="cpu")
+    cnn = ModelConfig(encoder="cnn", hidden_size=8, conv_kernel=5)
+    assert encoder_time_subsample(cnn) == 2
+    build_model(cnn, V, D, device="cpu")
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        build_model(ModelConfig(encoder="cnn", int8_compute=True), V, D, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(cfg, V, D)
+
+
+def _cnn_models(dtype, T, seed=0, layers=2):
+    kw = dict(encoder="cnn", hidden_size=32, num_conv_layers=layers, conv_time_stride=2,
+              conv_kernel=5, dtype=dtype)
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(3, T, D).astype(np.float32)
+    lengths = np.array([T, T - 5, 3], np.int32)
+    jmodel = jax_build_model(JaxModelConfig(**kw), V)
+    params = jmodel.init(jax.random.PRNGKey(seed), feats, lengths)
+    cfg = ModelConfig(**kw)
+    model = build_model(cfg, V, D, device="cpu")
+    model.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, params), cfg))
+    return jmodel, params, model, feats, lengths
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,layers", [(17, 2), (18, 2), (24, 1), (21, 3)])
+def test_cnn_encoder_matches_flax(T, layers, dtype):
+    """Odd and even lengths: flax's SAME padding of the stride-2, kernel-5
+    conv is lo 1 / hi 2 on even lengths, and the dilated convs pad
+    (k-1)*d split lo/hi."""
+    jmodel, params, model, feats, lengths = _cnn_models(dtype, T, layers=layers)
+    jl, jn = jax.jit(jmodel.apply)(params, feats, lengths)
+    with torch.no_grad():
+        tl, tn = model(torch.tensor(feats), torch.tensor(lengths, dtype=torch.long))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    assert tl.dtype == torch.float32 and tl.shape == jl.shape
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=TOL[dtype])
+
+
+def test_cnn_padding_invariance_and_bridge_keys():
+    _, params, model, feats, lengths = _cnn_models("float32", 24)
+    bridged = flax_to_state_dict(jax.tree.map(np.asarray, params), model.cfg)
+    assert set(bridged) == set(model.state_dict())
+    lens = torch.tensor(lengths, dtype=torch.long)
+    padded = np.pad(feats, ((0, 0), (0, 16), (0, 0)))
+    with torch.no_grad():
+        a, la = model(torch.tensor(feats), lens)
+        b, lb = model(torch.tensor(padded), lens)
+    np.testing.assert_array_equal(la.numpy(), lb.numpy())
+    for i, t in enumerate(la.tolist()):
+        np.testing.assert_allclose(a[i, :t].numpy(), b[i, :t].numpy(), rtol=0, atol=2e-5)
+        assert not b[i, t:].any()  # padding frames stay zero

@@ -190,9 +190,12 @@ def _train_ctc(cfg, examples, device):
     return 0
 
 
-def _infer(cfg, examples, vocab, device):
+def restore_trainer(cfg, device):
+    """(trainer, step): a ``CTCTrainer`` whose model holds the newest
+    checkpoint under ``model_dir/ckpt`` (the average of the newest
+    ``train.average_checkpoints``, or ``best_ckpt`` with
+    ``train.restore_best``). Exits when there is none."""
     from uasr_torch.checkpoint import CheckpointManager, restore_averaged
-    from uasr_torch.infer import run_inference
     from uasr_torch.train import CTCTrainer
 
     ckpt_dir = f"{cfg.model_dir}/ckpt"
@@ -208,10 +211,18 @@ def _infer(cfg, examples, vocab, device):
         restored = restore_averaged(mgr, template, cfg.train.average_checkpoints)
     else:
         restored = mgr.restore_latest(template)
+    mgr.close()
     if restored is None:
         raise SystemExit(f"no checkpoint under {ckpt_dir}")
     state, step = restored
     trainer.model.load_state_dict(state.params)
+    return trainer, step
+
+
+def _infer(cfg, examples, vocab, device):
+    from uasr_torch.infer import run_inference
+
+    trainer, step = restore_trainer(cfg, device)
     res = run_inference(
         cfg, trainer.model, trainer.frontend_state,
         _batches(cfg, examples, num_epochs=1, drop_remainder=False),
@@ -221,7 +232,6 @@ def _infer(cfg, examples, vocab, device):
            if cfg.train.average_checkpoints > 1 else "")
     print(f"step {step}{avg}: PER={res['per']:.4f} RTF={res['rtf']:.4f} "
           f"({res['audio_seconds']:.1f}s audio)")
-    mgr.close()
     return 0
 
 

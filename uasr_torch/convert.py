@@ -7,8 +7,11 @@ top-level ``"params"`` key); nothing here imports jax. Layouts:
 
 - Dense ``kernel [in, out]`` -> ``weight [out, in]``;
 - Conv ``kernel [kh, kw, in, out]`` -> ``[out, in, kh, kw]``, and the
-  patch front's context conv ``[k, in, out]`` -> ``[out, in, k]``;
-- LayerNorm ``scale`` -> ``weight``;
+  1-D convs (the patch front's context conv, the cnn encoder's convs)
+  ``[k, in, out]`` -> ``[out, in, k]``;
+- LayerNorm ``scale`` -> ``weight``; flax names the cnn encoder's unnamed
+  LayerNorms ``LayerNorm_0..`` in creation order (its convs', then the
+  dilated stack's), which the port's ``norm{i}`` follow;
 - BiGRU ``wx [2, D, 3H]``, ``wh [2, H, 3H]``, ``bx``/``bh [2, 3H]`` stay
   grouped, gate order r, z, n.
 """
@@ -35,13 +38,34 @@ def _norm(out: dict, name: str, p: dict) -> None:
     out[f"{name}.bias"] = _t(p["bias"])
 
 
+def _conv1d(out: dict, name: str, p: dict) -> None:
+    out[f"{name}.weight"] = _t(np.transpose(p["kernel"], (2, 1, 0)))
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _cnn(p: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    n = max(cfg.num_conv_layers, 1)
+    for i in range(n):
+        _conv1d(out, f"conv{i}", p[f"conv{i}"])
+    for i in range(2):
+        _conv1d(out, f"dil{i}", p[f"dil{i}"])
+    for i in range(n + 2):
+        _norm(out, f"norm{i}", p[f"LayerNorm_{i}"])
+    _dense(out, "logits", p["logits"])
+    return out
+
+
 def flax_to_state_dict(params: dict, cfg: ModelConfig | Config) -> dict[str, torch.Tensor]:
-    """Map a ``ConvBiGRUEncoder`` flax tree onto ``uasr_torch`` names."""
+    """Map a ``ConvBiGRUEncoder`` or ``CNNEncoder`` flax tree onto
+    ``uasr_torch`` names."""
     if isinstance(cfg, Config):
         cfg = cfg.model
+    p = params.get("params", params)
+    if cfg.encoder == "cnn":
+        return _cnn(p, cfg)
     if cfg.encoder != "conv_bigru":
         raise NotImplementedError(f"weight bridge for encoder {cfg.encoder!r} is not ported yet")
-    p = params.get("params", params)
     out: dict[str, torch.Tensor] = {}
     if cfg.conv_front == "patch":
         q = p["patch"]

@@ -1,6 +1,6 @@
 """Acoustic frontend in PyTorch (counterpart of ``uasr.frontend.features``).
 
-The whole non-streaming chain runs on the tensors' device: pre-emphasis,
+The whole chain runs on the tensors' device: pre-emphasis,
 framing, window, DFT power (as products against precomputed cos/sin
 bases), mel, log, MFCC, deltas, CMVN, splice and downsample. Padded
 batches reproduce the per-utterance results on the valid frames: CMVN
@@ -11,7 +11,8 @@ With ``FrontendConfig.use_pallas`` the log-mel hot path goes through
 ``cuda_frontend.log_mel_fused``: the hand-written kernel K1 for CUDA
 tensors, its plain PyTorch version for CPU tensors. Otherwise the
 unfused path below (pre-emphasis pass, explicit frames, two DFT
-products) runs on any device.
+products) runs on any device. ``cmvn="streaming"`` goes through the
+chunked frontend of ``uasr_torch.frontend.streaming`` (kernel K7).
 """
 
 from __future__ import annotations
@@ -288,10 +289,17 @@ def compute_features(
 
     Frames past an utterance's length are zeroed."""
     if cfg.cmvn == "streaming":
-        raise NotImplementedError(
-            "cmvn='streaming' (chunked streaming frontend) is not ported yet "
-            "(ROADMAP.md Queue 1, streaming slice)"
-        )
+        # causal chunked frontend with running CMVN: frame t ends at sample
+        # (t+1)*frame_shift and is normalised by statistics of frames <= t
+        from uasr_torch.frontend.streaming import streaming_features
+
+        feat = streaming_features(audio, state, cfg)
+        lengths = torch.clamp(torch.div(audio_lengths + cfg.frame_shift - 1, cfg.frame_shift,
+                                        rounding_mode="floor"), max=feat.shape[1])
+        if cfg.add_deltas:
+            feat = add_deltas(feat, lengths, cfg.delta_window)
+        feat, lengths = splice_and_downsample(feat, lengths, cfg)
+        return feat * _frame_mask(feat.shape[1], lengths), lengths
     if cfg.use_pallas:
         from uasr_torch.frontend.cuda_frontend import log_mel_fused
 

@@ -1,5 +1,5 @@
 """Building blocks (counterpart of ``uasr.models.layers``): the BiGRU with
-reset-after gates, the strided conv block, and the small parameter
+reset-after gates, the strided conv blocks, and the small parameter
 holders the encoders share.
 
 Parameters are float32 and the compute dtype is applied in ``forward``
@@ -76,6 +76,31 @@ def same_padding(n: int, k: int, s: int) -> tuple[int, int]:
     out = -(-n // s)
     total = max((out - 1) * s + k - n, 0)
     return total // 2, total - total // 2
+
+
+class Conv1d(nn.Module):
+    """flax ``nn.Conv`` over time: [B, T, C_in] -> [B, T', C_out] in the
+    compute dtype, "SAME" padding split as XLA splits it (low gets the
+    smaller half: lo 1 / hi 2 for a stride-2, kernel-5 conv on an even
+    length; (k-1)*d split lo/hi for a stride-1 dilated conv). Weight
+    [out, in, k]."""
+
+    def __init__(self, in_dim: int, out_dim: int, kernel: int, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__()
+        self.kernel, self.stride, self.dilation = kernel, stride, dilation
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim, kernel))
+        self.bias = nn.Parameter(torch.empty(out_dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.weight, self.weight[0].numel(), generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        lo, hi = same_padding(x.shape[1], (self.kernel - 1) * self.dilation + 1, self.stride)
+        y = F.conv1d(F.pad(x.to(dtype).transpose(1, 2), (lo, hi)), self.weight.to(dtype),
+                     self.bias.to(dtype), stride=self.stride, dilation=self.dilation)
+        return y.transpose(1, 2)
 
 
 class ConvBlock(nn.Module):

@@ -2,8 +2,10 @@
 
 Ported so far: ``ConvBiGRUEncoder`` (conv or patch subsampling front ->
 N x BiGRU -> f32 dense logits incl. blank), the supervised CTC acoustic
-model. ``build_model`` raises ``NotImplementedError`` for the other
-families until their slices land (ROADMAP.md Queue 1).
+model, and ``CNNEncoder`` (strided conv, dilated residual stack, f32
+dense logits), the streaming recipe's encoder. ``build_model`` raises
+``NotImplementedError`` for the other families until their slices land
+(ROADMAP.md Queue 1).
 
 All encoders take (features [B, T, D], lengths [B]) and return
 (logits [B, T', V], lengths [B]). ``model.dropout`` acts after each BiGRU
@@ -20,7 +22,7 @@ from torch import nn
 from uasr_torch import resolve_device
 from uasr_torch.config import ModelConfig
 from uasr_torch.models.layers import (
-    BiGRU, ConvBlock, Dense, LayerNorm, conv_out_length, lecun_normal_, same_padding,
+    BiGRU, Conv1d, ConvBlock, Dense, LayerNorm, conv_out_length, lecun_normal_, same_padding,
 )
 
 
@@ -147,6 +149,52 @@ class ConvBiGRUEncoder(nn.Module):
         return logits.transpose(0, 1), lengths
 
 
+class CNNEncoder(nn.Module):
+    """Pure-CNN CTC encoder: ``num_conv_layers`` convs over time (the first
+    strided by ``conv_time_stride``), a 2-layer residual stack dilated 2
+    and 4, LayerNorm (eps 1e-6) + ReLU after each conv, f32 dense logits.
+    Padding frames are zeroed after every block, so results do not depend
+    on batch padding. ``norm{i}`` follow flax's ``LayerNorm_{i}`` in
+    creation order: the convs', then the dilated stack's."""
+
+    def __init__(self, cfg: ModelConfig, vocab_size: int, input_dim: int):
+        super().__init__()
+        if cfg.int8_compute:
+            raise NotImplementedError(
+                "model.int8_compute (int8 tensor-core GEMMs) is not ported yet "
+                "(ROADMAP.md Queue 1, slice 5: quantize and export)")
+        self.cfg = cfg
+        H, k = cfg.hidden_size, cfg.conv_kernel
+        self.n_conv = max(cfg.num_conv_layers, 1)
+        for i in range(self.n_conv):
+            self.add_module(f"conv{i}", Conv1d(input_dim if i == 0 else H, H, k,
+                                               stride=cfg.conv_time_stride if i == 0 else 1))
+        for i in range(2):
+            self.add_module(f"dil{i}", Conv1d(H, H, k, dilation=2 ** (i + 1)))
+        for i in range(self.n_conv + 2):
+            self.add_module(f"norm{i}", LayerNorm(H))
+        self.logits = Dense(H, vocab_size)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for mod in self.children():
+            mod.reset_parameters(generator)
+
+    def forward(self, feats: torch.Tensor, lengths: torch.Tensor):
+        dt = _dtype(self.cfg)
+        x = feats.to(dt) * _length_mask(feats, lengths)
+        for i in range(self.n_conv):
+            conv = getattr(self, f"conv{i}")
+            x = F.relu(getattr(self, f"norm{i}")(conv(x, dt)))
+            if conv.stride > 1:
+                lengths = torch.clamp(conv_out_length(lengths, conv.stride, 1), max=x.shape[1])
+            x = x * _length_mask(x, lengths)
+        for i in range(2):
+            y = getattr(self, f"norm{self.n_conv + i}")(getattr(self, f"dil{i}")(x, dt))
+            x = (x + F.relu(y)) * _length_mask(x, lengths)  # residual dilated stack
+        logits = self.logits(x, torch.float32)
+        return logits * _length_mask(logits, lengths), lengths
+
+
 def encoder_time_subsample(cfg: ModelConfig) -> int:
     """Total time-axis subsampling factor of an encoder (logits frames
     per input feature frame)."""
@@ -169,7 +217,7 @@ def build_model(cfg: ModelConfig, vocab_size: int, input_dim: int,
             "model.sequence_shard applies to the attention encoders "
             f"(transformer/conformer), not {cfg.encoder!r}"
         )
-    if cfg.encoder in ("lc_bigru", "uni_gru", "cnn", "transformer", "conformer"):
+    if cfg.encoder in ("lc_bigru", "uni_gru", "transformer", "conformer"):
         raise NotImplementedError(
             f"encoder {cfg.encoder!r} is not ported yet "
             "(ROADMAP.md Queue 1, slice 3: the other CTC encoders)"
@@ -179,10 +227,11 @@ def build_model(cfg: ModelConfig, vocab_size: int, input_dim: int,
             "encoder 'classifier' is not ported yet (ROADMAP.md Queue 1: "
             "the unsupervised GAN/EODM slice)"
         )
-    if cfg.encoder != "conv_bigru":
+    families = {"conv_bigru": ConvBiGRUEncoder, "cnn": CNNEncoder}
+    if cfg.encoder not in families:
         raise ValueError(f"unknown encoder {cfg.encoder!r}")
     device = resolve_device(device)
-    model = ConvBiGRUEncoder(cfg, vocab_size, input_dim)
+    model = families[cfg.encoder](cfg, vocab_size, input_dim)
     model.reset_parameters(generator if generator is not None
                            else torch.Generator().manual_seed(0))
     return model.to(device).eval()

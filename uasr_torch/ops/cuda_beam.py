@@ -1,5 +1,5 @@
 """K4, exact CTC prefix beam search: wrapper of ``csrc/ctc_beam.cu``, its
-plain PyTorch version, and the traceback that rebuilds the best prefix.
+plain PyTorch version, and the tracebacks that rebuild prefixes.
 
 Counterpart of ``uasr/ops/pallas_beam.py`` (TPU kernel ``_beam_kernel``;
 the traceback and compaction of ``ctc_beam_search_decode_pallas``).
@@ -9,11 +9,18 @@ semantics exactly: W*V extends then W stays per step, hash-fold of the
 one possible duplicate, top-W by W rounds of (max, lowest-index argmax),
 hashes wrapping mod 2^32, per-slot sentinels for dead beams, frozen
 finished utterances.
+
+Both take the beam state to start from and return the state after the
+last step (``BeamState``; a fresh one is ``beam_init``), so a decode fed
+in chunks, each from the state the previous chunk left, gives the same
+bits as one pass: the streaming beam of ``uasr_torch.serve`` (the JAX
+package's ``ctc_beam_scan`` carried in ``_BeamState``).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +34,41 @@ _HASH2_MULT = 40503
 _SENT1 = 0xC0000000  # dead-slot sentinel bases (-0x40000000, -0x20000000
 _SENT2 = 0xE0000000  # as 32-bit patterns)
 _M32 = 0xFFFFFFFF
+# the kernel's limits: one register list of up to 32 beams per thread, and
+# 8 V bytes of shared memory (the log-prob row and a fold mark per symbol)
+MAX_BEAM = 32
+MAX_VOCAB = 16384
+
+
+class BeamState(NamedTuple):
+    """Carried prefix-beam state (``uasr.ops.decode._BeamState``), [B, W]
+    each; the hashes are int32 tensors holding the uint32 bit patterns."""
+
+    last: torch.Tensor  # last symbol, -1 if empty
+    last2: torch.Tensor  # second-to-last symbol (trigram LM history)
+    hash1: torch.Tensor
+    hash2: torch.Tensor
+    p_b: torch.Tensor  # log prob of the prefix ending in blank
+    p_nb: torch.Tensor  # ending in non-blank
+
+
+def beam_init(batch: int, beam_width: int, device="cpu") -> BeamState:
+    """Fresh state: one live beam, the empty prefix with p_b = 1
+    (``ctc_beam_init``)."""
+    B, W = batch, beam_width
+    full = lambda v, dt: torch.full((B, W), v, dtype=dt, device=device)  # noqa: E731
+    p_b = full(NEG, torch.float32)
+    p_b[:, 0] = 0.0
+    return BeamState(full(-1, torch.int32), full(-1, torch.int32), full(0, torch.int32),
+                     full(0, torch.int32), p_b, full(NEG, torch.float32))
+
+
+def _u32(h: torch.Tensor) -> torch.Tensor:
+    return h.long() & _M32
+
+
+def _i32(h: torch.Tensor) -> torch.Tensor:
+    return torch.where(h >= 2 ** 31, h - 2 ** 32, h).to(torch.int32)
 
 
 def _logaddexp(a, b):
@@ -45,29 +87,29 @@ def _hash_mul(h: torch.Tensor, mult: int) -> torch.Tensor:
 
 def ctc_beam_reference(logp, lengths, beam_width: int, blank_id: int = 0,
                        lm_table=None, lm_order: int = 0, lm_weight: float = 1.0,
-                       lm_bonus: float = 0.0):
+                       lm_bonus: float = 0.0, state: BeamState | None = None):
     """Plain version of K4, vectorised over the batch.
 
     logp [B, T, V] f32 log-softmax, lengths [B]; lm_table [H, V] f32
     (bigram H = V+1, trigram H = (V+1)^2 with row hist2 * (V+1) + hist)
-    when lm_order is 2 or 3. Returns parents, chars [T, B, W] int32 and
-    the final pb, pnb [B, W] f32.
+    when lm_order is 2 or 3; ``state`` to start from (``beam_init`` if
+    None). Returns parents, chars [T, B, W] int32 and the state after the
+    last step.
     """
     B, T, V = logp.shape
     W = beam_width
     WV, K = W * V, W * V + W
     dev = logp.device
+    if state is None:
+        state = beam_init(B, W, dev)
     lengths = lengths.to(dev)
     sym = torch.arange(V, device=dev)
     w_idx = torch.arange(W, device=dev)[None, :]
     k_idx = torch.arange(K, device=dev)[None, :]
     earlier = w_idx.T < w_idx  # [W'(src wp), W'(dst wp)]: src before dst
-    last = torch.full((B, W), -1, dtype=torch.long, device=dev)
-    last2 = last.clone()
-    h1 = torch.zeros(B, W, dtype=torch.long, device=dev)
-    h2 = h1.clone()
-    pb = torch.where(w_idx == 0, 0.0, NEG).to(torch.float32).expand(B, W)
-    pnb = torch.full((B, W), NEG, dtype=torch.float32, device=dev)
+    last, last2 = state.last.long(), state.last2.long()
+    h1, h2 = _u32(state.hash1), _u32(state.hash2)
+    pb, pnb = state.p_b.float(), state.p_nb.float()
     parents = torch.empty(T, B, W, dtype=torch.int32, device=dev)
     chars = torch.empty(T, B, W, dtype=torch.int32, device=dev)
     for t in range(T):
@@ -136,57 +178,75 @@ def ctc_beam_reference(logp, lengths, beam_width: int, blank_id: int = 0,
         pnb = torch.where(active, s_pnb, pnb)
         parents[t] = torch.where(active, parent, w_idx)
         chars[t] = torch.where(active, ch, -1)
-    return parents, chars, pb.contiguous(), pnb
+    new = BeamState(last.to(torch.int32), last2.to(torch.int32), _i32(h1), _i32(h2),
+                    pb.contiguous(), pnb)
+    return parents, chars, new
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ctc_beam")
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.uasr_ctc_beam.argtypes = [P, P, P, I, Fl, Fl, I, I, I, I, I, P, P, P, P, P, I]
+    lib.uasr_ctc_beam.argtypes = [P, P, P, I, Fl, Fl, I, I, I, I, I, P, P, P, P, P, P, P, I]
     lib.uasr_ctc_beam.restype = I
     return lib
 
 
 def ctc_beam_cuda(logp, lengths, beam_width: int, blank_id: int = 0, lm_table=None,
-                  lm_order: int = 0, lm_weight: float = 1.0, lm_bonus: float = 0.0):
+                  lm_order: int = 0, lm_weight: float = 1.0, lm_bonus: float = 0.0,
+                  state: BeamState | None = None):
     """Launch K4 on CUDA tensors; same contract as the plain version."""
     global LAUNCHES
     B, T, V = logp.shape
     W = beam_width
-    if not 1 <= W <= 32:
-        raise ValueError(f"beam kernel takes 1 <= beam_width <= 32, got {W}")
+    if not 1 <= W <= MAX_BEAM:
+        raise ValueError(f"beam kernel takes 1 <= beam_width <= {MAX_BEAM}, got {W}")
+    if not 1 <= V <= MAX_VOCAB:
+        raise ValueError(f"beam kernel takes a vocabulary of 1..{MAX_VOCAB} symbols, got {V}")
     if logp.dtype != torch.float32 or not logp.is_contiguous():
         raise ValueError("beam kernel takes contiguous float32 log-probs")
+    if not 0 <= blank_id < V:
+        raise ValueError(f"blank_id {blank_id} outside the vocabulary of {V}")
     if (lm_table is None) != (lm_order == 0):
         raise ValueError("lm_table and lm_order must be given together")
     if lm_table is not None and (lm_table.dtype != torch.float32 or not lm_table.is_contiguous()
                                  or lm_table.device != logp.device):
         raise ValueError("beam kernel takes a contiguous float32 LM table on the logits' device")
-    lens = lengths.to(device=logp.device, dtype=torch.int32).contiguous()
     dev = logp.device
+    if state is None:
+        state = beam_init(B, W, dev)
+    istate = torch.stack([state.last, state.last2, state.hash1, state.hash2]).to(
+        device=dev, dtype=torch.int32).contiguous()
+    fstate = torch.stack([state.p_b, state.p_nb]).to(device=dev, dtype=torch.float32).contiguous()
+    if istate.shape != (4, B, W):
+        raise ValueError(f"beam state of shape {tuple(istate.shape[1:])}, expected {(B, W)}")
+    lens = lengths.to(device=dev, dtype=torch.int32).contiguous()
     parents = torch.empty(T, B, W, dtype=torch.int32, device=dev)
     chars = torch.empty(T, B, W, dtype=torch.int32, device=dev)
-    pb = torch.empty(B, W, dtype=torch.float32, device=dev)
-    pnb = torch.empty(B, W, dtype=torch.float32, device=dev)
+    istate_out = torch.empty_like(istate)
+    fstate_out = torch.empty_like(fstate)
     lib = _lib()
     code = lib.uasr_ctc_beam(
         logp.data_ptr(), lens.data_ptr(), None if lm_table is None else lm_table.data_ptr(),
         lm_order, float(lm_weight), float(lm_bonus), T, B, V, W, blank_id,
-        parents.data_ptr(), chars.data_ptr(), pb.data_ptr(), pnb.data_ptr(),
+        istate.data_ptr(), fstate.data_ptr(), parents.data_ptr(), chars.data_ptr(),
+        istate_out.data_ptr(), fstate_out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
         dev.index if dev.index is not None else torch.cuda.current_device(),
     )
     _build.check(lib, code, "ctc_beam kernel")
     LAUNCHES += 1
-    return parents, chars, pb, pnb
+    return parents, chars, BeamState(*istate_out.unbind(0), *fstate_out.unbind(0))
 
 
 def ctc_beam_steps(logp, lengths, beam_width: int, blank_id: int = 0, lm_table=None,
-                   lm_order: int = 0, lm_weight: float = 1.0, lm_bonus: float = 0.0):
-    """The beam recursion: K4 for CUDA tensors, the plain version for CPU
-    tensors. Returns (parents, chars [T, B, W], pb, pnb [B, W])."""
+                   lm_order: int = 0, lm_weight: float = 1.0, lm_bonus: float = 0.0,
+                   state: BeamState | None = None):
+    """The beam recursion from ``state`` (fresh if None): K4 for CUDA
+    tensors, the plain version for CPU tensors. Returns (parents, chars
+    [T, B, W], the state after the last step)."""
     fn = ctc_beam_cuda if logp.is_cuda else ctc_beam_reference
-    return fn(logp, lengths, beam_width, blank_id, lm_table, lm_order, lm_weight, lm_bonus)
+    return fn(logp, lengths, beam_width, blank_id, lm_table, lm_order, lm_weight, lm_bonus,
+              state)
 
 
 def compact_left(values: torch.Tensor, keep: torch.Tensor, fill: int) -> torch.Tensor:
@@ -197,27 +257,31 @@ def compact_left(values: torch.Tensor, keep: torch.Tensor, fill: int) -> torch.T
     return out.scatter(1, pos, values)[:, :T]
 
 
-def beam_traceback(parents, chars, pb, pnb, blank_id: int = 0):
-    """Rebuild the best prefix from the backpointers: (ids [B, T] padded
-    with blank_id, lengths [B], best log-prob [B]).
+def ancestor_maps(parents: torch.Tensor) -> torch.Tensor:
+    """[T, B, W]: entry [t, b, w] is the beam after step t that beam w of
+    the last step descends from.
 
-    The beam a step-t survivor descends from at step t' < t is a
-    composition of the parent maps in between; pointer doubling builds
-    every suffix composition in ceil(log2 T) batched gathers instead of a
-    T-step loop, with the same integer result as walking back one step at
-    a time."""
+    The map at step t composes the parent maps of the steps after it;
+    pointer doubling builds every suffix composition in ceil(log2 T)
+    batched gathers instead of a T-step loop, with the same integers as
+    walking back one step at a time."""
     T, B, W = parents.shape
-    total = _logaddexp(pb, pnb)
-    best = total.argmax(1)  # first maximum, as jnp.argmax
-    # maps[t][b, w]: beam at step t that beam w of the last step descends
-    # from; starts as the one-step map parents[t + 1] (identity at T-1)
-    ident = torch.arange(W, device=pb.device).expand(1, B, W)
-    maps = torch.cat([parents[1:].long(), ident], 0)
+    ident = torch.arange(W, device=parents.device).expand(1, B, W)
+    maps = torch.cat([parents[1:].long(), ident], 0)  # one-step maps
     d = 1
     while d < T:
         maps = torch.cat([maps[:-d].gather(2, maps[d:]), maps[-d:]], 0)
         d *= 2
-    idx = maps.gather(2, best[None, :, None].expand(T, B, 1))  # [T, B, 1]
+    return maps
+
+
+def beam_traceback(parents, chars, pb, pnb, blank_id: int = 0):
+    """Rebuild the best prefix from the backpointers: (ids [B, T] padded
+    with blank_id, lengths [B], best log-prob [B])."""
+    T, B, W = parents.shape
+    total = _logaddexp(pb, pnb)
+    best = total.argmax(1)  # first maximum, as jnp.argmax
+    idx = ancestor_maps(parents).gather(2, best[None, :, None].expand(T, B, 1))  # [T, B, 1]
     path = chars.gather(2, idx)[..., 0].T.long()  # [B, T]; -1 = no char
     keep = path >= 0
     ids = compact_left(torch.clamp(path, min=0), keep, blank_id)

@@ -59,6 +59,6 @@ def ctc_beam_search_decode(
             )
         lm_order = lm_logp.ndim
         lm_table = lm_logp.to(device=logp.device, dtype=torch.float32).reshape(-1, V).contiguous()
-    steps = ctc_beam_steps(logp, lengths, beam_width, blank_id, lm_table, lm_order,
-                           lm_weight, lm_bonus)
-    return beam_traceback(*steps, blank_id)
+    parents, chars, state = ctc_beam_steps(logp, lengths, beam_width, blank_id, lm_table,
+                                           lm_order, lm_weight, lm_bonus)
+    return beam_traceback(parents, chars, state.p_b, state.p_nb, blank_id)
