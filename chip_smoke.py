@@ -44,7 +44,24 @@ and prints no result line):
    ninth refused as busy, then 8 clients streaming 3 utterances each back
    to back (the sustained audio-s/s), every final equal to the offline
    beam decode;
-7. one JSON line listing every ported kernel with its check, times and
+7. K5 grouped GRU at the recurrent encoders' shapes (H=384, f32: 12 s
+   offline T=300 B=64, the lc_bigru backward windows T=24 B=1216, one
+   streaming step's windows T=24 B=64) and K6 fused attention at the
+   attention encoders' (B=32, T=400, 8 heads of 64, bf16, with the
+   conformer's bias and without), against their plain versions;
+8. the recurrent streaming path: configs/aishell_streaming.yaml with
+   ``model.encoder=lc_bigru`` and then ``uni_gru`` (``gru_pallas``), 64
+   streams through StreamingRecognizer, greedy and beam 8, against the
+   offline decode (and the beam finals against the offline beam of the
+   streamed logits), with num_gru_layers K5 per lc_bigru step (none per
+   uni_gru step) and latency at B=64 and B=8; then a short lc_bigru daemon
+   round (8 slots);
+9. the attention decode path: configs/librispeech_ctc_bigru.yaml with
+   ``model.encoder=conformer`` and ``transformer`` (``attn_pallas``; the
+   conformer's relative-position tables drawn N(0, 0.3^2)) through
+   ``run_inference``, transformer_layers K6 per request, logits against
+   the plain path;
+10. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -509,10 +526,13 @@ def plain_versions():
     same entry points run the plain path on CUDA tensors."""
     from uasr_torch.frontend import cuda_frontend as k1
     from uasr_torch.models import cuda_gru as k2
+    from uasr_torch.ops import cuda_attention as k6
     from uasr_torch.ops import cuda_beam as k4
     from uasr_torch.ops import cuda_ctc as k3
 
-    swaps = [(k1, "log_mel_fused_cuda", k1.log_mel_fused_reference),
+    swaps = [(k2, "gru_scan_cuda", k2.gru_scan_reference),
+             (k6, "mhsa_fwd_cuda", k6.mhsa_fwd_reference),
+             (k1, "log_mel_fused_cuda", k1.log_mel_fused_reference),
              (k1, "log_mel_unfused_cuda", k1.log_mel_unfused_reference),
              (k2, "bigru_scan_cuda", k2.bigru_scan_reference),
              (k2, "bigru_scan_bwd_cuda", k2.bigru_scan_bwd_reference),
@@ -532,12 +552,13 @@ def plain_versions():
 def _counters():
     from uasr_torch.frontend import cuda_frontend
     from uasr_torch.models import cuda_gru
-    from uasr_torch.ops import cuda_beam, cuda_ctc
+    from uasr_torch.ops import cuda_attention, cuda_beam, cuda_ctc
 
     return {"K1": (cuda_frontend, "LAUNCHES"), "K7": (cuda_frontend, "LAUNCHES_UNFUSED"),
             "K2": (cuda_gru, "LAUNCHES"),
             "K2-bwd": (cuda_gru, "LAUNCHES_BWD"), "K3": (cuda_ctc, "LAUNCHES"),
-            "K3-bwd": (cuda_ctc, "LAUNCHES_BWD"), "K4": (cuda_beam, "LAUNCHES")}
+            "K3-bwd": (cuda_ctc, "LAUNCHES_BWD"), "K4": (cuda_beam, "LAUNCHES"),
+            "K5": (cuda_gru, "LAUNCHES_GRU"), "K6": (cuda_attention, "LAUNCHES_ATTN")}
 
 
 def reset_launches():
@@ -693,7 +714,8 @@ def phase_train(torch, np, launches: dict) -> None:
     torch.cuda.synchronize()
     print(f"  set-up step (16 s bucket): wall {(time.perf_counter() - t0) * 1e3:.2f} ms, "
           f"loss {loss:.4f}, grad_norm {gnorm:.4f}", flush=True)
-    want = {"K1": 1, "K7": 0, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1, "K4": 0}
+    want = {"K1": 1, "K7": 0, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1, "K4": 0, "K5": 0,
+            "K6": 0}
     total = dict.fromkeys(want, 0)
     for b in batches:
         reset_launches()
@@ -748,14 +770,20 @@ def phase_train(torch, np, launches: dict) -> None:
         check(worst[0] <= tw, f"{dtype}: gradient of {worst[1]} off by {worst[0]:.3e}")
 
 
-def aishell_config():
+def aishell_config(encoder: str = "cnn"):
     """configs/aishell_streaming.yaml (BASELINE.json config #4) as the
-    recipe gives it; its vocabulary file is absent, so V is the 4233 of
-    the public AISHELL-1 character recipes."""
+    recipe gives it, or with ``model.encoder`` set to a causal recurrent
+    encoder and ``model.gru_pallas`` on (the other model settings are the
+    recipe's and ModelConfig's defaults: 2 GRU layers, lc_chunk 16,
+    lc_lookahead 8); its vocabulary file is absent, so V is the 4233 of the
+    public AISHELL-1 character recipes."""
     from uasr_torch.config import load_config
 
-    return load_config(os.path.join(REPO, "configs", "aishell_streaming.yaml")).replace(
+    cfg = load_config(os.path.join(REPO, "configs", "aishell_streaming.yaml")).replace(
         vocab_size=STREAM_V)
+    if encoder != "cnn":
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, encoder=encoder, gru_pallas=True))
+    return cfg
 
 
 def aishell_vocab():
@@ -875,7 +903,8 @@ def phase_stream(torch, np, launches: dict) -> None:
     greedy = StreamingRecognizer(
         dataclasses.replace(cfg, ctc=dataclasses.replace(cfg.ctc, use_beam=False)), model,
         device=dev)
-    want_greedy = {"K1": 0, "K7": 1, "K2": 0, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0}
+    want_greedy = {"K1": 0, "K7": 1, "K2": 0, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0,
+                   "K5": 0, "K6": 0}
 
     def greedy_step(d):
         check(d == want_greedy, f"greedy step launches {d}, expected {want_greedy}")
@@ -930,10 +959,15 @@ def phase_stream(torch, np, launches: dict) -> None:
 
 def calibrate_blank(torch, cfg, model, fstate, batch, dev) -> None:
     """Random weights emit a character at nearly every frame; a trained
-    CTC model emits blank at most. Raise the blank logit's bias to the
-    96th percentile of (best character - blank) over this batch's frames,
-    so few frames emit a character and a 12 s utterance's beam transcript
-    stays under the 64-token prefix cap (data.max_label_len)."""
+    CTC model emits blank at most. Raise the blank logit's bias to about
+    the 96th percentile of (best character - blank) over this batch's
+    frames, so few frames emit a character and a 12 s utterance's beam
+    transcript stays under the 64-token prefix cap (data.max_label_len).
+    The shift sits in the middle of the widest gap between neighbouring
+    frame margins within the 95th to 97th percentiles: a shift equal to one
+    frame's margin would tie blank and that frame's best character
+    exactly, and the streamed and offline paths (whose logits differ in
+    the last bits) could break the tie differently."""
     from uasr_torch.frontend.features import compute_features
 
     audio = torch.as_tensor(batch.audio, device=dev)
@@ -944,11 +978,15 @@ def calibrate_blank(torch, cfg, model, fstate, batch, dev) -> None:
         blank = cfg.ctc.blank_id
         margin = logits.clone()
         margin[..., blank] = -float("inf")
-        margin = (margin.max(-1).values - logits[..., blank])[valid]
-        shift = float(torch.quantile(margin.float(), 0.96))
+        margin = (margin.max(-1).values - logits[..., blank])[valid].float().sort().values
+        lo, hi = int(0.95 * len(margin)), int(0.97 * len(margin))
+        gaps = margin[lo + 1:hi + 1] - margin[lo:hi]
+        k = lo + int(gaps.argmax())
+        shift = float((margin[k] + margin[k + 1]) / 2)
     with torch.no_grad():
         model.logits.bias[blank] += shift
-    print(f"  blank logit bias raised by {shift:.4f}", flush=True)
+    print(f"  blank logit bias raised by {shift:.4f} (nearest frame margin "
+          f"{float(gaps.max()) / 2:.3e} away)", flush=True)
 
 
 def report_latency(np, what: str, lat: list, B: int, chunk_s: float) -> None:
@@ -961,11 +999,11 @@ def report_latency(np, what: str, lat: list, B: int, chunk_s: float) -> None:
           f"{B * chunk_s * 1e3 / float(np.mean(ms)):.1f} audio-s/s", flush=True)
 
 
-def phase_daemon(torch, np) -> None:
+def phase_daemon(torch, np, encoder: str = "cnn", rounds: int = 4) -> None:
     """The TCP serving daemon on localhost with 8 slots. Staggered: 8
     clients stream their utterances while a ninth is refused as busy.
-    Sustained: 8 clients stream 3 utterances each, one connection per
-    utterance, back to back, with the engine's tick statistics. Every
+    Sustained: 8 clients stream rounds - 1 utterances each, one connection
+    per utterance, back to back, with the engine's tick statistics. Every
     final transcript equals the offline beam decode. Every socket and
     wait has a timeout."""
     import threading
@@ -975,12 +1013,11 @@ def phase_daemon(torch, np) -> None:
     from uasr_torch.tools.serve_daemon import StreamClient, TickStats, create_server
 
     dev = torch.device(DEVICE)
-    cfg = aishell_config()
+    cfg = aishell_config(encoder)
     vocab = aishell_vocab()
     model = build_model(cfg.model, cfg.dim_output, cfg.frontend.dim_input,
                         generator=torch.Generator().manual_seed(SEED), device=dev)
     fstate = make_frontend_state(cfg.frontend, device=dev)
-    rounds = 4
     batch = make_streams(np, cfg, DAEMON_SLOTS * rounds, SEED + 5)
     calibrate_blank(torch, cfg, model, fstate, batch, dev)
     cap = cfg.data.max_label_len
@@ -1078,7 +1115,7 @@ def phase_daemon(torch, np) -> None:
     check(not bad, f"daemon finals {bad} differ from the offline beam decode")
     secs = float(np.sum(batch.audio_lengths[DAEMON_SLOTS:])) / sr
     n = DAEMON_SLOTS * (rounds - 1)
-    print(f"daemon: {DAEMON_SLOTS} slots; {DAEMON_SLOTS} staggered clients with a ninth refused "
+    print(f"daemon ({encoder}): {DAEMON_SLOTS} slots; {DAEMON_SLOTS} staggered clients with a ninth refused "
           f"busy, then {DAEMON_SLOTS} clients x {rounds - 1} utterances back to back; all "
           f"{len(ref)} finals == offline beam {cfg.ctc.beam_width}; sustained: {n} utterances, "
           f"{secs:.2f} s of audio in {wall:.3f} s, {secs / wall:.1f} audio-s/s", flush=True)
@@ -1087,6 +1124,335 @@ def phase_daemon(torch, np) -> None:
           f"{ts.live / ticks:.2f} live slots per tick (of {DAEMON_SLOTS}); idle "
           f"{ts.idle_s:.3f} s, batching window {ts.linger_s:.3f} s over {ts.lingers} waits, "
           f"ticks {ts.busy_s:.3f} s ({ts.busy_s / ticks * 1e3:.3f} ms per tick)", flush=True)
+
+
+# the recurrent encoders (aishell_streaming with model.encoder=lc_bigru /
+# uni_gru): H = 384, f32; 12 s -> 300 patches; lc_bigru's backward windows of
+# lc_chunk + lc_lookahead = 24 patches, 19 per 12 s utterance folded into the
+# batch; the attention encoders (librispeech with model.encoder=conformer /
+# transformer): B = 32, T = 400 after the conv front, d = 512, 8 heads
+K5_H, K5_T, K5_WINDOW, K5_WINDOWS = 384, 300, 24, 19
+K6_B, K6_T, K6_HEADS, K6_DH = 32, 400, 8, 64
+
+
+def phase_k5_k6(torch, np, results: dict) -> None:
+    """K5 and K6 against their plain versions at the shapes the recurrent
+    and attention paths give them, with their times, bounds and library
+    yardsticks (cuDNN's unidirectional GRU for K5; scaled_dot_product_attention
+    with the bias and key mask as one float mask for K6; neither is on any
+    path)."""
+    import torch.nn.functional as F
+
+    from uasr_torch.models import cuda_gru as k5
+    from uasr_torch.ops import cuda_attention as k6
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    # ---- K5: 12 s offline (T=300, B=64), the backward windows (T=24,
+    # B=64*19), one streaming step's windows (T=24, B=64); ragged lengths
+    H, B = K5_H, STREAM_B
+    for what, T, rows in (("offline", K5_T, B), ("windows", K5_WINDOW, B * K5_WINDOWS),
+                          ("step", K5_WINDOW, B)):
+        lengths = torch.randint(0, T + 1, (rows,), device=dev, generator=gen)
+        lengths[0] = T
+        tmask = (torch.arange(T, device=dev)[:, None] < lengths[None])[:, None]  # [T, 1, B]
+        xp = 0.5 * torch.randn(T, 1, rows, 3 * H, device=dev, generator=gen)
+        wh = torch.randn(1, H, 3 * H, device=dev, generator=gen) / H ** 0.5
+        bh = 0.1 * torch.randn(1, 3 * H, device=dev, generator=gen)
+        args = (xp, wh, bh, tmask)
+        got = k5.gru_scan_cuda(*args)
+        ref = k5.gru_scan_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        check(bool(torch.isfinite(got).all()), f"K5 {what}: non-finite output")
+        check(err <= 1e-4, f"K5 {what}: max|d| {err:.3e} > 1e-4")
+        check(not bool(got[:, 0, lengths == 0].any()), f"K5 {what}: a zero-length row moved")
+        ms = cuda_ms(torch, lambda: k5.gru_scan_cuda(*args), 20)
+        plain = cuda_ms(torch, lambda: k5.gru_scan_reference(*args), 2)
+        steps = int(lengths.sum())  # row-steps the masks keep active
+        nbytes = 4 * (T * rows * 3 * H + H * 3 * H + 3 * H + T * rows * H) + 4 * T * rows
+        bms, by = bound(nbytes, 2 * steps * H * 3 * H, "float32")
+        # cuDNN's unidirectional GRU on the same unmasked shapes (its input
+        # projection from D = H included)
+        gru = torch.nn.GRU(H, H).to(dev)
+        gru.flatten_parameters()
+        x = torch.randn(T, rows, H, device=dev, generator=gen)
+        with torch.inference_mode():
+            lib = cuda_ms(torch, lambda: gru(x), 20)
+        print(f"K5 gru     {what:8s} T={T} B={rows} H={H} (units/CTA, splits)={k5.LAST_GRU_PLAN}: "
+              f"max|d| {err:.3e} (tol 1e-4) kernel {ms:.4f} ms plain {plain:.4f} ms cuDNN GRU "
+              f"{lib:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+        results[f"K5:{what}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                                     bound_by=by, library_ms=lib)
+
+    # ---- K6: B=32, T=400, 8 x 64, keys of a 12-16 s bucket, bf16 (and f32)
+    B, T, Hh, dh = K6_B, K6_T, K6_HEADS, K6_DH
+    D = Hh * dh
+    lengths = torch.randint(3 * T // 4, T + 1, (B,), device=dev, generator=gen)
+    lengths[0], lengths[1] = T, 1  # a full row and a row with one valid key
+    kmask = (torch.arange(T, device=dev)[None] < lengths[:, None]).to(torch.int32)[:, None]
+    qkv = [torch.randn(B, T, D, device=dev, generator=gen) for _ in range(3)]
+    bias = (0.3 * torch.randn(Hh, T, T, device=dev, generator=gen)).to(torch.bfloat16).float()
+    for what, dtype, b in (("bias", "bfloat16", bias), ("nobias", "bfloat16", None),
+                           ("f32", "float32", bias)):
+        dt = getattr(torch, dtype)
+        q, k, v = (x.to(dt).contiguous() for x in qkv)
+        args = (q, k, v, b, kmask, Hh)
+        out, lse = k6.mhsa_fwd_cuda(*args)
+        r_out, r_lse = k6.mhsa_fwd_reference(*args)
+        torch.cuda.synchronize()
+        err = float((out.float() - r_out.float()).abs().max())
+        lerr = float((lse - r_lse).abs().max())
+        tol = 2e-2 if dtype == "bfloat16" else 1e-5
+        check(bool(torch.isfinite(out.float()).all()), f"K6 {what}: non-finite output")
+        check(err <= tol and lerr <= 1e-4, f"K6 {what}: out max|d| {err:.3e} > {tol} or lse "
+                                           f"max|d| {lerr:.3e} > 1e-4")
+        ms = cuda_ms(torch, lambda: k6.mhsa_fwd_cuda(*args), 20)
+        plain = cuda_ms(torch, lambda: k6.mhsa_fwd_reference(*args), 5)
+        esize = 2 if dtype == "bfloat16" else 4
+        nbytes = (esize * 4 * B * T * D + (4 * Hh * T * T if b is not None else 0) + 4 * B * T
+                  + 4 * B * Hh * T)
+        keys = int(lengths.sum())  # every query row attends over its row's valid keys
+        bms, by = bound(nbytes, 4 * Hh * dh * T * keys, dtype)
+        # scaled_dot_product_attention on [B, heads, T, dh] with the bias and
+        # the key mask as one float mask: one PyTorch call, same function
+        qh, kh, vh = (x.view(B, T, Hh, dh).transpose(1, 2).contiguous() for x in (q, k, v))
+        fmask = torch.where(kmask[:, :, None, :] > 0, 0.0, -1e30)
+        if b is not None:
+            fmask = fmask + b[None]
+        fmask = fmask.to(dt)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=fmask),
+                      20)
+        print(f"K6 mhsa    {what:8s} B={B} T={T} heads={Hh} dh={dh} {dtype}: out max|d| "
+              f"{err:.3e} (tol {tol}) lse max|d| {lerr:.3e} (tol 1e-4) kernel {ms:.4f} ms plain "
+              f"{plain:.4f} ms SDPA {lib:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+        results[f"K6:{what}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                                     bound_by=by, library_ms=lib)
+
+
+def phase_recurrent_stream(torch, np, launches: dict) -> None:
+    """The recurrent streaming path at full width: aishell_streaming with
+    lc_bigru, then uni_gru, 64 streams of 1 to 12 s through
+    StreamingRecognizer, greedy and beam 8, against the offline decode;
+    launches per offline request and per step; latency at B = 64 and
+    B = 8; a profile of one lc_bigru step.
+
+    The streamed logits are not bit-equal to the offline ones: the forward
+    GRUs step from a carried state through the plain loop, offline they run
+    K5 from zero (as in the JAX package), so the logits differ in the last
+    bits. Two checks separate the streaming machinery from that: the
+    streamed beam finals equal the offline beam decode of the streamed
+    path's own logits (carry, lag, flush and resumed beam exact), and those
+    logits are within the encoder bar of the offline ones. The streams'
+    seed is one where no beam decision of the 64 streams sits on a near-tie
+    of that size (at seed offset 7 the beam final of one lc_bigru stream
+    in 64 differs), so the finals also equal the offline decode."""
+    from uasr_torch.frontend.features import compute_features, make_frontend_state
+    from uasr_torch.models.models import build_model
+    from uasr_torch.ops.decode import ctc_beam_search_decode
+    from uasr_torch.serve import StreamingRecognizer
+
+    dev = torch.device(DEVICE)
+    vocab = aishell_vocab()
+    zero = dict.fromkeys(_counters(), 0)
+    for encoder in ("lc_bigru", "uni_gru"):
+        cfg = aishell_config(encoder)
+        L = cfg.model.num_gru_layers
+        lc = encoder == "lc_bigru"
+        model = build_model(cfg.model, cfg.dim_output, cfg.frontend.dim_input,
+                            generator=torch.Generator().manual_seed(SEED), device=dev)
+        fstate = make_frontend_state(cfg.frontend, device=dev)
+        batch = make_streams(np, cfg, STREAM_B, SEED + 11)
+        calibrate_blank(torch, cfg, model, fstate, batch, dev)
+        rec = StreamingRecognizer(cfg, model, device=dev)
+        chunk_s = rec.chunk_samples / cfg.frontend.sample_rate
+        print(f"stream: {cfg.name} with {encoder} H={cfg.model.hidden_size} x{L}, "
+              f"{cfg.model.dtype}, lc_chunk {cfg.model.lc_chunk} lookahead "
+              f"{cfg.model.lc_lookahead}, V={cfg.dim_output}, beam {cfg.ctc.beam_width}, "
+              f"{STREAM_B} streams, chunk {rec.chunk} frames, emission delay {rec.delay} chunks",
+              flush=True)
+
+        # offline references (--mode infer); each request runs K5 once per
+        # GRU (lc_bigru: both directions of every layer)
+        reset_launches()
+        ref_greedy = offline_ids(cfg, model, fstate, batch, vocab, dev, use_beam=False)
+        counts = read_launches()
+        # the offline streaming-CMVN features run K7 once per chunk
+        want_off = dict(zero, K7=counts["K7"], K5=(2 * L if lc else L))
+        check(counts == want_off and counts["K7"] > 0,
+              f"{encoder} offline launches {counts}, expected {want_off}")
+        ref_beam = offline_ids(cfg, model, fstate, batch, vocab, dev, use_beam=True)
+        cap = cfg.data.max_label_len
+        print(f"  offline: greedy {np.mean([len(r) for r in ref_greedy]):.1f} tokens per "
+              f"utterance, beam {np.mean([len(r) for r in ref_beam]):.1f}; launches per request "
+              f"{counts}", flush=True)
+
+        greedy = StreamingRecognizer(
+            dataclasses.replace(cfg, ctc=dataclasses.replace(cfg.ctc, use_beam=False)), model,
+            device=dev)
+        want_greedy = dict(zero, K7=1, K5=(L if lc else 0))
+
+        def greedy_step(d):
+            check(d == want_greedy, f"{encoder} greedy step launches {d}, expected "
+                                    f"{want_greedy}")
+
+        part, tail, _, _ = stream_batch(torch, np, greedy, batch, greedy_step)
+        got = [p + t for p, t in zip(part, tail)]
+        bad = [b for b in range(STREAM_B) if got[b] != ref_greedy[b]]
+        print(f"  greedy: streamed == offline for {STREAM_B - len(bad)} of {STREAM_B} streams",
+              flush=True)
+        check(not bad, f"{encoder} greedy streams {bad[:8]} differ from the offline decode")
+
+        want = dict(want_greedy, K4=1)
+        steps = 0
+
+        def beam_step(d):
+            nonlocal steps
+            steps += 1
+            check(d == want, f"{encoder} beam step launches {d}, expected {want}")
+
+        step_logits = []
+        model_step = model.step
+
+        def spy(*args):
+            out = model_step(*args)
+            step_logits.append(out[0])
+            return out
+
+        model.step = spy
+        reset_launches()
+        try:
+            _, final, lat, _ = stream_batch(torch, np, rec, batch, beam_step)
+        finally:
+            counts = read_launches()
+            del model.step
+        flush = rec.delay  # finish's zero-input steps
+        want_run = dict(zero, K7=steps, K5=(L * (steps + flush) if lc else 0), K4=steps + flush)
+        print(f"  beam: {steps} steps + finish ({flush} flush steps), launches {counts}",
+              flush=True)
+        check(counts == want_run, f"{encoder} beam path launches {counts}, expected {want_run}")
+        if lc:
+            launches.update({"K5": counts["K5"]})
+        # the streamed logits (lc_bigru's first `delay` steps emit nothing)
+        # against the offline ones, and the offline beam over them
+        audio = torch.as_tensor(batch.audio, device=dev)
+        alen = torch.as_tensor(batch.audio_lengths, device=dev, dtype=torch.long)
+        with torch.inference_mode():
+            off_logits, n = model(*compute_features(audio, alen, fstate, cfg.frontend))
+            st_logits = torch.cat(step_logits[rec.delay:], 1)[:, : off_logits.shape[1]]
+            valid = torch.arange(off_logits.shape[1], device=dev)[None] < n[:, None]
+            dlog = float((st_logits - off_logits).abs().amax(-1)[valid].max())
+            hyp, hlen, _ = ctc_beam_search_decode(st_logits, n, cfg.ctc.beam_width,
+                                                  cfg.ctc.blank_id)
+        hyp, hlen = hyp.cpu().numpy(), hlen.cpu().numpy()
+        own = [hyp[b, : hlen[b]].tolist()[:cap] for b in range(STREAM_B)]
+        bad = [b for b in range(STREAM_B) if final[b] != own[b]]
+        print(f"  streamed logits vs offline: max|d| {dlog:.3e} (tol 1e-4); beam finals == "
+              f"offline beam of the streamed logits for {STREAM_B - len(bad)} of {STREAM_B} "
+              f"streams", flush=True)
+        check(dlog <= 1e-4, f"{encoder} streamed logits max|d| {dlog:.3e} > 1e-4")
+        check(not bad, f"{encoder} beam streams {bad[:8]} differ from the beam decode of their "
+                       "own logits")
+        bad = [b for b in range(STREAM_B) if final[b] != ref_beam[b][:cap]]
+        print(f"  beam: finish == offline beam {cfg.ctc.beam_width} for {STREAM_B - len(bad)} of "
+              f"{STREAM_B} streams", flush=True)
+        check(not bad, f"{encoder} beam streams {bad[:8]} differ from the offline beam decode")
+        report_latency(np, f"{encoder} B={STREAM_B}", lat[1:], STREAM_B, chunk_s)
+        small = make_streams(np, cfg, DAEMON_SLOTS, SEED + 8)
+        _, _, lat8, _ = stream_batch(torch, np, rec, small)
+        report_latency(np, f"{encoder} B={DAEMON_SLOTS}", lat8[1:], DAEMON_SLOTS, chunk_s)
+        if lc:
+            st = rec.init(STREAM_B, batch.audio_lengths)
+            cs = rec.chunk_samples
+            mid = batch.audio.shape[1] // cs // 2
+            for k in range(mid):
+                st, _, _ = rec.step(st, batch.audio[:, k * cs:(k + 1) * cs])
+
+            def one_step():
+                rec.step(st, batch.audio[:, mid * cs:(mid + 1) * cs])[1].cpu()
+
+            profile_call(torch, one_step, f"one lc_bigru streaming step of {STREAM_B} streams")
+
+
+def attention_config(encoder: str, vocab_size: int):
+    """configs/librispeech_ctc_bigru.yaml's decode settings (recipe_config)
+    with ``model.encoder`` set to an attention encoder and ``attn_pallas``
+    on; the other settings are ModelConfig's defaults: 4 blocks, 8 heads,
+    FFN 4 x 512, conformer kernel 15 and relative clip 64."""
+    cfg = recipe_config(vocab_size)
+    return cfg.replace(model=dataclasses.replace(cfg.model, encoder=encoder, attn_pallas=True))
+
+
+def phase_attention(torch, np, launches: dict) -> None:
+    """The attention decode path at full width: run_inference with the
+    conformer and the transformer on the four bucket requests (beam 16),
+    transformer_layers K6 per request, and the 16 s request's logits on the
+    kernel path against the plain path."""
+    from uasr_torch import infer
+    from uasr_torch.frontend.features import compute_features, make_frontend_state
+    from uasr_torch.models.models import build_model
+
+    dev = torch.device(DEVICE)
+    vocab = char_vocab()
+    for encoder in ("conformer", "transformer"):
+        cfg = attention_config(encoder, len(vocab))
+        model = build_model(cfg.model, cfg.dim_output, cfg.frontend.dim_input,
+                            generator=torch.Generator().manual_seed(SEED), device=dev)
+        if encoder == "conformer":
+            # flax starts the relative-position tables at zero; draw them so
+            # the bias path carries real values
+            gen = torch.Generator().manual_seed(SEED + 9)
+            with torch.no_grad():
+                for i in range(cfg.model.transformer_layers):
+                    t = getattr(model, f"rel_bias{i}")
+                    t.copy_(0.3 * torch.randn(t.shape, generator=gen))
+        fstate = make_frontend_state(cfg.frontend, device=dev)
+        requests = make_requests(np, cfg)
+        print(f"attention: {cfg.name} with {encoder}, d={cfg.model.hidden_size} "
+              f"{cfg.model.num_heads} heads x{cfg.model.transformer_layers}, {cfg.model.dtype}, "
+              f"V={cfg.dim_output}, beam {cfg.ctc.beam_width}, {len(requests)} requests of B="
+              f"{cfg.data.batch_size}", flush=True)
+        infer.run_inference(cfg, model, fstate, requests[:1], vocab=vocab, device=dev)
+        total = dict.fromkeys(_counters(), 0)
+        want = dict(total, K1=1, K4=1, K6=cfg.model.transformer_layers)
+        for b in requests:
+            reset_launches()
+            r = infer.run_inference(cfg, model, fstate, [b], vocab=vocab, device=dev)
+            counts = read_launches()
+            wall = r["rtf"] * r["audio_seconds"]
+            check(counts == want, f"{encoder} request launches {counts}, expected {want}")
+            check(np.isfinite(r["per"]) and infer.LAST_BEAM_IMPL == "cuda", f"{encoder}: {r}")
+            print(f"  {encoder} request {b.audio.shape[1] / 16000:5.1f} s bucket: wall "
+                  f"{wall * 1e3:.2f} ms, {r['audio_seconds'] / wall:.1f} audio-s/s, PER "
+                  f"{r['per']:.3f}, launches {counts}", flush=True)
+            for k, v in counts.items():
+                total[k] += v
+        if encoder == "conformer":
+            launches.update({"K6": total["K6"]})
+            profile_call(torch, lambda: infer.run_inference(cfg, model, fstate, requests[-1:],
+                                                            vocab=vocab, device=dev),
+                         "one 16 s conformer request")
+        b = requests[-1]
+        audio = torch.as_tensor(b.audio, device=dev)
+        alen = torch.as_tensor(b.audio_lengths, device=dev, dtype=torch.long)
+
+        def logits():
+            with torch.inference_mode():
+                return model(*compute_features(audio, alen, fstate, cfg.frontend))
+
+        lk, nk = logits()
+        with plain_versions():
+            lp, npl = logits()
+        check(lk.shape == (b.audio.shape[0], K6_T, cfg.dim_output),
+              f"{encoder} logits shape {tuple(lk.shape)}")
+        check(bool(torch.isfinite(lk).all()) and bool(torch.equal(nk, npl)),
+              f"{encoder}: non-finite logits or lengths differ")
+        err = float((lk - lp).abs().max())
+        check(err <= 5e-2, f"{encoder}: kernel-path logits max|d| {err:.3e} > 5e-2")
+        print(f"  {encoder} logits kernel path vs plain path, bf16: max|d| {err:.3e} (tol 5e-2)",
+              flush=True)
+
 
 
 def main() -> int:
@@ -1117,6 +1483,10 @@ def main() -> int:
     phase_train(torch, np, launches)
     phase_stream(torch, np, launches)
     phase_daemon(torch, np)
+    phase_k5_k6(torch, np, results)
+    phase_recurrent_stream(torch, np, launches)
+    phase_daemon(torch, np, "lc_bigru", rounds=2)
+    phase_attention(torch, np, launches)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",
@@ -1136,6 +1506,10 @@ def main() -> int:
         (f"K4 CTC prefix beam (streaming chunk, V={STREAM_V}, W={STREAM_W})",
          "uasr_torch/csrc/ctc_beam.cu", "uasr/ops/pallas_beam.py:70", "K4:stream",
          f"K4:V{STREAM_V}:chunk"),
+        ("K5 grouped GRU forward (lc_bigru streaming step windows)", "uasr_torch/csrc/gru_fwd.cu",
+         "uasr/models/pallas_gru.py:75", "K5", "K5:step"),
+        ("K6 fused MHSA forward (conformer, relative-position bias)",
+         "uasr_torch/csrc/mhsa_fwd.cu", "uasr/ops/pallas_attention.py:75", "K6", "K6:bias"),
     ]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[key], **results[res])

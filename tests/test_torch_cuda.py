@@ -440,3 +440,140 @@ def test_training_step_on_card_matches_cpu(dev):
     masked = [spec_augment(torch.Generator().manual_seed(5), feat.to(d), flen.to(d), fcfg).cpu()
               for d in (dev, torch.device("cpu"))]
     assert torch.equal(*masked)
+
+
+# ---------------------------------------------------------------- K5, K6
+
+
+def _gru_group_problem(dev, T, G, B, H, seed):
+    """Inputs of K5 with mixed lengths per group, incl. a row of length 0."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(0, T + 1, (G, B), device=dev, generator=gen)
+    lengths[0, 0] = T
+    if B > 1:
+        lengths[-1, 1] = 0
+    tmask = torch.arange(T, device=dev)[:, None, None] < lengths[None]  # [T, G, B]
+    xp = 0.5 * torch.randn(T, G, B, 3 * H, device=dev, generator=gen)
+    wh = torch.randn(G, H, 3 * H, device=dev, generator=gen) / H ** 0.5
+    bh = 0.1 * torch.randn(G, 3 * H, device=dev, generator=gen)
+    return (xp, wh, bh), tmask, lengths
+
+
+# T = 1; B = 1; one group and two; the lc_bigru backward windows folded
+# into the batch (B = 1216, T = 24, H = 384) and one streaming step's
+# (B = 64); rows split over several tiles and batch splits
+GRU_CASES = [(1, 1, 1, 8), (1, 2, 3, 16), (9, 1, 1, 384), (7, 2, 5, 24), (24, 1, 1216, 384),
+             (24, 1, 64, 384), (6, 2, 300, 64), (13, 1, 40, 512)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,G,B,H", GRU_CASES)
+def test_gru_kernel_matches_plain(dev, T, G, B, H, dtype, tol):
+    args, tmask, lengths = _gru_group_problem(dev, T, G, B, H, T * B + H + G)
+    args = tuple(x.to(dtype).contiguous() for x in args)
+    before = cuda_gru.LAUNCHES_GRU
+    got = cuda_gru.gru_scan_cuda(*args, tmask)
+    ref = cuda_gru.gru_scan_reference(*args, tmask)
+    torch.cuda.synchronize()
+    assert cuda_gru.LAUNCHES_GRU == before + 1
+    assert got.dtype == dtype and got.shape == (T, G, B, H)
+    assert float((got.float() - ref.float()).abs().max()) <= tol
+    zero = lengths == 0  # [G, B]: rows that never step keep h at zero
+    assert not got.permute(1, 2, 0, 3)[zero].any()
+
+
+def test_gru_kernel_rejects_bad_input(dev):
+    x = torch.zeros(4, 1, 2, 36, device=dev)
+    bh, tm = torch.zeros(1, 36, device=dev), torch.ones(4, 1, 2, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_gru.gru_scan_cuda(x, torch.zeros(1, 12, 36, device=dev), bh, tm)
+    x = torch.zeros(4, 1, 2, 48, device=dev)
+    wh = torch.zeros(1, 48, 16, device=dev).transpose(1, 2)
+    bh = torch.zeros(1, 48, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_gru.gru_scan_cuda(x, wh, bh, tm)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_gru.gru_scan_cuda(x.double(), wh.contiguous().double(), bh.double(), tm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_gru.gru_scan_cuda(x.cpu(), wh.contiguous().cpu(), bh.cpu(), tm.cpu())
+    with pytest.raises(NotImplementedError, match="K5-bwd"):
+        cuda_gru.gru_scan_cuda(x.requires_grad_(), wh.contiguous(), bh, tm)
+    before = cuda_gru.LAUNCHES_GRU
+    cuda_gru.gru_scan(x.detach().cpu(), wh.contiguous().cpu(), bh.cpu(), tm.cpu())
+    assert cuda_gru.LAUNCHES_GRU == before  # the plain version for CPU tensors
+
+
+def _attn_problem(dev, B, T, H, dh, seed, dtype):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, T, H * dh, device=dev, generator=gen).to(dtype)
+               for _ in range(3))
+    lengths = torch.randint(1, T + 1, (B,), device=dev, generator=gen)
+    lengths[0] = T
+    lengths[-1] = 1  # one valid key
+    kmask = (torch.arange(T, device=dev)[None, :] < lengths[:, None]).to(torch.int32)[:, None]
+    bias = 0.3 * torch.randn(H, T, T, device=dev, generator=gen)
+    return q, k, v, kmask, bias
+
+
+# T = 8 (the padded T = 1), a ragged T padded to 40, T = 400 (the slice's
+# 16 s request) with 8 heads of 64, every head size K6 takes
+ATTN_CASES = [(2, 8, 2, 16), (3, 40, 2, 32), (3, 128, 4, 64), (2, 400, 8, 64), (2, 64, 2, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("B,Tp,H,dh", ATTN_CASES)
+def test_attention_kernel_matches_plain(dev, B, Tp, H, dh, with_bias, dtype):
+    from uasr_torch.ops import cuda_attention
+
+    q, k, v, kmask, bias = _attn_problem(dev, B, Tp, H, dh, Tp + dh, dtype)
+    bias = bias if with_bias else None
+    before = cuda_attention.LAUNCHES_ATTN
+    out, lse = cuda_attention.mhsa_fwd_cuda(q, k, v, bias, kmask, H)
+    r_out, r_lse = cuda_attention.mhsa_fwd_reference(q, k, v, bias, kmask, H)
+    torch.cuda.synchronize()
+    assert cuda_attention.LAUNCHES_ATTN == before + 1
+    assert out.dtype == dtype and out.shape == q.shape and lse.shape == (B, H, Tp)
+    # f32: summation order only; bf16: e is rounded to bf16 before the
+    # product with V, and a score an ulp away may round e the other way
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert float((out.float() - r_out.float()).abs().max()) <= tol
+    assert float((lse - r_lse).abs().max()) <= 1e-4
+
+
+def test_fused_attention_pads_on_card_as_on_cpu(dev):
+    """T = 1 and T = 37 through the wrapper's padding, with the
+    conformer's bias and a key mask, on the card against the CPU."""
+    from uasr_torch.ops import cuda_attention
+
+    for T in (1, 37):
+        q, k, v, kmask, bias = _attn_problem(dev, 3, T, 2, 16, T, torch.float32)
+        args = [x.reshape(3, T, 2, 16) for x in (q, k, v)]
+        mask = kmask[:, :, None, :] > 0  # [B, 1, 1, T]
+        got = cuda_attention.fused_dot_product_attention(*args, bias=bias[None], mask=mask)
+        ref = cuda_attention.fused_dot_product_attention(
+            *(a.cpu() for a in args), bias=bias[None].cpu(), mask=mask.cpu())
+        assert float((got.cpu() - ref).abs().max()) <= 1e-5
+
+
+def test_attention_kernel_rejects_bad_input(dev):
+    from uasr_torch.ops import cuda_attention
+
+    q, k, v, kmask, bias = _attn_problem(dev, 2, 16, 2, 16, 0, torch.float32)
+    with pytest.raises(ValueError, match="head size"):
+        cuda_attention.mhsa_fwd_cuda(q, k, v, None, kmask, 4)  # dh = 8
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_attention.mhsa_fwd_cuda(q[:, :12].contiguous(), k[:, :12].contiguous(),
+                                     v[:, :12].contiguous(), None, kmask[..., :12], 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 1024, 64, device=dev)
+        cuda_attention.mhsa_fwd_cuda(big, big, big, None,
+                                     torch.ones(1, 1, 1024, dtype=torch.int32, device=dev), 1)
+    with pytest.raises(ValueError, match="kmask"):
+        cuda_attention.mhsa_fwd_cuda(q, k, v, None, kmask.float(), 2)
+    with pytest.raises(ValueError, match="bias"):
+        cuda_attention.mhsa_fwd_cuda(q, k, v, bias.to(torch.bfloat16), kmask, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_attention.mhsa_fwd_cuda(q.cpu(), k.cpu(), v.cpu(), None, kmask.cpu(), 2)
+    with pytest.raises(NotImplementedError, match="K6-bwd"):
+        cuda_attention.mhsa_fwd_cuda(q.requires_grad_(), k, v, None, kmask, 2)

@@ -78,9 +78,15 @@ def test_seeded_init_and_families():
     wh = a.bigru0.wh[0]
     np.testing.assert_allclose((wh @ wh.T).detach().numpy(), np.eye(8), atol=1e-5)  # orthonormal rows
     assert encoder_time_subsample(cfg) == 4
-    for enc in ("transformer", "conformer", "uni_gru", "lc_bigru", "classifier"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(ModelConfig(encoder=enc), V, D, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_model(ModelConfig(encoder="classifier"), V, D, device="cpu")
+    for enc in ("transformer", "conformer", "uni_gru", "lc_bigru"):
+        small = ModelConfig(encoder=enc, hidden_size=16, num_heads=2, transformer_layers=1,
+                            ffn_dim=8, conv_channels=2)
+        assert encoder_time_subsample(small) == 4
+        logits, n = build_model(small, V, D, device="cpu")(torch.randn(2, 20, D),
+                                                            torch.tensor([20, 9]))
+        assert logits.shape == (2, 5, V) and n.tolist() == [5, 3]
     cnn = ModelConfig(encoder="cnn", hidden_size=8, conv_kernel=5)
     assert encoder_time_subsample(cnn) == 2
     build_model(cnn, V, D, device="cpu")

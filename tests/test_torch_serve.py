@@ -8,9 +8,13 @@ beam, for a mixed-length batch, and the dynamic-batching primitives
 the port: streamed output equals the offline decode (greedy and beam 4),
 the fused finalize tick equals its two parts, approximate window
 streaming of a BiGRU matches the JAX package's, and the configurations it
-must refuse. The daemon over
-localhost sockets mirrors tests/test_serve_daemon.py; every wait in it is
-bounded (socket and queue timeouts, joins with a deadline)."""
+must refuse. The causal recurrent encoders (uni_gru, lc_bigru, K5 through
+its plain version) stream against the JAX package per chunk, greedy and
+beam, and equal the port's offline decode; their dynamic-batching
+primitives equal step-then-select (the JAX package's raise on lc_bigru's
+carry). The daemon over localhost sockets mirrors
+tests/test_serve_daemon.py; every wait in it is bounded (socket and queue
+timeouts, joins with a deadline)."""
 
 import dataclasses
 import socket
@@ -282,8 +286,10 @@ def test_rejections(weights):
          ValueError, "half-width"),
         (dict(frontend=dataclasses.replace(cfg.frontend, streaming_chunk_frames=33)),
          ValueError, "multiple of the encoder subsampling"),
-        (dict(model=dataclasses.replace(cfg.model, encoder="uni_gru")), NotImplementedError,
-         "slice 3"),
+        (dict(model=dataclasses.replace(cfg.model, encoder="lc_bigru", lc_chunk=4)), ValueError,
+         "chunk grid"),
+        (dict(model=dataclasses.replace(cfg.model, encoder="transformer")), ValueError,
+         "unbounded context"),
         (dict(ctc=dataclasses.replace(cfg.ctc, lm_path="lm.arpa", use_beam=True)),
          NotImplementedError, "load_lm"),
         (dict(train=TrainConfig(mode="gan")), NotImplementedError, "slice 4"),
@@ -478,3 +484,198 @@ def test_daemon_dead_client_frees_slot(weights, served):
     while len(engine._free) < 2 and time.time() < deadline:
         time.sleep(0.05)
     assert len(engine._free) == 2
+
+
+# ---------------------------------------------------------------- recurrent
+
+
+def _rec_kw(encoder: str, beam: bool):
+    f, _, c = _kw(beam)
+    m = dict(encoder=encoder, hidden_size=16, num_gru_layers=2, num_conv_layers=2,
+             conv_time_stride=2, conv_kernel=5, lc_chunk=CHUNK // 4, lc_lookahead=4)
+    return f, m, c
+
+
+def _rec_cfgs(encoder: str, beam: bool = False):
+    f, m, c = _rec_kw(encoder, beam)
+    cfg = Config(name="t", frontend=FrontendConfig(**f), model=ModelConfig(gru_pallas=True, **m),
+                 ctc=CTCConfig(**c), vocab_size=V)
+    jcfg = JaxConfig(name="t", frontend=JaxFrontendConfig(**f), model=JaxModelConfig(**m),
+                     ctc=JaxCTCConfig(**c), vocab_size=V)
+    return cfg, jcfg
+
+
+@pytest.fixture(scope="module")
+def rec_weights():
+    """Seeded flax weights of each recurrent encoder and the port's model on
+    them (the JAX side runs its lax.scan GRU, the port its K5 path)."""
+    out = {}
+    for enc in ("uni_gru", "lc_bigru"):
+        cfg, jcfg = _rec_cfgs(enc)
+        params = jax_build_model(jcfg.model, V).init(
+            jax.random.PRNGKey(5), np.zeros((1, 4 * CHUNK, 40), np.float32),
+            np.array([4 * CHUNK]))
+        model = build_model(cfg.model, V, 40, device="cpu")
+        model.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, params), cfg.model))
+        out[enc] = params, model
+    return out
+
+
+@pytest.mark.parametrize("beam", [False, True], ids=["greedy", "beam"])
+@pytest.mark.parametrize("encoder", ["uni_gru", "lc_bigru"])
+def test_recurrent_streaming_matches_jax(rec_weights, encoder, beam):
+    """Per chunk ids and counts, and the finals, against the JAX package's
+    recognizer on the same weights, for a mixed-length batch."""
+    params, model = rec_weights[encoder]
+    cfg, jcfg = _rec_cfgs(encoder, beam)
+    jrec = JaxRecognizer(jcfg, params)
+    rec = StreamingRecognizer(cfg, model, device="cpu")
+    assert rec.recurrent and rec.lookback == 0 and rec.delay == (2 if encoder == "lc_bigru" else 0)
+    audio, lens = _batch(MIXED, seed=11)
+    js, ts = jrec.init(3, lens), rec.init(3, lens)
+    emitted = 0
+    for off in range(0, audio.shape[1], CS):
+        js, jids, jn = jrec.step(js, audio[:, off:off + CS])
+        ts, ids, n = rec.step(ts, audio[:, off:off + CS])
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(jids), err_msg=f"@{off}")
+        np.testing.assert_array_equal(n.numpy(), np.asarray(jn), err_msg=f"@{off}")
+        emitted += int(n.sum())
+    js, jids, jn = jrec.finish(js)
+    ts, ids, n = rec.finish(ts)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
+    assert emitted + int(n.sum()) > 0
+
+
+@pytest.mark.parametrize("beam", [False, True], ids=["greedy", "beam"])
+@pytest.mark.parametrize("encoder", ["uni_gru", "lc_bigru"])
+def test_recurrent_streamed_equals_offline(rec_weights, encoder, beam):
+    """Counterparts of tests/test_serve.py's uni_gru and lc_bigru streaming
+    tests (greedy and beam): the streamed transcript of a mixed-length batch
+    equals the port's offline decode, uni_gru with zero right-context
+    latency, lc_bigru with its num_gru_layers-chunk lag flushed by finish."""
+    _, model = rec_weights[encoder]
+    cfg, _ = _rec_cfgs(encoder, beam)
+    audio, lens = _batch([5 * CS + 300, 2 * CS - 7, 4 * CS], seed=12)
+    rec = StreamingRecognizer(cfg, model, device="cpu")
+    got = _streamed(rec, audio, lens)
+    assert got == _offline(model, cfg, audio, lens)
+    assert any(got)
+
+
+def _slot(state, b: int, encoder: str) -> list:
+    """Slot b of every leaf of a recurrent state (uni_gru's GRU state
+    [L, B, H] has the batch on axis 1, every other leaf leads with it)."""
+    h = state.carry[1] if encoder == "uni_gru" else None
+    return [x[:, b] if x is h else x[b] for x in _leaves(state)]
+
+
+@pytest.mark.parametrize("encoder", ["uni_gru", "lc_bigru"])
+def test_recurrent_primitives_equal_step_then_select(rec_weights, encoder):
+    """masked_step, finish_and_reset and reset_slots over both recurrent
+    carries (uni_gru's [L, B, H] state, lc_bigru's (tail, buffers, forward
+    states)) equal a full step followed by a per-slot select: stepped slots
+    take the step's state, the others keep theirs bit for bit."""
+    _, model = rec_weights[encoder]
+    cfg, _ = _rec_cfgs(encoder, True)
+    rec = StreamingRecognizer(cfg, model, device="cpu")
+    audio, _ = _batch([4 * CS, 4 * CS, 3 * CS - 50], seed=13)
+    st = rec.init(3)
+    for k, mask in enumerate([[True, False, True], [True, True, True], [False, True, True]]):
+        stepped, _, _ = rec.step(st, audio[:, k * CS:(k + 1) * CS])
+        new, out = rec.masked_step(st, audio[:, k * CS:(k + 1) * CS], np.array(mask),
+                                   packed=True)
+        for b, m in enumerate(mask):
+            for a, want in zip(_slot(new, b, encoder), _slot(stepped if m else st, b, encoder)):
+                assert torch.equal(a, want), (k, b)
+            if not m:
+                assert out[b, -1] == 0
+        st = new
+    fmask = [True, False, True]
+    _, ids, n = rec.finish(st)
+    reset, out = rec.finish_and_reset(st, np.array(fmask), packed=True)
+    fresh = rec.init(3)
+    for b, m in enumerate(fmask):
+        for a, want in zip(_slot(reset, b, encoder), _slot(fresh if m else st, b, encoder)):
+            assert torch.equal(a, want)
+        if m:
+            assert out[b, -1] == n[b]
+            assert torch.equal(out[b, : n[b]], ids[b, : n[b]].to(torch.int32))
+    again = rec.reset_slots(reset, np.array([False, True, False]))  # now every slot is fresh
+    for a, want in zip(_leaves(again), _leaves(fresh)):
+        assert torch.equal(a, want)
+
+
+def test_uni_gru_primitives_match_jax(rec_weights):
+    """uni_gru's masked steps with a length stamp, finish-and-reset and
+    reset against the JAX package's (which handle its [L, B, H] state)."""
+    params, model = rec_weights["uni_gru"]
+    cfg, jcfg = _rec_cfgs("uni_gru", True)
+    jrec, rec = JaxRecognizer(jcfg, params), StreamingRecognizer(cfg, model, device="cpu")
+    audio, lens = _batch([4 * CS, 4 * CS, 3 * CS - 50], seed=14)
+    chunk = lambda k: audio[:, k * CS:(k + 1) * CS]  # noqa: E731
+    js, ts = jrec.init(3), rec.init(3)
+    plan = [(0, [True, False, True], None), (1, [True, True, True], [False, False, True]),
+            (2, [False, True, True], None)]
+    for k, mask, smask in plan:
+        stamp = {} if smask is None else dict(stamp_mask=smask, stamp_samples=lens)
+        js, jout = jrec.masked_step(js, chunk(k), np.array(mask), packed=True, **stamp)
+        ts, tout = rec.masked_step(ts, chunk(k), np.array(mask), packed=True, **stamp)
+        np.testing.assert_array_equal(tout.numpy(), np.asarray(jout), err_msg=f"step {k}")
+    fmask = np.array([True, False, True])
+    js, jout = jrec.finish_and_reset(js, fmask, packed=True)
+    ts, tout = rec.finish_and_reset(ts, fmask, packed=True)
+    for b in (0, 2):
+        np.testing.assert_array_equal(tout[b].numpy(), np.asarray(jout)[b])
+    js = jrec.reset_slots(js, np.array([False, True, False]))
+    ts = rec.reset_slots(ts, np.array([False, True, False]))
+    np.testing.assert_allclose(ts.carry[1].numpy(), np.asarray(js.carry[1]), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ts.carry[0].numpy(), np.asarray(js.carry[0]), rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(ts.n_frames.numpy(), np.asarray(js.n_frames))
+
+
+def test_jax_masked_step_raises_on_lc_bigru(rec_weights):
+    """The reference-side fault the port fixes (ROADMAP.md Queue 3): the
+    JAX package's _select_slots treats lc_bigru's carry (tail, buffers,
+    forward states) as uni_gru's (tail, h) and raises; the port's
+    masked_step serves it."""
+    params, model = rec_weights["lc_bigru"]
+    cfg, jcfg = _rec_cfgs("lc_bigru")
+    audio, _ = _batch([2 * CS, 2 * CS], seed=15)
+    jrec = JaxRecognizer(jcfg, params)
+    with pytest.raises(TypeError, match="where requires ndarray"):
+        jrec.masked_step(jrec.init(2), audio[:, :CS], np.array([True, False]))
+    rec = StreamingRecognizer(cfg, model, device="cpu")
+    st, ids, n = rec.masked_step(rec.init(2), audio[:, :CS], np.array([True, False]))
+    assert ids.shape == (2, CHUNK // 4) and list(n) == [0, 0]  # the lag: nothing yet
+
+
+def test_engine_lc_bigru_finals_equal_offline(rec_weights):
+    """lc_bigru through the serving engine: two staggered streams on two
+    slots, a third reusing a freed slot; finals equal the offline decode."""
+    _, model = rec_weights["lc_bigru"]
+    cfg, _ = _rec_cfgs("lc_bigru")
+    audios, audio, lens = _three(seed=16)
+    ref = _offline(model, cfg, audio, lens)
+    engine = ServingEngine(StreamingRecognizer(cfg, model, device="cpu"), linger_s=0.0)
+    engine.start(2)
+    try:
+        s0, s1 = engine.open(), engine.open()
+        engine.feed(s0, audios[0])
+        engine.end(s0)
+        engine.feed(s1, audios[1][: CS + 5])
+        _, final0 = _drain_final(s0)
+        deadline = time.time() + WAIT
+        s2 = engine.open()
+        while s2 is None and time.time() < deadline:
+            time.sleep(0.02)
+            s2 = engine.open()
+        assert s2 is not None
+        engine.feed(s2, audios[2])
+        engine.feed(s1, audios[1][CS + 5:])
+        engine.end(s1)
+        engine.end(s2)
+        assert [final0, _drain_final(s1)[1], _drain_final(s2)[1]] == ref
+    finally:
+        engine.stop()
+    assert not engine._thread.is_alive()

@@ -13,7 +13,17 @@ top-level ``"params"`` key); nothing here imports jax. Layouts:
   LayerNorms ``LayerNorm_0..`` in creation order (its convs', then the
   dilated stack's), which the port's ``norm{i}`` follow;
 - BiGRU ``wx [2, D, 3H]``, ``wh [2, H, 3H]``, ``bx``/``bh [2, 3H]`` stay
-  grouped, gate order r, z, n.
+  grouped, gate order r, z, n; the recurrent encoders' GRU layers
+  (``gru{i}``, ``fwd{i}``, ``bwd{i}``) keep ``wx [D, 3H]``, ``wh [H, 3H]``,
+  ``bx``/``bh [3H]``;
+- the recurrent encoders' causal front: ``embed``, ``embed_ln``,
+  ``context`` (VALID conv ``[k, H, H]`` -> ``[H, H, k]``), ``context_ln``;
+- attention ``query``/``key``/``value`` ``kernel [D, heads, dh]`` ->
+  ``weight [heads * dh, D]`` with bias [heads * dh], and ``out`` ``kernel
+  [heads, dh, D]`` -> ``weight [D, heads * dh]``: the projections stay
+  packed; the conformer's depthwise conv ``kernel [k, 1, H]`` ->
+  ``[H, 1, k]``, its conv module's unnamed ``LayerNorm_0`` -> ``norm``, and
+  ``rel_bias{i}`` [heads, 2R+1] as it is.
 """
 
 from __future__ import annotations
@@ -56,16 +66,68 @@ def _cnn(p: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     return out
 
 
-def flax_to_state_dict(params: dict, cfg: ModelConfig | Config) -> dict[str, torch.Tensor]:
-    """Map a ``ConvBiGRUEncoder`` or ``CNNEncoder`` flax tree onto
-    ``uasr_torch`` names."""
-    if isinstance(cfg, Config):
-        cfg = cfg.model
-    p = params.get("params", params)
-    if cfg.encoder == "cnn":
-        return _cnn(p, cfg)
-    if cfg.encoder != "conv_bigru":
-        raise NotImplementedError(f"weight bridge for encoder {cfg.encoder!r} is not ported yet")
+def _gru(out: dict, name: str, p: dict) -> None:
+    for k in ("wx", "wh", "bx", "bh"):
+        out[f"{name}.{k}"] = _t(p[k])
+
+
+def _recurrent(p: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    _dense(out, "embed", p["embed"])
+    _norm(out, "embed_ln", p["embed_ln"])
+    _conv1d(out, "context", p["context"])
+    _norm(out, "context_ln", p["context_ln"])
+    names = (("gru",) if cfg.encoder == "uni_gru" else ("fwd", "bwd"))
+    for i in range(cfg.num_gru_layers):
+        for n in names:
+            _gru(out, f"{n}{i}", p[f"{n}{i}"])
+    _dense(out, "logits", p["logits"])
+    return out
+
+
+def _heads(out: dict, name: str, p: dict) -> None:
+    """One flax DenseGeneral of multi-head attention, flattened to Dense."""
+    k, b = np.asarray(p["kernel"]), np.asarray(p["bias"])
+    if name.endswith(".out"):  # [heads, dh, D]
+        out[f"{name}.weight"] = _t(k.reshape(-1, k.shape[-1]).T)
+    else:  # [D, heads, dh]
+        out[f"{name}.weight"] = _t(k.reshape(k.shape[0], -1).T)
+    out[f"{name}.bias"] = _t(b.reshape(-1))
+
+
+def _mha(out: dict, name: str, p: dict) -> None:
+    for k in ("query", "key", "value", "out"):
+        _heads(out, f"{name}.{k}", p[k])
+
+
+def _attention(p: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    out = _front(p, cfg)
+    _dense(out, "in_proj", p["in_proj"])
+    for i in range(cfg.transformer_layers):
+        if cfg.encoder == "transformer":
+            dense, norms = (f"ffn_in{i}", f"ffn_out{i}"), (f"ln_a{i}", f"ln_f{i}")
+        else:
+            dense = (f"ffn1_in{i}", f"ffn1_out{i}", f"ffn2_in{i}", f"ffn2_out{i}")
+            norms = (f"ln_f1_{i}", f"ln_a{i}", f"ln_c{i}", f"ln_f2_{i}", f"ln_post{i}")
+            out[f"rel_bias{i}"] = _t(p[f"rel_bias{i}"])
+            q = p[f"cfm_conv{i}"]
+            _dense(out, f"cfm_conv{i}.pw_in", q["pw_in"])
+            _conv1d(out, f"cfm_conv{i}.depthwise", q["depthwise"])
+            _norm(out, f"cfm_conv{i}.norm", q["LayerNorm_0"])
+            _dense(out, f"cfm_conv{i}.pw_out", q["pw_out"])
+        for n in dense:
+            _dense(out, n, p[n])
+        for n in norms:
+            _norm(out, n, p[n])
+        _mha(out, f"mha{i}", p[f"mha{i}"])
+    if cfg.encoder == "transformer":
+        _norm(out, "ln_out", p["ln_out"])
+    _dense(out, "logits", p["logits"])
+    return out
+
+
+def _front(p: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The conv2d or patch subsampling front."""
     out: dict[str, torch.Tensor] = {}
     if cfg.conv_front == "patch":
         q = p["patch"]
@@ -80,6 +142,27 @@ def flax_to_state_dict(params: dict, cfg: ModelConfig | Config) -> dict[str, tor
             out[f"conv{i}.weight"] = _t(np.transpose(q["Conv_0"]["kernel"], (3, 2, 0, 1)))
             out[f"conv{i}.bias"] = _t(q["Conv_0"]["bias"])
             _norm(out, f"conv{i}.norm", q["LayerNorm_0"])
+    return out
+
+
+def flax_to_state_dict(params: dict, cfg: ModelConfig | Config) -> dict[str, torch.Tensor]:
+    """Map a flax encoder tree (``conv_bigru``, ``cnn``, ``uni_gru``,
+    ``lc_bigru``, ``transformer``, ``conformer``) onto ``uasr_torch``
+    names."""
+    if isinstance(cfg, Config):
+        cfg = cfg.model
+    p = params.get("params", params)
+    if cfg.encoder == "cnn":
+        return _cnn(p, cfg)
+    if cfg.encoder in ("uni_gru", "lc_bigru"):
+        return _recurrent(p, cfg)
+    if cfg.encoder in ("transformer", "conformer"):
+        return _attention(p, cfg)
+    if cfg.encoder != "conv_bigru":
+        raise NotImplementedError(
+            f"weight bridge for encoder {cfg.encoder!r} is not ported yet (ROADMAP.md Queue 1: "
+            "the unsupervised GAN/EODM slice)")
+    out = _front(p, cfg)
     for i in range(cfg.num_gru_layers):
         for k in ("wx", "wh", "bx", "bh"):
             out[f"bigru{i}.{k}"] = _t(p[f"bigru{i}"][k])

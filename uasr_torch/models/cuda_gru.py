@@ -1,6 +1,7 @@
-"""K2 and K2-bwd, the two-stream BiGRU recurrence and its backward:
-wrappers of ``csrc/bigru_fwd.cu`` and ``csrc/bigru_bwd.cu``, their plain
-PyTorch versions, and the ``torch.autograd.Function`` that joins them.
+"""K2 and K2-bwd, the two-stream BiGRU recurrence and its backward, and K5,
+the grouped GRU recurrence: wrappers of ``csrc/bigru_fwd.cu``,
+``csrc/bigru_bwd.cu`` and ``csrc/gru_fwd.cu``, their plain PyTorch
+versions, and the ``torch.autograd.Function`` that joins K2 and K2-bwd.
 
 Counterpart of ``uasr/models/pallas_gru.py::pallas_bigru_scan`` (TPU
 kernels ``_fwd2_kernel`` and ``_bwd2_kernel`` with the custom VJP
@@ -9,6 +10,11 @@ forward launches K2 and its backward K2-bwd for CUDA tensors, and both
 run their plain versions for CPU tensors. The weight gradients dwh and
 dbh are whole-trajectory products outside the kernel, as in the JAX
 package.
+
+``gru_scan`` is the counterpart of ``pallas_gru_scan`` (TPU kernel
+``_fwd_kernel``): K5 for CUDA tensors, its plain version for CPU tensors.
+Its backward (K5-bwd, ``_bwd_kernel``) is not ported yet, so a CUDA call
+that would need a gradient raises.
 """
 
 from __future__ import annotations
@@ -21,10 +27,13 @@ from uasr_torch import _build
 
 LAUNCHES = 0  # K2 launches by bigru_scan_cuda (read by chip_smoke.py)
 LAUNCHES_BWD = 0  # K2-bwd launches by bigru_scan_bwd_cuda
+LAUNCHES_GRU = 0  # K5 launches by gru_scan_cuda
 LAST_UNITS = None  # hidden units per CTA of the last K2 launch
 LAST_UNITS_BWD = None  # hidden units per CTA of the last K2-bwd launch
+LAST_GRU_PLAN = None  # (hidden units per CTA, batch splits) of the last K5 launch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_GRU_BAR_GROUPS = 256  # barriers K5 may use: one per group and batch split
 
 
 def bigru_scan_reference(p0, p1, wh, bh, tmask):
@@ -254,3 +263,99 @@ def bigru_scan(p0, p1, wh, bh, tmask):
     """Two-stream BiGRU recurrence, differentiable: K2 / K2-bwd for CUDA
     tensors, their plain versions for CPU tensors."""
     return BiGRUScan.apply(p0, p1, wh, bh, tmask)
+
+
+# ------------------------------------------------------------------ K5
+
+
+def gru_scan_reference(xproj, wh, bh, tmask):
+    """Plain version of K5, step for step.
+
+    xproj [T, G, B, 3H] input projections (bias added); wh [G, H, 3H];
+    bh [G, 3H]; tmask [T, G, B] (1 = step active). Every group scans
+    forward in frame order. Returns ys [T, G, B, H] in xproj's dtype. The
+    recurrent product takes h in wh's dtype with f32 accumulation, the
+    gates run in f32, and the carry is rounded to the output dtype every
+    step and reread from that value, as the kernel does.
+    """
+    T, G, B, H3 = xproj.shape
+    H = H3 // 3
+    mask = tmask.to(torch.float32)[..., None]  # [T, G, B, 1]
+    w = wh.to(torch.float32)
+    bias = bh.to(torch.float32)[:, None, :]
+    h = torch.zeros(G, B, H, dtype=torch.float32, device=xproj.device)
+    ys = []
+    for t in range(T):
+        hp = torch.bmm(h.to(wh.dtype).to(torch.float32), w) + bias
+        xr, xz, xn = xproj[t].to(torch.float32).split(H, -1)
+        hr, hz, hn = hp.split(H, -1)
+        r = torch.sigmoid(xr + hr)
+        z = torch.sigmoid(xz + hz)
+        n = torch.tanh(xn + r * hn)
+        h_cand = (1.0 - z) * n + z * h
+        mf = mask[t]
+        h_store = (mf * h_cand + (1.0 - mf) * h).to(xproj.dtype)
+        ys.append(h_store)
+        h = h_store.to(torch.float32)
+    return torch.stack(ys)
+
+
+def _lib_gru() -> ctypes.CDLL:
+    lib = _build.load("gru_fwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.uasr_gru_fwd.argtypes = [P] * 6 + [I] * 6 + [P, I, P, P]
+    lib.uasr_gru_fwd.restype = I
+    return lib
+
+
+def gru_scan_cuda(xproj, wh, bh, tmask):
+    """Launch K5 on CUDA tensors; same contract as the plain version.
+    Forward only: raises NotImplementedError where autograd would need
+    K5's backward."""
+    global LAUNCHES_GRU, LAST_GRU_PLAN
+    T, G, B, H3 = xproj.shape
+    H = H3 // 3
+    dt = xproj.dtype
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xproj, wh, bh)):
+        raise NotImplementedError(
+            "the GRU recurrence's backward (kernel K5-bwd, pallas_gru.py::_bwd_kernel) is not "
+            "ported yet (ROADMAP.md Queue 1: training the recurrent and attention encoders); "
+            "K5 runs forward only")
+    if not xproj.is_cuda:
+        raise ValueError("gru kernel takes CUDA tensors; gru_scan runs the plain version on "
+                         "the CPU")
+    if dt not in _DTYPES:
+        raise ValueError(f"gru kernel takes float32 or bfloat16, got {dt}")
+    for t, shape in ((xproj, (T, G, B, H3)), (wh, (G, H, H3)), (bh, (G, H3))):
+        if t.shape != shape or t.dtype != dt or t.device != xproj.device or not t.is_contiguous():
+            raise ValueError(f"gru kernel: expected contiguous {dt} {shape} on {xproj.device}")
+    if H % 8:
+        raise ValueError(f"gru kernel takes a hidden size that is a multiple of 8, got {H}")
+    if G > _GRU_BAR_GROUPS:
+        raise ValueError(f"gru kernel takes at most {_GRU_BAR_GROUPS} groups, got {G}")
+    if tmask.shape != (T, G, B):
+        raise ValueError(f"gru kernel: tmask must be [T, G, B], got {tuple(tmask.shape)}")
+    dev = xproj.device
+    mask = tmask.to(device=dev, dtype=torch.float32).contiguous()
+    ys = torch.empty(T, G, B, H, dtype=dt, device=dev)
+    bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
+    units, splits = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _lib_gru()
+    code = lib.uasr_gru_fwd(
+        xproj.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(), ys.data_ptr(),
+        bar.data_ptr(), _GRU_BAR_GROUPS, T, G, B, H, _DTYPES[dt],
+        torch.cuda.current_stream(dev).cuda_stream,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        ctypes.byref(units), ctypes.byref(splits),
+    )
+    _build.check(lib, code, "gru_fwd kernel")
+    LAUNCHES_GRU += 1
+    LAST_GRU_PLAN = (units.value, splits.value)
+    return ys
+
+
+def gru_scan(xproj, wh, bh, tmask):
+    """Grouped GRU recurrence (``pallas_gru_scan``): K5 for CUDA tensors,
+    its plain version for CPU tensors."""
+    fn = gru_scan_cuda if xproj.is_cuda else gru_scan_reference
+    return fn(xproj, wh, bh, tmask)

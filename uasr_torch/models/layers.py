@@ -1,6 +1,7 @@
-"""Building blocks (counterpart of ``uasr.models.layers``): the BiGRU with
-reset-after gates, the strided conv blocks, and the small parameter
-holders the encoders share.
+"""Building blocks (counterpart of ``uasr.models.layers``): the BiGRU and
+the unidirectional GRU layer with reset-after gates, the strided conv
+blocks, flax's multi-head attention, and the small parameter holders the
+encoders share.
 
 Parameters are float32 and the compute dtype is applied in ``forward``
 (flax's ``dtype`` semantics), so a checkpoint converted from the JAX
@@ -20,7 +21,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from uasr_torch.models.cuda_gru import bigru_scan, bigru_scan_reference
+from uasr_torch.models.cuda_gru import bigru_scan, bigru_scan_reference, gru_scan
+from uasr_torch.ops.attention import dot_product_attention
+from uasr_torch.ops.cuda_attention import fused_dot_product_attention
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
@@ -82,14 +85,16 @@ class Conv1d(nn.Module):
     """flax ``nn.Conv`` over time: [B, T, C_in] -> [B, T', C_out] in the
     compute dtype, "SAME" padding split as XLA splits it (low gets the
     smaller half: lo 1 / hi 2 for a stride-2, kernel-5 conv on an even
-    length; (k-1)*d split lo/hi for a stride-1 dilated conv). Weight
-    [out, in, k]."""
+    length; (k-1)*d split lo/hi for a stride-1 dilated conv), or no padding
+    with ``padding="VALID"``. ``groups`` is flax's ``feature_group_count``
+    (``groups = C_in`` makes it depthwise). Weight [out, in / groups, k]."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, groups: int = 1, padding: str = "SAME"):
         super().__init__()
         self.kernel, self.stride, self.dilation = kernel, stride, dilation
-        self.weight = nn.Parameter(torch.empty(out_dim, in_dim, kernel))
+        self.groups, self.padding = groups, padding
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim // groups, kernel))
         self.bias = nn.Parameter(torch.empty(out_dim))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -97,9 +102,12 @@ class Conv1d(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        lo, hi = same_padding(x.shape[1], (self.kernel - 1) * self.dilation + 1, self.stride)
+        lo, hi = 0, 0
+        if self.padding == "SAME":
+            lo, hi = same_padding(x.shape[1], (self.kernel - 1) * self.dilation + 1, self.stride)
         y = F.conv1d(F.pad(x.to(dtype).transpose(1, 2), (lo, hi)), self.weight.to(dtype),
-                     self.bias.to(dtype), stride=self.stride, dilation=self.dilation)
+                     self.bias.to(dtype), stride=self.stride, dilation=self.dilation,
+                     groups=self.groups)
         return y.transpose(1, 2)
 
 
@@ -185,3 +193,121 @@ class BiGRU(nn.Module):
         valid = (tpos < lengths[None, :])[..., None]
         # stays in the compute dtype; consumers cast as they need
         return torch.where(valid, out, 0.0)
+
+
+class GRULayer(nn.Module):
+    """Unidirectional GRU over batch-major input [B, T, D] -> [B, T, H]
+    (``uasr.models.layers.GRULayer``), reset-after gates r, z, n.
+
+    ``lengths`` freezes the carried state past each utterance's end, and
+    output frames there are zero (f32). ``reverse`` runs right to left
+    within each utterance's own length. The input projections of all
+    steps are one product, in the compute dtype.
+
+    With ``use_pallas`` and no ``h0`` the recurrence is
+    ``cuda_gru.gru_scan`` with one group: kernel K5 for CUDA tensors, its
+    plain version for CPU tensors (f32 gates), and the final state is the
+    last step's output, which is frozen past each utterance's end. With an
+    ``h0`` (a streaming chunk) the recurrence is the plain step loop of
+    the JAX package's ``lax.scan`` branch, gates in ``dtype``: the TPU
+    kernel has no initial-state input, so the JAX package takes this
+    branch there too; it is that package's own path, not a fallback.
+    Without ``use_pallas`` the same step loop runs from zero.
+    ``return_final`` also returns the state after the last step, the
+    carry of the next chunk. Parameters ``wx [D, 3H]``, ``wh [H, 3H]``,
+    ``bx``, ``bh [3H]``, flax's."""
+
+    def __init__(self, input_dim: int, hidden: int, reverse: bool = False,
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+        super().__init__()
+        self.hidden, self.reverse, self.dtype, self.use_pallas = hidden, reverse, dtype, use_pallas
+        self.wx = nn.Parameter(torch.empty(input_dim, 3 * hidden))
+        self.wh = nn.Parameter(torch.empty(hidden, 3 * hidden))
+        self.bx = nn.Parameter(torch.empty(3 * hidden))
+        self.bh = nn.Parameter(torch.empty(3 * hidden))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.wx, self.wx.shape[0], generator)
+        with torch.no_grad():
+            self.wh.copy_(orthogonal_rows(self.hidden, 3 * self.hidden, generator))
+        nn.init.zeros_(self.bx)
+        nn.init.zeros_(self.bh)
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, h0: torch.Tensor | None = None,
+                return_final: bool = False):
+        B, T, D = x.shape
+        H, dt = self.hidden, self.dtype
+        x = x.to(dt)
+        wx, wh, bx, bh = (p.to(dt) for p in (self.wx, self.wh, self.bx, self.bh))
+        tpos = torch.arange(T, device=x.device)
+        if self.reverse:
+            # reverse within each utterance's valid length
+            idx = torch.clamp(lengths[:, None] - 1 - tpos[None, :], 0, T - 1)
+            x = x.gather(1, idx[..., None].expand(B, T, D))
+        xproj = (x.reshape(B * T, D) @ wx + bx).reshape(B, T, 3 * H).transpose(0, 1)
+        tmask = tpos[:, None] < lengths[None, :]  # [T, B]
+        if h0 is not None and self.reverse:
+            raise ValueError("GRULayer h0 carry is a forward-scan feature (streaming); "
+                             "unsupported with reverse=True")
+        if self.use_pallas and h0 is None:
+            ys = gru_scan(xproj[:, None].contiguous(), wh[None].contiguous(),
+                          bh[None].contiguous(), tmask[:, None])[:, 0]
+            h_final = ys[-1]  # pre-mask emit = frozen state past ends
+        else:
+            h = torch.zeros(B, H, dtype=dt, device=x.device) if h0 is None else h0.to(dt)
+            steps = []
+            for t in range(T):
+                hproj = h @ wh + bh
+                xr, xz, xn = xproj[t].split(H, -1)
+                hr, hz, hn = hproj.split(H, -1)
+                r = torch.sigmoid(xr + hr)
+                z = torch.sigmoid(xz + hz)
+                n = torch.tanh(xn + r * hn)  # reset-after (cuDNN convention)
+                h = torch.where(tmask[t][:, None], (1.0 - z) * n + z * h, h)
+                steps.append(h)
+            ys = torch.stack(steps) if steps else xproj.new_zeros(0, B, H)
+            h_final = h
+        ys = ys.transpose(0, 1)  # [B, T, H]
+        if self.reverse:
+            ys = ys.gather(1, idx[..., None].expand(B, T, H))
+        valid = (tpos[None, :] < lengths[:, None])[..., None]
+        out = torch.where(valid, ys, 0.0).to(torch.float32)
+        if return_final:
+            return out, h_final
+        return out
+
+
+class MultiHeadAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` for self-attention:
+    ``query``/``key``/``value`` projections to [B, T, heads * dh] plus bias,
+    attention over heads, ``out`` projection back to D plus bias, all in
+    the compute dtype. Q, K and V stay packed [B, T, heads * dh] (viewed as
+    [B, T, heads, dh]), the layout kernel K6 takes. ``attn_pallas`` picks
+    ``fused_dot_product_attention`` (K6 for CUDA tensors, its plain
+    version for CPU tensors), else ``dot_product_attention`` (flax's).
+    ``dropout`` drops attention weights in ``train()`` mode."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
+                 attn_pallas: bool = False, dropout: float = 0.0):
+        super().__init__()
+        if dim % num_heads:
+            raise ValueError(f"hidden size {dim} is not a multiple of num_heads {num_heads}")
+        self.num_heads, self.dtype, self.attn_pallas, self.dropout = (num_heads, dtype,
+                                                                      attn_pallas, dropout)
+        # flax's DenseGeneral kernels [D, heads, dh] and [heads, dh, D],
+        # flattened to Dense
+        self.query, self.key, self.value, self.out = (Dense(dim, dim) for _ in range(4))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for p in (self.query, self.key, self.value, self.out):
+            p.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+        B, T, D = x.shape
+        dt, H = self.dtype, self.num_heads
+        q, k, v = (p(x, dt).view(B, T, H, D // H) for p in (self.query, self.key, self.value))
+        attn = fused_dot_product_attention if self.attn_pallas else dot_product_attention
+        o = attn(q, k, v, bias=bias, mask=mask, dropout_rate=self.dropout,
+                 deterministic=not self.training)
+        return self.out(o.reshape(B, T, D), dt)

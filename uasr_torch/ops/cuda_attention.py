@@ -1,0 +1,192 @@
+"""K6, the fused multi-head self-attention forward: the wrapper of
+``csrc/mhsa_fwd.cu``, its plain PyTorch version, and
+``fused_dot_product_attention``, the counterpart of
+``uasr/ops/pallas_attention.py`` (TPU kernel ``_fwd_kernel`` behind
+``_attn_core``).
+
+``fused_dot_product_attention`` takes flax's layout [B, T, heads, dh]
+(a view of the packed [B, T, heads * dh] projection, so no relayout),
+pads T to a multiple of 8, turns a key-only mask [B or 1, 1, 1, T] into
+[B, 1, Tp] int32 and a batch-shared bias [1, H, T, T] or [H, T, T] into
+f32 [H, Tp, Tp], and runs ``attn_core``: K6 for CUDA tensors, its plain
+version for CPU tensors. As the JAX wrapper hands active dropout, other
+masks and per-example biases to flax, this one hands them to
+``ops/attention.py::dot_product_attention``: the JAX package's semantics,
+not a fallback on failure. K6 raises on input it does not take.
+
+K6's backward (K6-bwd, ``_bwd_kernel``) is not ported yet: a CUDA call
+that would need a gradient raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from uasr_torch import _build
+from uasr_torch.ops.attention import dot_product_attention
+
+LAUNCHES_ATTN = 0  # K6 launches by mhsa_fwd_cuda (read by chip_smoke.py)
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (16, 32, 64, 128)
+SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
+NEG = -1e30
+
+
+def _scale(dh: int) -> float:
+    return float(np.float32(1.0 / math.sqrt(dh)))
+
+
+def mhsa_fwd_reference(q, k, v, bias, kmask, num_heads: int):
+    """Plain version of K6. q/k/v [B, Tp, H * dh]; bias [H, Tp, Tp] f32 or
+    None; kmask [B, 1, Tp] (> 0 = valid key). Returns (out [B, Tp, H * dh]
+    in q's dtype, lse [B, H, Tp] f32): scores in f32 with the scale after
+    the product, bias and a -1e30 key mask added, the exact row max, e
+    rounded to q's dtype before the product with V and the normalisation
+    after it, as the kernel does."""
+    B, Tp, D = q.shape
+    H = num_heads
+    dh = D // H
+    f32 = torch.float32
+
+    def heads(x):
+        return x.reshape(B, Tp, H, dh).permute(0, 2, 1, 3).to(f32)
+
+    s = (heads(q) @ heads(k).transpose(-1, -2)) * _scale(dh)  # [B, H, Tp, Tp]
+    if bias is not None:
+        s = s + bias.to(f32)[None]
+    madd = torch.where(kmask > 0, 0.0, NEG).to(f32)[:, :, None, :]  # [B, 1, 1, Tp]
+    s = s + madd
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    ell = e.sum(-1, keepdim=True)
+    o = e.to(q.dtype).to(f32) @ heads(v)
+    out = (o / ell).to(q.dtype).permute(0, 2, 1, 3).reshape(B, Tp, D)
+    return out, (m + torch.log(ell))[..., 0]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("mhsa_fwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.uasr_mhsa_fwd.argtypes = [P] * 7 + [I] * 4 + [ctypes.c_float, I, P, I]
+    lib.uasr_mhsa_fwd.restype = I
+    lib.uasr_mhsa_smem.argtypes = [I, I]
+    lib.uasr_mhsa_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def mhsa_fwd_cuda(q, k, v, bias, kmask, num_heads: int):
+    """Launch K6 on CUDA tensors; same contract as the plain version.
+    Forward only: raises NotImplementedError where autograd would need
+    K6's backward."""
+    global LAUNCHES_ATTN
+    B, Tp, D = q.shape
+    H = num_heads
+    dt = q.dtype
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        raise NotImplementedError(
+            "the attention backward (kernel K6-bwd, pallas_attention.py::_bwd_kernel) is not "
+            "ported yet (ROADMAP.md Queue 1: training the recurrent and attention encoders); "
+            "K6 runs forward only")
+    if not q.is_cuda:
+        raise ValueError("attention kernel takes CUDA tensors; attn_core runs the plain version "
+                         "on the CPU")
+    if dt not in _DTYPES:
+        raise ValueError(f"attention kernel takes float32 or bfloat16, got {dt}")
+    for t in (q, k, v):
+        if t.shape != (B, Tp, D) or t.dtype != dt or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"attention kernel: expected contiguous {dt} {(B, Tp, D)} on "
+                             f"{q.device}")
+    if D % H or D // H not in _HEAD_DIMS:
+        raise ValueError(f"attention kernel takes a head size in {_HEAD_DIMS}, got {D} / {H}")
+    if Tp % 8:
+        raise ValueError(f"attention kernel takes a length padded to a multiple of 8, got {Tp}")
+    if kmask.shape != (B, 1, Tp) or kmask.dtype != torch.int32 or kmask.device != q.device:
+        raise ValueError(f"attention kernel: kmask must be int32 [B, 1, Tp] = {(B, 1, Tp)}")
+    if bias is not None and (bias.shape != (H, Tp, Tp) or bias.dtype != torch.float32
+                             or bias.device != q.device or not bias.is_contiguous()):
+        raise ValueError(f"attention kernel: bias must be contiguous float32 {(H, Tp, Tp)}")
+    lib = _lib()
+    smem = lib.uasr_mhsa_smem(D // H, Tp)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"attention kernel: length {Tp} at head size {D // H} needs {smem} B of "
+                         f"shared memory, above the {SMEM_LIMIT} B a block may use")
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, Tp, dtype=torch.float32, device=q.device)
+    dev = q.device
+    code = lib.uasr_mhsa_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kmask.contiguous().data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Tp, H,
+        D // H, _scale(D // H), _DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+    )
+    _build.check(lib, code, "mhsa_fwd kernel")
+    LAUNCHES_ATTN += 1
+    return out, lse
+
+
+def attn_core(q, k, v, bias, kmask, num_heads: int):
+    """Padded fused attention (``_attn_core``): (out, lse), K6 for CUDA
+    tensors, its plain version for CPU tensors."""
+    fn = mhsa_fwd_cuda if q.is_cuda else mhsa_fwd_reference
+    return fn(q, k, v, bias, kmask, num_heads)
+
+
+def _pad_to(a, axis: int, size: int):
+    pad = size - a.shape[axis]
+    if pad == 0:
+        return a
+    widths = [0, 0] * a.ndim
+    widths[2 * (a.ndim - 1 - axis) + 1] = pad
+    return F.pad(a, widths)
+
+
+def fused_dot_product_attention(query, key, value, bias=None, mask=None,
+                                dropout_rate: float = 0.0, deterministic: bool = True,
+                                generator: torch.Generator | None = None):
+    """``dot_product_attention`` through K6 (``fused_dot_product_attention``
+    of the JAX package). query/key/value [B, T, H, dh], self-attention."""
+    def plain():
+        return dot_product_attention(query, key, value, bias=bias, mask=mask,
+                                     dropout_rate=dropout_rate, deterministic=deterministic,
+                                     generator=generator)
+
+    if (dropout_rate > 0.0 and not deterministic) or query.ndim != 4:
+        return plain()
+    B, T, H, dh = query.shape
+    if key.shape != query.shape or value.shape != query.shape:
+        return plain()
+    # key-only padding masks ([B, 1, 1, T] broadcast) are the only kind the
+    # encoders build; anything else goes to the plain attention
+    if mask is not None:
+        if not (mask.ndim == 4 and mask.shape[1] == 1 and mask.shape[2] == 1
+                and mask.shape[0] in (1, B) and mask.shape[3] == T):
+            return plain()
+        kmask = torch.broadcast_to(mask[:, 0, 0, :], (B, T)).to(torch.int32)
+    else:
+        kmask = torch.ones(B, T, dtype=torch.int32, device=query.device)
+    bias3 = None
+    if bias is not None:
+        # batch-shared bias only (the conformer's rel-pos bias is [1, H, T, T])
+        if bias.ndim == 4 and bias.shape[0] == 1:
+            bias3 = bias[0]
+        elif bias.ndim == 3:
+            bias3 = bias
+        else:
+            return plain()
+        if bias3.shape != (H, T, T):
+            return plain()
+    Tp = -(-T // 8) * 8
+    D = H * dh
+    q3, k3, v3 = (_pad_to(x.reshape(B, T, D), 1, Tp) for x in (query, key, value))
+    kmask_p = _pad_to(kmask, 1, Tp)[:, None, :].contiguous()
+    if bias3 is not None:
+        bias3 = _pad_to(_pad_to(bias3.to(torch.float32), 1, Tp), 2, Tp).contiguous()
+    out, _ = attn_core(q3.contiguous(), k3.contiguous(), v3.contiguous(), bias3, kmask_p, H)
+    return out[:, :T].reshape(B, T, H, dh)

@@ -5,8 +5,19 @@ The same checkpoint answers online with bounded latency and exact parity:
 
     streamed tokens == offline greedy decode of the full utterance
 
-for encoders with a finite receptive field (``cnn``). A rolling feature
-window of ``lookback + 2 * chunk`` frames is re-encoded at every chunk:
+for encoders with a finite receptive field (``cnn``, window replay) and
+for the causal recurrent encoders (``uni_gru``, ``lc_bigru``, carried
+state). The recurrent ones keep no window: the encoder's own streaming
+carry (conv tail, GRU states, ``lc_bigru``'s chunk buffers) rides across
+chunks. ``uni_gru`` emits each chunk's tokens at once; ``lc_bigru`` emits
+the chunk ``num_gru_layers`` chunks back (each layer's backward window
+needs the next chunk) and ``finish()`` flushes that lag with zero-input
+steps. Each ``lc_bigru`` step runs kernel K5 once per layer, for the
+window-bounded backward GRU; the forward GRUs carry their state through
+the plain step loop, as the JAX package's do.
+
+For the window-replay encoders a rolling feature window of
+``lookback + 2 * chunk`` frames is re-encoded at every chunk:
 
   - audio arrives in chunks of ``chunk_frames * frame_shift`` samples; the
     causal streaming frontend (``stream_chunk``, kernel K7 on the card)
@@ -33,8 +44,7 @@ not exact, equal to the offline decode while the window covers the whole
 utterance.
 
 Not ported, each raising ``NotImplementedError`` that names its slice:
-the causal recurrent encoders (``uni_gru``, ``lc_bigru``), the
-merged-stream collapse of GAN checkpoints, and the beam with
+the merged-stream collapse of GAN checkpoints and the beam with
 ``ctc.lm_path`` (greedy streaming ignores the LM, as the JAX package's).
 
 The dynamic-batching primitives (``masked_step``, ``masked_step_and_finish``,
@@ -43,7 +53,11 @@ finish, reset and stamp subsets of slots for the serving daemon
 (``uasr_torch.tools.serve_daemon``), with the JAX package's packed layouts:
 inputs ride one upload (mask, stamp mask and stamped samples bit-cast into
 three trailing float32 columns of the audio matrix), outputs come back as
-one [B, K+1] int32 tensor whose last column is the count.
+one [B, K+1] int32 tensor whose last column is the count. The per-slot
+select knows each carry's batch axis: ``uni_gru``'s stacked GRU state is
+[L, B, H]; every other leaf has the batch leading. (The JAX package's
+``_select_slots`` treats ``lc_bigru``'s carry as ``uni_gru``'s and raises
+on it; ROADMAP.md Queue 3.)
 """
 
 from __future__ import annotations
@@ -57,7 +71,9 @@ from uasr_torch import resolve_device
 from uasr_torch.config import Config, ModelConfig
 from uasr_torch.frontend.features import frontend_state_from_config
 from uasr_torch.frontend.streaming import StreamState, init_stream_state, stream_chunk
-from uasr_torch.models.models import encoder_time_subsample
+from uasr_torch.models.models import (
+    encoder_time_subsample, lc_initial_carry, uni_gru_initial_carry,
+)
 from uasr_torch.ops.cuda_beam import (
     BeamState, _logaddexp, ancestor_maps, beam_init, compact_left, ctc_beam_steps,
 )
@@ -80,9 +96,9 @@ def streaming_receptive_field(cfg: ModelConfig) -> tuple[int, int]:
         return half, s
     raise ValueError(
         f"encoder {cfg.encoder!r} has unbounded context and cannot stream exactly; use "
-        "'cnn' or 'classifier' (window replay), or opt into approximate window-bounded "
-        "streaming with approx_context=True (tokens can differ from the offline decode "
-        "near the window edge)"
+        "'cnn' or 'classifier' (window replay) or 'uni_gru' / 'lc_bigru' (carried recurrent "
+        "state), or opt into approximate window-bounded streaming with approx_context=True "
+        "(tokens can differ from the offline decode near the window edge)"
     )
 
 
@@ -101,6 +117,28 @@ class BeamRecognizerState(NamedTuple):
     feat_buf: torch.Tensor
     n_frames: torch.Tensor
     prev_id: torch.Tensor  # greedy-partials carry
+    valid_frames: torch.Tensor
+    beam: BeamState
+    prefix: torch.Tensor  # [B, W, Lmax] int32, -1 padded
+    prefix_len: torch.Tensor  # [B, W]
+
+
+class RecurrentState(NamedTuple):
+    """State of the causal recurrent path: instead of a feature window, the
+    encoder's own streaming carry rides across chunks."""
+
+    frontend: StreamState
+    carry: tuple  # uni_gru_initial_carry or lc_initial_carry
+    n_frames: torch.Tensor  # [B] feature frames received per stream
+    prev_id: torch.Tensor  # [B] last raw argmax id of the decoded prefix
+    valid_frames: torch.Tensor  # [B] per-stream feature-frame cap
+
+
+class BeamRecurrentState(NamedTuple):
+    frontend: StreamState
+    carry: tuple
+    n_frames: torch.Tensor
+    prev_id: torch.Tensor
     valid_frames: torch.Tensor
     beam: BeamState
     prefix: torch.Tensor  # [B, W, Lmax] int32, -1 padded
@@ -144,8 +182,15 @@ def _select(mask: torch.Tensor, new, old):
     """Per-slot select over a (nested) state: slot b takes ``new`` where
     mask[b]; every leaf has the batch leading."""
     if isinstance(new, tuple):
-        return type(new)(*(_select(mask, n, o) for n, o in zip(new, old)))
+        parts = [_select(mask, n, o) for n, o in zip(new, old)]
+        return type(new)(*parts) if hasattr(new, "_fields") else tuple(parts)
     return torch.where(mask.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
+
+
+def _compact(ids: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Left-compact the non-negative entries of each row: (ids, counts)."""
+    keep = ids >= 0
+    return compact_left(ids, keep, -1), keep.sum(1)
 
 
 class StreamingRecognizer:
@@ -175,10 +220,6 @@ class StreamingRecognizer:
         self.cfg = cfg
         self.model = model.to(self.device).eval()
         self.fe = frontend_state_from_config(cfg.frontend, device=self.device)
-        if cfg.model.encoder in ("uni_gru", "lc_bigru"):
-            raise NotImplementedError(
-                f"streaming the causal recurrent encoder {cfg.model.encoder!r} is not ported "
-                "yet (ROADMAP.md Queue 1, slice 3: the other CTC encoders, kernel K5)")
         if cfg.train.mode in ("gan", "eodm", "gan+eodm"):
             raise NotImplementedError(
                 "streaming a GAN/EODM checkpoint (the merged-stream collapse) is not ported "
@@ -187,24 +228,37 @@ class StreamingRecognizer:
             raise NotImplementedError(
                 "ctc.lm_path needs ops/lm.py::load_lm, not ported yet (ROADMAP.md Queue 1, "
                 "slice 3: LM and HMM decode)")
+        # causal recurrent encoders carry their own state: no window, no
+        # receptive-field bound; lc_bigru emits num_gru_layers chunks late
+        self.recurrent = cfg.model.encoder in ("uni_gru", "lc_bigru")
+        self.delay = cfg.model.num_gru_layers if cfg.model.encoder == "lc_bigru" else 0
         self.approx = False
-        try:
-            half, sub = streaming_receptive_field(cfg.model)
-        except ValueError:
-            if not approx_context:
-                raise
-            # window-bounded streaming of an unbounded-context encoder: left
-            # context bounded by the lookback, right context by one chunk
+        if self.recurrent:
             half, sub = 0, encoder_time_subsample(cfg.model)
-            self.approx = True
+        else:
+            try:
+                half, sub = streaming_receptive_field(cfg.model)
+            except ValueError:
+                if not approx_context:
+                    raise
+                # window-bounded streaming of an unbounded-context encoder:
+                # left context bounded by the lookback, right by one chunk
+                half, sub = 0, encoder_time_subsample(cfg.model)
+                self.approx = True
         self.subsample = sub
         C = chunk_frames or cfg.frontend.streaming_chunk_frames or 64
+        if cfg.model.encoder == "lc_bigru" and C != cfg.model.lc_chunk * sub:
+            # the backward windows must be the training windows
+            raise ValueError(
+                "lc_bigru streams exactly only on its training chunk grid: chunk_frames must "
+                f"be lc_chunk * stride = {cfg.model.lc_chunk} * {sub} = "
+                f"{cfg.model.lc_chunk * sub}, got {C}")
         if C % sub:
             raise ValueError(f"chunk ({C}) must be a multiple of the encoder subsampling ({sub})")
         # lookback: at least the receptive field (approx: 4 chunks), rounded
         # UP to a chunk multiple so the window fills exactly before it rolls
         want_lb = lookback_frames or (4 * C if self.approx else half)
-        Lb = -(-max(want_lb, 1) // C) * C
+        Lb = 0 if self.recurrent else -(-max(want_lb, 1) // C) * C
         if C < half:
             raise ValueError(
                 f"chunk_frames {C} < receptive-field half-width {half}: the decoded region "
@@ -242,6 +296,24 @@ class StreamingRecognizer:
         else:
             fs = self.cfg.frontend.frame_shift
             valid = (_as_tensor(audio_lengths, torch.long, dev) + fs - 1) // fs
+        Wb, L = self.beam_width, self.max_tokens
+        if self.recurrent:
+            make = lc_initial_carry if self.delay else uni_gru_initial_carry
+            rbase = RecurrentState(
+                frontend=init_stream_state(batch, self.cfg.frontend, device=dev),
+                carry=make(self.cfg.model, batch, device=dev),
+                n_frames=torch.zeros(batch, dtype=torch.long, device=dev),
+                prev_id=torch.full((batch,), self.blank, dtype=torch.long, device=dev),
+                valid_frames=valid,
+            )
+            if not self.use_beam:
+                return rbase
+            return BeamRecurrentState(
+                *rbase,
+                beam=beam_init(batch, Wb, dev),
+                prefix=torch.full((batch, Wb, L), -1, dtype=torch.int32, device=dev),
+                prefix_len=torch.zeros(batch, Wb, dtype=torch.long, device=dev),
+            )
         base = RecognizerState(
             frontend=init_stream_state(batch, self.cfg.frontend, device=dev),
             feat_buf=torch.zeros(batch, self.window, self.cfg.frontend.num_mel_bins, device=dev),
@@ -251,7 +323,6 @@ class StreamingRecognizer:
         )
         if not self.use_beam:
             return base
-        Wb, L = self.beam_width, self.max_tokens
         return BeamRecognizerState(
             *base,
             beam=beam_init(batch, Wb, dev),
@@ -308,7 +379,7 @@ class StreamingRecognizer:
     def _masked_step(self, state, chunks, mask, smask, frames):
         state = state._replace(valid_frames=torch.where(smask, frames, state.valid_frames))
         new, ids, counts = self._step_impl(state, chunks)
-        kept = _select(mask, new, state)
+        kept = self._select_slots(mask, new, state)
         counts = torch.where(mask, counts, 0)
         return kept, torch.cat([ids, counts[:, None]], 1).to(torch.int32)
 
@@ -343,7 +414,7 @@ class StreamingRecognizer:
     def _finish_and_reset(self, state, mask):
         mask = _as_tensor(mask, torch.bool, self.device)
         _fin, ids, counts = self._finish_impl(state)
-        kept = _select(mask, self._template(len(mask)), state)
+        kept = self._select_slots(mask, self._template(len(mask)), state)
         return kept, torch.cat([ids, counts[:, None].to(ids.dtype)], 1).to(torch.int32)
 
     def finish_and_reset(self, state, mask, packed=False):
@@ -362,7 +433,7 @@ class StreamingRecognizer:
         """``state`` with the masked slots re-initialised (fresh open-ended
         streams)."""
         mask = _as_tensor(mask, torch.bool, self.device)
-        return _select(mask, self._template(len(mask)), state)
+        return self._select_slots(mask, self._template(len(mask)), state)
 
     def set_valid_samples(self, state, mask, samples):
         """Stamp the masked slots' utterance length in samples, so the
@@ -373,6 +444,16 @@ class StreamingRecognizer:
         return state._replace(valid_frames=torch.where(mask, frames, state.valid_frames))
 
     # ---- internals
+
+    def _select_slots(self, mask, new, old):
+        """Per-slot select: slot b takes ``new`` where mask[b]. Every leaf
+        has the batch leading except ``uni_gru``'s GRU state [L, B, H]."""
+        if not (self.recurrent and not self.delay):
+            return _select(mask, new, old)
+        tail = _select(mask, new.carry[0], old.carry[0])
+        h = torch.where(mask[None, :, None], new.carry[1], old.carry[1])
+        rest = _select(mask, new._replace(carry=()), old._replace(carry=()))
+        return rest._replace(carry=(tail, h))
 
     def _push(self, buf, n_prev, feats):
         """Append a chunk of frames, left-aligned; roll once full. n_prev is
@@ -435,7 +516,79 @@ class StreamingRecognizer:
         out, counts, prev = self._emit(ids, state.prev_id, active)
         return region, out, counts, prev
 
+    def _recurrent_region(self, state, feats, a, carry, prev):
+        """One encoder step of the recurrent path on feature frames starting
+        at a [B]: (logits, new carry, emitted region's first frame, ids,
+        counts, new prev id, can)."""
+        C, s = self.chunk, self.subsample
+        if self.delay:
+            logits, new_carry = self.model.step(feats, a, state.valid_frames, carry)
+            estart = a - self.delay * C  # emitted region's first frame
+        else:
+            fv = torch.clamp(state.valid_frames - a, 0, C)
+            logits, new_carry = self.model.step(feats, fv, carry)
+            estart = a
+        ids = logits.argmax(-1)
+        K = ids.shape[1]
+        can = estart >= 0
+        pos = (torch.clamp(estart, min=0) // s)[:, None] + torch.arange(K, device=ids.device)
+        vlog = (state.valid_frames + s - 1) // s
+        active = can[:, None] & (pos < vlog[:, None])
+        out, counts, new_prev = self._emit(ids, prev, active)
+        return logits, new_carry, estart, out, counts, new_prev, can
+
+    def _step_recurrent(self, state, audio_chunk):
+        """Frontend chunk -> encoder step with the carried state -> tokens:
+        uni_gru's of this chunk, lc_bigru's of the chunk ``delay`` back
+        (none until its layer pipeline fills)."""
+        fstate, feats = stream_chunk(state.frontend, audio_chunk, self.fe, self.cfg.frontend)
+        a = state.n_frames
+        logits, carry, estart, out, counts, prev, can = self._recurrent_region(
+            state, feats, a, state.carry, state.prev_id)
+        n = a + self.chunk
+        if not self.use_beam:
+            return RecurrentState(fstate, carry, n, prev, state.valid_frames), out, counts
+        beam, prefix, plen = self._advance_beam(state, logits, can,
+                                                torch.clamp(estart, min=0) // self.subsample)
+        return (BeamRecurrentState(fstate, carry, n, prev, state.valid_frames, beam, prefix,
+                                   plen), out, counts)
+
+    def _finish_recurrent(self, state):
+        """uni_gru decoded every chunk on arrival: greedy has nothing to
+        flush and beam reads out the best transcript. lc_bigru flushes its
+        ``delay``-chunk lag with zero-input steps (the flushed windows clamp
+        at each stream's valid length, as the offline windows do); greedy
+        returns the flushed tokens left-compacted in one row."""
+        B = state.prev_id.shape[0]
+        K = self.chunk // self.subsample
+        if not self.delay and not self.use_beam:
+            return (state, torch.full((B, K), -1, dtype=torch.long, device=self.device),
+                    torch.zeros(B, dtype=torch.long, device=self.device))
+        beam = state
+        if self.delay:
+            zeros = torch.zeros(B, self.chunk, self.cfg.frontend.num_mel_bins,
+                                device=self.device)
+            carry, nf, prev = state.carry, state.n_frames, state.prev_id
+            outs = []
+            for _ in range(self.delay):
+                logits, carry, estart, out, _c, prev, can = self._recurrent_region(
+                    state, zeros, nf, carry, prev)
+                outs.append(out)
+                if self.use_beam:
+                    b, pre, plen = self._advance_beam(
+                        beam, logits, can, torch.clamp(estart, min=0) // self.subsample)
+                    beam = beam._replace(beam=b, prefix=pre, prefix_len=plen)
+                nf = nf + self.chunk
+            if not self.use_beam:
+                ids, counts = _compact(torch.cat(outs, 1))
+                return state._replace(prev_id=prev), ids, counts
+        best = _logaddexp(beam.beam.p_b, beam.beam.p_nb).argmax(1)
+        final = beam.prefix.gather(1, best[:, None, None].expand(-1, 1, beam.prefix.shape[2]))
+        return state, final[:, 0], beam.prefix_len.gather(1, best[:, None])[:, 0]
+
     def _step_impl(self, state, audio_chunk):
+        if self.recurrent:
+            return self._step_recurrent(state, audio_chunk)
         C = self.chunk
         fstate, feats = stream_chunk(state.frontend, audio_chunk, self.fe, self.cfg.frontend)
         buf = self._push(state.feat_buf, state.n_frames, feats)
@@ -452,6 +605,8 @@ class StreamingRecognizer:
                                     plen), out, counts)
 
     def _finish_impl(self, state):
+        if self.recurrent:
+            return self._finish_recurrent(state)
         C = self.chunk
         n = state.n_frames
         can = n >= C

@@ -25,7 +25,9 @@ Exactness: a stream's final transcript equals the offline decode of its
 full utterance (greedy partials + tail flush, or the carried exact beam
 when ``ctc.use_beam``): the daemon pads the tail to a chunk multiple and
 stamps the true sample count, the offline path's padding + length
-masking.
+masking. Any encoder ``StreamingRecognizer`` streams is served: ``cnn``
+(window replay) and the causal recurrent ``uni_gru`` and ``lc_bigru``
+(carried state; ``lc_bigru``'s finish flushes its layer lag).
 
   python -m uasr_torch.tools.serve_daemon -c recipe.yaml [--port 8790] \
       [--batch 8] [--chunk-frames 64] [--device cuda|cpu]

@@ -3,21 +3,25 @@
 
 Restores a trained CTC checkpoint and transcribes a list of utterances as
 an online service would: audio fed in fixed chunks, tokens emitted
-incrementally (one chunk of latency), the final transcript equal to the
-offline ``--mode infer`` decode:
+incrementally, the final transcript equal to the offline ``--mode infer``
+decode:
 
   python -m uasr_torch.tools.stream -c recipe.yaml [--list data/test.tsv] \\
       [--chunk-frames 64] [--batch 8] [--verbose] [--device cuda|cpu]
 
-Requires ``frontend.cmvn: streaming`` and a ``cnn`` encoder (window
-replay). Mixed-length batches are safe: per-utterance lengths go to the
+Requires ``frontend.cmvn: streaming`` and a streamable encoder: ``cnn``
+(window replay, one chunk of latency), ``uni_gru`` (carried recurrent
+state, no right-context latency) or ``lc_bigru`` (carried state,
+``num_gru_layers`` chunks of latency, chunks of ``lc_chunk`` patches).
+Mixed-length batches are safe: per-utterance lengths go to the
 recognizer, so decoding freezes at each utterance's own end. With
 ``--verbose`` the partial transcript is printed after every chunk; the
 final lines are ``utt_id<TAB>tokens``, plus a PER summary when the list
 carries references. With ``ctc.use_beam`` the partials are provisional
 greedy and the final lines carry the complete beam transcript.
-``--device`` defaults to ``cuda`` (kernels K7 and K4) and raises without a
-card; ``--device cpu`` runs their plain versions.
+``--device`` defaults to ``cuda`` (kernels K7 and K4, and K5 for
+``lc_bigru``) and raises without a card; ``--device cpu`` runs their
+plain versions.
 """
 
 from __future__ import annotations
