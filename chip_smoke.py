@@ -61,7 +61,20 @@ and prints no result line):
    conformer's relative-position tables drawn N(0, 0.3^2)) through
    ``run_inference``, transformer_layers K6 per request, logits against
    the plain path;
-10. one JSON line listing every ported kernel with its check, times and
+10. K5's coefficient outputs, K5-bwd and K8 at the recurrent encoders'
+   training shapes (H=384: the 12 s forward GRU T=300 B=64, the lc_bigru
+   backward windows T=24 B=1216) in f32 and bf16, and K6-bwd at the
+   attention encoders' (B=32, T=400, 8 heads of 64: bf16 with the
+   conformer's bias and without, f32), against their plain versions;
+11. the training paths of those four encoders: ``CTCTrainer.train_step``
+   at full width (aishell_streaming with lc_bigru and uni_gru, B=64, 4 to
+   12 s, ``ctc.use_pallas``; librispeech with conformer and transformer,
+   B=32, 4 to 16 s, the recipe's SpecAugment, clip and schedule), a set-up
+   step and one step per bucket with exact launch counts, one lc_bigru step
+   with the linear backward (K8), a profile of one 12 s and one 16 s step,
+   and the first step's loss and gradients on the kernel path against the
+   plain path, bf16 and f32;
+12. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -72,6 +85,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -167,9 +181,9 @@ def char_vocab():
     return Vocab(tokens=[BLK, *letters, "'", "<space>", UNK, PAD, "<eos>"], blank_id=0)
 
 
-def make_requests(np, cfg, n_req: int = 4):
+def make_requests(np, cfg, n_req: int = 4, cps: float = 14):
     """One batch per bucket boundary; lengths spread over the bucket, the
-    longest exactly at the boundary, ~14 characters per second."""
+    longest exactly at the boundary, ``cps`` characters per second."""
     from uasr_torch.data.dataset import Batch
 
     rng = np.random.RandomState(SEED)
@@ -183,7 +197,7 @@ def make_requests(np, cfg, n_req: int = 4):
         L = int(lens.max())
         audio = (0.1 * rng.randn(B, L)).astype(np.float32)
         audio[np.arange(L)[None, :] >= lens[:, None]] = 0.0
-        ulen = np.minimum((secs * 14).astype(np.int32), cfg.data.max_label_len)
+        ulen = np.minimum((secs * cps).astype(np.int32), cfg.data.max_label_len)
         labels = rng.randint(1, V - 3, (B, cfg.data.max_label_len)).astype(np.int32)
         labels[np.arange(labels.shape[1])[None, :] >= ulen[:, None]] = 0
         out.append(Batch(audio, lens, labels, ulen))
@@ -531,7 +545,10 @@ def plain_versions():
     from uasr_torch.ops import cuda_ctc as k3
 
     swaps = [(k2, "gru_scan_cuda", k2.gru_scan_reference),
+             (k2, "gru_scan_bwd_cuda", k2.gru_scan_bwd_reference),
+             (k2, "gru_scan_bwd_lin_cuda", k2.gru_scan_bwd_lin_reference),
              (k6, "mhsa_fwd_cuda", k6.mhsa_fwd_reference),
+             (k6, "mhsa_bwd_cuda", k6.mhsa_bwd_reference),
              (k1, "log_mel_fused_cuda", k1.log_mel_fused_reference),
              (k1, "log_mel_unfused_cuda", k1.log_mel_unfused_reference),
              (k2, "bigru_scan_cuda", k2.bigru_scan_reference),
@@ -558,7 +575,9 @@ def _counters():
             "K2": (cuda_gru, "LAUNCHES"),
             "K2-bwd": (cuda_gru, "LAUNCHES_BWD"), "K3": (cuda_ctc, "LAUNCHES"),
             "K3-bwd": (cuda_ctc, "LAUNCHES_BWD"), "K4": (cuda_beam, "LAUNCHES"),
-            "K5": (cuda_gru, "LAUNCHES_GRU"), "K6": (cuda_attention, "LAUNCHES_ATTN")}
+            "K5": (cuda_gru, "LAUNCHES_GRU"), "K6": (cuda_attention, "LAUNCHES_ATTN"),
+            "K5-bwd": (cuda_gru, "LAUNCHES_GRU_BWD"), "K8": (cuda_gru, "LAUNCHES_GRU_LIN"),
+            "K6-bwd": (cuda_attention, "LAUNCHES_ATTN_BWD")}
 
 
 def reset_launches():
@@ -715,7 +734,7 @@ def phase_train(torch, np, launches: dict) -> None:
     print(f"  set-up step (16 s bucket): wall {(time.perf_counter() - t0) * 1e3:.2f} ms, "
           f"loss {loss:.4f}, grad_norm {gnorm:.4f}", flush=True)
     want = {"K1": 1, "K7": 0, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1, "K4": 0, "K5": 0,
-            "K6": 0}
+            "K6": 0, "K5-bwd": 0, "K8": 0, "K6-bwd": 0}
     total = dict.fromkeys(want, 0)
     for b in batches:
         reset_launches()
@@ -742,12 +761,25 @@ def phase_train(torch, np, launches: dict) -> None:
     # kernel path vs plain path: loss and gradients of the first step (the
     # initial weights; after it, SpecAugment's zeroed bands make the conv
     # front's LayerNorm amplify any difference ~1/sqrt(eps)), same batch and
-    # SpecAugment draw, every kernel swapped for its plain version. bf16:
-    # the BiGRU carry and K2-bwd's products round to bf16 at every step,
-    # and a value next to a rounding boundary may round the other way; f32:
-    # summation order only; both: the order of the gather's scatter-add
-    db = trainer.to_device(batches[-1])
-    params = init_params
+    # SpecAugment draw (both dtypes also differ in the order of the gather's
+    # scatter-add)
+    compare_first_step(torch, cfg, init_params, trainer.to_device(batches[-1]), "step")
+
+
+def compare_first_step(torch, cfg, params, db, what: str, floor: float = 0.0) -> None:
+    """Loss and gradients of one step of ``cfg``'s trainer at ``params`` on
+    the kernel path against the plain path (every kernel swapped for its
+    plain version), same batch and SpecAugment draw, in bf16 and f32. Bars:
+    bf16 loss 1e-3, grad norm 1e-2, worst tensor 5e-2 (carries and products
+    round to bf16 at every step, and a value next to a rounding boundary may
+    round the other way); f32 1e-5, 1e-4 and 1e-3 (summation order only). A
+    tensor's error is relative to its gradient's norm, or to ``floor`` times
+    the global norm where that is larger: a gradient at the rounding floor
+    (the attention key projections' bias, which the softmax ignores) is
+    rounding noise on both paths."""
+    from uasr_torch import train
+
+    dev = torch.device(DEVICE)
     for dtype, (tl, tn, tw) in (("bfloat16", (1e-3, 1e-2, 5e-2)), ("float32", (1e-5, 1e-4, 1e-3))):
         t = train.CTCTrainer(dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
                                                                                 dtype=dtype)),
@@ -759,15 +791,16 @@ def phase_train(torch, np, launches: dict) -> None:
         nk = float(train.global_norm(g_k.values()))
         npl = float(train.global_norm(g_p.values()))
         worst = max((float(torch.linalg.vector_norm(g_k[k] - g_p[k])
-                           / torch.linalg.vector_norm(g_p[k]).clamp_min(1e-30)), k)
-                    for k in g_p)
-        print(f"  step, kernel path vs plain path, {dtype}: loss {lk:.6f} vs {lp:.6f} (rel "
+                           / torch.linalg.vector_norm(g_p[k]).clamp_min(max(floor * npl, 1e-30))),
+                     k) for k in g_p)
+        print(f"  {what}, kernel path vs plain path, {dtype}: loss {lk:.6f} vs {lp:.6f} (rel "
               f"{_rel(lk, lp):.3e}, tol {tl}), grad norm {nk:.6f} vs {npl:.6f} (rel "
               f"{_rel(nk, npl):.3e}, tol {tn}), worst tensor |dg|/|g| {worst[0]:.3e} "
               f"({worst[1]}, tol {tw})", flush=True)
-        check(np.isfinite(lk) and _rel(lk, lp) <= tl, f"{dtype}: loss {lk} vs plain {lp}")
-        check(np.isfinite(nk) and _rel(nk, npl) <= tn, f"{dtype}: grad norm {nk} vs plain {npl}")
-        check(worst[0] <= tw, f"{dtype}: gradient of {worst[1]} off by {worst[0]:.3e}")
+        check(math.isfinite(lk) and _rel(lk, lp) <= tl, f"{what} {dtype}: loss {lk} vs plain {lp}")
+        check(math.isfinite(nk) and _rel(nk, npl) <= tn,
+              f"{what} {dtype}: grad norm {nk} vs plain {npl}")
+        check(worst[0] <= tw, f"{what} {dtype}: gradient of {worst[1]} off by {worst[0]:.3e}")
 
 
 def aishell_config(encoder: str = "cnn"):
@@ -904,7 +937,7 @@ def phase_stream(torch, np, launches: dict) -> None:
         dataclasses.replace(cfg, ctc=dataclasses.replace(cfg.ctc, use_beam=False)), model,
         device=dev)
     want_greedy = {"K1": 0, "K7": 1, "K2": 0, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0,
-                   "K5": 0, "K6": 0}
+                   "K5": 0, "K6": 0, "K5-bwd": 0, "K8": 0, "K6-bwd": 0}
 
     def greedy_step(d):
         check(d == want_greedy, f"greedy step launches {d}, expected {want_greedy}")
@@ -1455,6 +1488,290 @@ def phase_attention(torch, np, launches: dict) -> None:
 
 
 
+def _gru_problem(torch, gen, T: int, rows: int, H: int, dt):
+    """K5's inputs at one group with ragged lengths (a full row, a row of
+    length 0), and a cotangent of ys."""
+    dev = torch.device(DEVICE)
+    lengths = torch.randint(0, T + 1, (rows,), device=dev, generator=gen)
+    lengths[0], lengths[-1] = T, 0
+    tmask = (torch.arange(T, device=dev)[:, None] < lengths[None])[:, None]  # [T, 1, B]
+    xp = 0.5 * torch.randn(T, 1, rows, 3 * H, device=dev, generator=gen)
+    wh = torch.randn(1, H, 3 * H, device=dev, generator=gen) / H ** 0.5
+    bh = 0.1 * torch.randn(1, 3 * H, device=dev, generator=gen)
+    dy = torch.randn(T, 1, rows, H, device=dev, generator=gen) / rows
+    return tuple(x.to(dt).contiguous() for x in (xp, wh, bh)), tmask, dy.to(dt), lengths
+
+
+def phase_train_k5_k6(torch, np, results: dict) -> None:
+    """K5's coefficient outputs, K5-bwd and K8 at the recurrent encoders'
+    training shapes and K6-bwd at the attention encoders', against their
+    plain versions, with their times, bounds and library yardsticks (cuDNN's
+    unidirectional GRU and scaled_dot_product_attention, each forward +
+    backward minus forward; neither is on any path)."""
+    import torch.nn.functional as F
+
+    from uasr_torch.models import cuda_gru as k5
+    from uasr_torch.ops import cuda_attention as k6
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    # ---- K5-bwd, K8: the 12 s forward GRU of lc_bigru and uni_gru (T=300,
+    # B=64) and the lc_bigru backward windows (T=24, B=64*19), H=384
+    H = K5_H
+    for what, T, rows in (("offline", K5_T, STREAM_B), ("windows", K5_WINDOW,
+                                                        STREAM_B * K5_WINDOWS)):
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            args, tmask, dy, lengths = _gru_problem(torch, gen, T, rows, H, dt)
+            ys, c4, ch = k5.gru_scan_cuda(*args, tmask, save_coeffs=True)
+            r_ys, r_c4, r_ch = k5.gru_scan_reference(*args, tmask, save_coeffs=True)
+            got = k5.gru_scan_bwd_cuda(*args, tmask, ys, dy)
+            ref = k5.gru_scan_bwd_reference(*args, tmask, ys, dy)
+            lin = k5.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1])
+            r_lin = k5.gru_scan_bwd_lin_reference(c4, ch, dy, args[1])
+            torch.cuda.synchronize()
+            # K2-bwd's bars: f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest
+            # reference value; the coefficients follow each side's own carry,
+            # which in bf16 may round an ulp apart (K5's bf16 bar)
+            tol = 1e-4 if dtype == "float32" else 2 ** -7
+            c_err = max(float((a.float() - r.float()).abs().max()) / max(
+                1.0, float(r.float().abs().max())) for a, r in ((c4, r_c4), (ch, r_ch)))
+            scale = max(float(r.float().abs().max()) for r in ref)
+            err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
+            l_scale = float(r_lin.float().abs().max())
+            l_err = float((lin.float() - r_lin.float()).abs().max())
+            zero = lengths == 0
+            print(f"K5-bwd/K8  {what:8s} {dtype:8s} T={T} B={rows} H={H} (units/CTA, splits)="
+                  f"{k5.LAST_GRU_BWD_PLAN}: coefficients max|d|/max(1,|ref|) {c_err:.3e}; K5-bwd "
+                  f"max|d| {err:.3e}, K8 {l_err:.3e}, largest |ref| {scale:.3e} / {l_scale:.3e} "
+                  f"(tol {tol} x)", flush=True)
+            check(all(bool(torch.isfinite(a.float()).all()) for a in (*got, lin, c4, ch)),
+                  f"K5-bwd/K8 {what} {dtype}: non-finite output")
+            check(c_err <= tol, f"K5 coefficients {what} {dtype}: {c_err:.3e} > {tol}")
+            check(err <= tol * max(scale, 1.0), f"K5-bwd {what} {dtype}: max|d| {err:.3e}")
+            check(l_err <= tol * max(l_scale, 1.0), f"K8 {what} {dtype}: max|d| {l_err:.3e}")
+            check(not any(bool(t[:, 0, zero].any()) for t in (*got, lin)),
+                  f"K5-bwd/K8 {what} {dtype}: a zero-length row got a gradient")
+            ms = cuda_ms(torch, lambda: k5.gru_scan_bwd_cuda(*args, tmask, ys, dy), 10)
+            ms_l = cuda_ms(torch, lambda: k5.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1]), 10)
+            plain = cuda_ms(torch, lambda: k5.gru_scan_bwd_reference(*args, tmask, ys, dy), 1)
+            plain_l = cuda_ms(torch, lambda: k5.gru_scan_bwd_lin_reference(c4, ch, dy, args[1]),
+                              1)
+            es = 4 if dtype == "float32" else 2
+            steps = int(lengths.sum())  # row-steps the masks keep active
+            TB = T * rows
+            nbytes = es * (TB * 3 * H + H * 3 * H + 3 * H + 2 * TB * H + TB * 3 * H + TB * H) + 4 * TB
+            bms, by = bound(nbytes, 2 * 2 * steps * H * 3 * H, dtype)
+            nbytes_l = es * (TB * 4 * H + TB * H + H * 3 * H + TB * 4 * H) + 4 * TB * H
+            bms_l, by_l = bound(nbytes_l, 2 * steps * H * 3 * H, dtype)
+            # cuDNN's unidirectional GRU on the same unmasked shapes (input
+            # D = H): forward + backward minus forward
+            gru = torch.nn.GRU(H, H).to(device=dev, dtype=dt)
+            gru.flatten_parameters()
+            x = torch.randn(T, rows, H, device=dev, generator=gen).to(dt).requires_grad_()
+            gy = torch.randn(T, rows, H, device=dev, generator=gen).to(dt)
+            fwd = cuda_ms(torch, lambda: gru(x)[0], 10)
+            lib = cuda_ms(torch, lambda: gru(x)[0].backward(gy), 10) - fwd
+            print(f"  K5-bwd kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by}); "
+                  f"K8 kernel {ms_l:.4f} ms plain {plain_l:.4f} ms bound {bms_l:.4f} ms ({by_l}); "
+                  f"cuDNN GRU bwd {lib:.4f} ms (fwd {fwd:.4f})", flush=True)
+            results[f"K5-bwd:{what}:{dtype}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                                     bound_ms=bms, bound_by=by, library_ms=lib)
+            results[f"K8:{what}:{dtype}"] = dict(max_abs_err=l_err, ms=ms_l, plain_ms=plain_l,
+                                                 bound_ms=bms_l, bound_by=by_l, library_ms=lib)
+
+    # ---- K6-bwd: B=32, T=400, 8 x 64, keys of a 12-16 s bucket
+    B, T, Hh, dh = K6_B, K6_T, K6_HEADS, K6_DH
+    D = Hh * dh
+    lengths = torch.randint(3 * T // 4, T + 1, (B,), device=dev, generator=gen)
+    lengths[0], lengths[1] = T, 1  # a full row and a row with one valid key
+    kmask = (torch.arange(T, device=dev)[None] < lengths[:, None]).to(torch.int32)[:, None]
+    qkv = [torch.randn(B, T, D, device=dev, generator=gen) for _ in range(3)]
+    doutf = torch.randn(B, T, D, device=dev, generator=gen)
+    bias = (0.3 * torch.randn(Hh, T, T, device=dev, generator=gen)).to(torch.bfloat16).float()
+    for what, dtype, b in (("bias", "bfloat16", bias), ("nobias", "bfloat16", None),
+                           ("f32", "float32", bias)):
+        dt = getattr(torch, dtype)
+        q, k, v = (x.to(dt).contiguous() for x in qkv)
+        out, lse = k6.mhsa_fwd_cuda(q, k, v, b, kmask, Hh)
+        dout = doutf.to(dt)
+        args = (q, k, v, b, kmask, out, lse, dout, Hh)
+        got = k6.mhsa_bwd_cuda(*args)
+        ref = k6.mhsa_bwd_reference(*args)
+        torch.cuda.synchronize()
+        # relative to each tensor's largest magnitude: bf16 2e-2 (p and t
+        # round to bf16 before their products), f32 1e-4
+        rel = 2e-2 if dtype == "bfloat16" else 1e-4
+        errs = [float((a.float() - r.float()).abs().max()) / float(r.float().abs().max())
+                for a, r in zip(got, ref) if r is not None]
+        err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref)
+                  if r is not None)
+        print(f"K6-bwd     {what:8s} B={B} T={T} heads={Hh} dh={dh} {dtype}: max|d|/max|ref| "
+              f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}"
+              + (f" d_bias {errs[3]:.3e}" if b is not None else "") + f" (tol {rel})",
+              flush=True)
+        check(all(bool(torch.isfinite(a.float()).all()) for a in got if a is not None),
+              f"K6-bwd {what}: non-finite output")
+        check(max(errs) <= rel, f"K6-bwd {what}: max|d|/max|ref| {max(errs):.3e} > {rel}")
+        ms = cuda_ms(torch, lambda: k6.mhsa_bwd_cuda(*args), 10)
+        plain = cuda_ms(torch, lambda: k6.mhsa_bwd_reference(*args), 2)
+        es = 2 if dtype == "bfloat16" else 4
+        nbytes = (es * 8 * B * T * D + (2 * 4 * Hh * T * T if b is not None else 0) + 4 * B * T
+                  + 4 * B * Hh * T)
+        keys = int(lengths.sum())  # every query row attends over its row's valid keys
+        bms, by = bound(nbytes, 10 * Hh * dh * T * keys, dtype)
+        # scaled_dot_product_attention with the bias and key mask as one
+        # float mask: forward + backward (dq, dk, dv) minus forward
+        qh, kh, vh = (x.view(B, T, Hh, dh).transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k, v))
+        gh = dout.view(B, T, Hh, dh).transpose(1, 2).contiguous()
+        fmask = torch.where(kmask[:, :, None, :] > 0, 0.0, -1e30)
+        if b is not None:
+            fmask = fmask + b[None]
+        fmask = fmask.to(dt)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=fmask)
+
+        fwd = cuda_ms(torch, sdpa, 10)
+        lib = cuda_ms(torch, lambda: sdpa().backward(gh), 10) - fwd
+        print(f"  K6-bwd kernel {ms:.4f} ms plain {plain:.4f} ms SDPA bwd {lib:.4f} ms (fwd "
+              f"{fwd:.4f}) bound {bms:.4f} ms ({by})", flush=True)
+        results[f"K6-bwd:{what}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                                         bound_by=by, library_ms=lib)
+
+
+def encoder_train_config(encoder: str):
+    """The training configurations of the four encoders: aishell_streaming
+    with lc_bigru / uni_gru (gru_pallas, ctc.use_pallas; H=384, f32, B=64,
+    buckets 4, 8, 12 s, V=4233 stand-in) and librispeech_ctc_bigru with
+    conformer / transformer (attn_pallas; d=512, bf16, B=32, 4-16 s, the
+    recipe's SpecAugment, clip and schedule, V=32 stand-in)."""
+    if encoder in ("lc_bigru", "uni_gru"):
+        cfg = aishell_config(encoder)
+        return cfg.replace(ctc=dataclasses.replace(cfg.ctc, use_pallas=True))
+    return attention_config(encoder, len(char_vocab()))
+
+
+def phase_encoder_train(torch, np, launches: dict) -> None:
+    """The training paths of the recurrent and attention encoders at full
+    width through CTCTrainer: a set-up step, then one step per bucket with
+    its exact launch counts, one lc_bigru step with the linear backward,
+    a profile of one 12 s (lc_bigru) and one 16 s (conformer) step, and the
+    first step's loss and gradients on the kernel path against the plain
+    path."""
+    from uasr_torch import train
+    from uasr_torch.models import cuda_gru
+
+    dev = torch.device(DEVICE)
+    zero = dict.fromkeys(_counters(), 0)
+    total = dict(zero)
+    for encoder in ("lc_bigru", "uni_gru", "conformer", "transformer"):
+        cfg = encoder_train_config(encoder)
+        m = cfg.model
+        recurrent = encoder in ("lc_bigru", "uni_gru")
+        trainer = train.CTCTrainer(cfg, device=dev)
+        state = trainer.init_state()
+        if encoder == "conformer":
+            # flax starts the relative-position tables at zero; draw them so
+            # d_bias is not fed by a zero bias
+            gen = torch.Generator().manual_seed(SEED + 13)
+            with torch.no_grad():
+                for i in range(m.transformer_layers):
+                    t = state.params[f"rel_bias{i}"]
+                    t.copy_(0.3 * torch.randn(t.shape, generator=gen).to(t.device))
+        init_params = {k: v.detach().clone() for k, v in state.params.items()}
+        batches = make_requests(np, cfg, cps=4 if recurrent else 14)
+        sr = cfg.frontend.sample_rate
+        print(f"train: {cfg.name} with {encoder}, "
+              + (f"H={m.hidden_size} x{m.num_gru_layers} GRU layers" if recurrent else
+                 f"d={m.hidden_size} {m.num_heads} heads x{m.transformer_layers}")
+              + f", {m.dtype}, V={cfg.dim_output}, B={cfg.data.batch_size}, buckets "
+              f"{cfg.data.bucket_boundaries}, {cfg.train.lr_schedule} lr {cfg.train.lr}, clip "
+              f"{cfg.train.grad_clip}, SpecAugment {cfg.frontend.specaug_freq_masks} x "
+              f"{cfg.frontend.specaug_freq_mask} + {cfg.frontend.specaug_time_masks} x "
+              f"{cfg.frontend.specaug_time_mask}", flush=True)
+
+        def step(b):
+            nonlocal state
+            state, aux = trainer.train_step(state, b)
+            return float(aux["loss"]), float(aux["grad_norm"])
+
+        def want_of(b, linear=False):
+            """Launches of one step, from the code: lc_bigru runs a forward
+            GRU and a backward-window GRU per layer, uni_gru one GRU per
+            layer, each one K5 forward and one K5-bwd (or K8); an attention
+            encoder one K6 and one K6-bwd per block; one K3 and one K3-bwd;
+            the streaming-CMVN frontend one K7 per 64-frame chunk of the
+            padded audio, the utterance-CMVN one K1."""
+            if recurrent:
+                grus = (2 if encoder == "lc_bigru" else 1) * m.num_gru_layers
+                chunk = cfg.frontend.streaming_chunk_frames * cfg.frontend.frame_shift
+                return dict(zero, K7=-(-b.audio.shape[1] // chunk), K5=grus, K3=1, **{
+                    "K3-bwd": 1, "K8" if linear else "K5-bwd": grus})
+            return dict(zero, K1=1, K6=m.transformer_layers, K3=1,
+                        **{"K6-bwd": m.transformer_layers, "K3-bwd": 1})
+
+        t0 = time.perf_counter()
+        loss, gnorm = step(batches[-1])
+        torch.cuda.synchronize()
+        print(f"  set-up step ({batches[-1].audio.shape[1] / sr:.0f} s bucket): wall "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms, loss {loss:.4f}, grad_norm "
+              f"{gnorm:.4f}", flush=True)
+        for b in batches:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, gnorm = step(b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches()
+            secs = float(np.sum(b.audio_lengths)) / sr
+            print(f"  step {state.step} {b.audio.shape[1] / sr:5.1f} s bucket: wall "
+                  f"{wall * 1e3:.2f} ms, {secs / wall:.1f} audio-s/s, loss {loss:.4f}, "
+                  f"grad_norm {gnorm:.4f}, launches {counts}", flush=True)
+            check(np.isfinite(loss) and loss > 0 and np.isfinite(gnorm),
+                  f"{encoder} step {state.step}: loss {loss} grad_norm {gnorm}")
+            want = want_of(b)
+            check(counts == want, f"{encoder} step {state.step}: launches {counts}, "
+                                  f"expected {want}")
+            for k, v in counts.items():
+                total[k] += v
+        if encoder == "lc_bigru":
+            # the linear backward: K5 saves the coefficients, K8 runs the chain
+            b = batches[-1]
+            saved = cuda_gru.BWD_IMPL
+            cuda_gru.BWD_IMPL = "linear"
+            try:
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, gnorm = step(b)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_launches()
+            finally:
+                cuda_gru.BWD_IMPL = saved
+            secs = float(np.sum(b.audio_lengths)) / sr
+            print(f"  step {state.step} {b.audio.shape[1] / sr:5.1f} s bucket, linear backward "
+                  f"(K8): wall {wall * 1e3:.2f} ms, {secs / wall:.1f} audio-s/s, loss "
+                  f"{loss:.4f}, grad_norm {gnorm:.4f}, launches {counts}", flush=True)
+            check(np.isfinite(loss) and np.isfinite(gnorm), f"linear step: loss {loss}")
+            want = want_of(b, linear=True)
+            check(counts == want, f"linear step: launches {counts}, expected {want}")
+            launches["K8"] = counts["K8"]
+        check(all(bool(torch.isfinite(p).all()) for p in state.params.values()),
+              f"{encoder}: non-finite parameters after training")
+        if encoder in ("lc_bigru", "conformer"):
+            profile_call(torch, lambda: step(batches[-1]),
+                         f"one {batches[-1].audio.shape[1] / sr:.0f} s {encoder} training step")
+        compare_first_step(torch, cfg, init_params, trainer.to_device(batches[-1]),
+                           f"{encoder} step", floor=1e-2)
+    launches.update({k: total[k] for k in ("K5-bwd", "K6-bwd")})
+
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1487,6 +1804,8 @@ def main() -> int:
     phase_recurrent_stream(torch, np, launches)
     phase_daemon(torch, np, "lc_bigru", rounds=2)
     phase_attention(torch, np, launches)
+    phase_train_k5_k6(torch, np, results)
+    phase_encoder_train(torch, np, launches)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",
@@ -1510,6 +1829,15 @@ def main() -> int:
          "uasr/models/pallas_gru.py:75", "K5", "K5:step"),
         ("K6 fused MHSA forward (conformer, relative-position bias)",
          "uasr_torch/csrc/mhsa_fwd.cu", "uasr/ops/pallas_attention.py:75", "K6", "K6:bias"),
+        ("K5-bwd grouped GRU backward, fused (12 s forward GRU, f32)",
+         "uasr_torch/csrc/gru_bwd.cu", "uasr/models/pallas_gru.py:172", "K5-bwd",
+         "K5-bwd:offline:float32"),
+        ("K8 grouped GRU backward, linear (12 s forward GRU, f32)",
+         "uasr_torch/csrc/gru_bwd_lin.cu", "uasr/models/pallas_gru.py:133", "K8",
+         "K8:offline:float32"),
+        ("K6-bwd fused MHSA backward (conformer, relative-position bias)",
+         "uasr_torch/csrc/mhsa_bwd.cu", "uasr/ops/pallas_attention.py:112", "K6-bwd",
+         "K6-bwd:bias"),
     ]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[key], **results[res])

@@ -496,10 +496,8 @@ def test_gru_kernel_rejects_bad_input(dev):
         cuda_gru.gru_scan_cuda(x.double(), wh.contiguous().double(), bh.double(), tm)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_gru.gru_scan_cuda(x.cpu(), wh.contiguous().cpu(), bh.cpu(), tm.cpu())
-    with pytest.raises(NotImplementedError, match="K5-bwd"):
-        cuda_gru.gru_scan_cuda(x.requires_grad_(), wh.contiguous(), bh, tm)
     before = cuda_gru.LAUNCHES_GRU
-    cuda_gru.gru_scan(x.detach().cpu(), wh.contiguous().cpu(), bh.cpu(), tm.cpu())
+    cuda_gru.gru_scan(x.cpu(), wh.contiguous().cpu(), bh.cpu(), tm.cpu())
     assert cuda_gru.LAUNCHES_GRU == before  # the plain version for CPU tensors
 
 
@@ -575,5 +573,230 @@ def test_attention_kernel_rejects_bad_input(dev):
         cuda_attention.mhsa_fwd_cuda(q, k, v, bias.to(torch.bfloat16), kmask, 2)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_attention.mhsa_fwd_cuda(q.cpu(), k.cpu(), v.cpu(), None, kmask.cpu(), 2)
-    with pytest.raises(NotImplementedError, match="K6-bwd"):
-        cuda_attention.mhsa_fwd_cuda(q.requires_grad_(), k, v, None, kmask, 2)
+
+
+# ------------------------------------------------------- K5-bwd, K8, K6-bwd
+
+
+def _bar(ref, dtype):
+    """K2-bwd's bars: f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest
+    reference value (a product next to a rounding boundary may round the
+    other way under another summation order)."""
+    return (1e-4 if dtype == torch.float32 else 2 ** -7) * max(1.0, float(ref.float().abs().max()))
+
+
+# T = 1; B = 1; one group and two; the lc_bigru backward windows (B = 1216,
+# T = 24, H = 384) and the 12 s forward GRU (T = 300, B = 64) come from
+# chip_smoke.py; rows over several tiles and splits; length-0 rows
+GRU_BWD_CASES = [(1, 1, 1, 8), (1, 2, 3, 16), (9, 1, 1, 384), (7, 2, 5, 24),
+                 (24, 1, 1216, 384), (6, 2, 300, 64), (13, 1, 40, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,G,B,H", GRU_BWD_CASES)
+def test_gru_bwd_kernels_match_plain(dev, T, G, B, H, dtype):
+    """K5's coefficient outputs, K5-bwd and K8 against their plain
+    versions; a row of length 0 gets zero gradients."""
+    args, tmask, lengths = _gru_group_problem(dev, T, G, B, H, T * B + H + G + 1)
+    args = tuple(x.to(dtype).contiguous() for x in args)
+    dy = torch.randn(T, G, B, H, device=dev, generator=torch.Generator(device=dev).manual_seed(T))
+    dy = dy.to(dtype)
+    ys, c4, ch = cuda_gru.gru_scan_cuda(*args, tmask, save_coeffs=True)
+    r_ys, r_c4, r_ch = cuda_gru.gru_scan_reference(*args, tmask, save_coeffs=True)
+    before = (cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_LIN)
+    dxp, dhn = cuda_gru.gru_scan_bwd_cuda(*args, tmask, ys, dy)
+    r_dxp, r_dhn = cuda_gru.gru_scan_bwd_reference(*args, tmask, ys, dy)
+    out = cuda_gru.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1])
+    r_out = cuda_gru.gru_scan_bwd_lin_reference(c4, ch, dy, args[1])
+    torch.cuda.synchronize()
+    assert (cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_LIN) == (before[0] + 1,
+                                                                      before[1] + 1)
+    assert c4.dtype == dtype and ch.dtype == torch.float32 and out.dtype == dtype
+    # the coefficients follow each side's own carry, which in bf16 may
+    # round an ulp apart (K5's bf16 bar): one bf16 ulp of the largest
+    for got, ref in ((c4, r_c4), (ch, r_ch)):
+        ctol = 1e-5 if dtype == torch.float32 else 2 ** -7 * float(ref.float().abs().max())
+        assert float((got.float() - ref.float()).abs().max()) <= ctol
+    for got, ref in ((dxp, r_dxp), (dhn, r_dhn), (out, r_out)):
+        assert got.shape == ref.shape and got.dtype == dtype
+        assert float((got.float() - ref.float()).abs().max()) <= _bar(ref, dtype)
+    zero = (lengths == 0)  # [G, B]
+    for t in (dxp, dhn, out):
+        assert not t.permute(1, 2, 0, 3)[zero].any()
+
+
+@pytest.mark.parametrize("impl", ["fused", "linear"])
+def test_gru_autograd_on_card_matches_cpu(dev, impl, monkeypatch):
+    """Gradients through GRUScan (K5 + K5-bwd, or K5 with coefficients +
+    K8) against the same function on CPU tensors (plain versions), f32."""
+    monkeypatch.setattr(cuda_gru, "BWD_IMPL", impl)
+    arrays, tmask, _ = _gru_group_problem(dev, 11, 2, 6, 32, 5)
+    w = torch.randn(11, 2, 6, 32, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        before = (cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_LIN)
+        leaves = [x.detach().to(d).requires_grad_() for x in arrays]
+        (cuda_gru.gru_scan(*leaves, tmask.to(d)) * w.to(d)).sum().backward()
+        launched = (cuda_gru.LAUNCHES_GRU_BWD - before[0], cuda_gru.LAUNCHES_GRU_LIN - before[1])
+        want = ((0, 1) if impl == "linear" else (1, 0)) if d.type == "cuda" else (0, 0)
+        assert launched == want
+        grads.append([x.grad.cpu() for x in leaves])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+def test_gru_bwd_kernels_reject_bad_input(dev):
+    args, tmask, _ = _gru_group_problem(dev, 4, 1, 2, 16, 0)
+    ys = cuda_gru.gru_scan_cuda(*args, tmask)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_gru.gru_scan_bwd_cuda(*args, tmask, ys, torch.cat([ys, ys], -1)[..., :16])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_gru.gru_scan_bwd_cuda(*(x.half() for x in args), tmask, ys.half(), ys.half())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_gru.gru_scan_bwd_cuda(*(x.cpu() for x in args), tmask.cpu(), ys.cpu(), ys.cpu())
+    _, c4, ch = cuda_gru.gru_scan_cuda(*args, tmask, save_coeffs=True)
+    with pytest.raises(ValueError, match="float32"):
+        cuda_gru.gru_scan_bwd_lin_cuda(c4, ch.to(torch.bfloat16), ys, args[1])
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cuda_gru.gru_scan_bwd_lin_cuda(torch.zeros(4, 1, 2, 16, device=dev),
+                                       torch.zeros(4, 1, 2, 4, device=dev),
+                                       torch.zeros(4, 1, 2, 4, device=dev),
+                                       torch.zeros(1, 4, 12, device=dev))
+
+
+def _attn_bwd_problem(dev, B, T, H, dh, seed, dtype):
+    q, k, v, kmask, bias = _attn_problem(dev, B, T, H, dh, seed, dtype)
+    from uasr_torch.ops import cuda_attention
+
+    out, lse = cuda_attention.mhsa_fwd_reference(q, k, v, bias, kmask, H)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    dout = torch.randn(B, T, H * dh, device=dev, generator=gen).to(dtype)
+    return q, k, v, kmask, bias, out, lse, dout
+
+
+# T = 8 (the padded T = 1); a padded T = 40; T = 400 with 8 heads of 64 (the
+# slice's 16 s batch, at B = 2); Tp = 640, beyond K6's shared-memory limit
+# (the backward has none); every head size. The last row has one valid key:
+# its p is one-hot, so its t, dq and dk are rounding noise, and the full
+# first row sets each tensor's scale.
+ATTN_BWD_CASES = [(2, 8, 2, 16), (3, 40, 2, 32), (2, 400, 8, 64), (2, 640, 2, 64),
+                  (2, 64, 2, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("B,Tp,H,dh", ATTN_BWD_CASES)
+def test_attention_bwd_kernel_matches_plain(dev, B, Tp, H, dh, with_bias, dtype):
+    """K6-bwd against its plain version: dq, dk, dv (bf16 2e-2, f32 1e-4 of
+    each tensor's largest magnitude) and d_bias (f32: 1e-4 of its largest
+    magnitude; bf16 inputs: 2e-2), a row with one valid key."""
+    from uasr_torch.ops import cuda_attention
+
+    q, k, v, kmask, bias, out, lse, dout = _attn_bwd_problem(dev, B, Tp, H, dh, Tp + dh, dtype)
+    bias = bias if with_bias else None
+    before = cuda_attention.LAUNCHES_ATTN_BWD
+    got = cuda_attention.mhsa_bwd_cuda(q, k, v, bias, kmask, out, lse, dout, H)
+    ref = cuda_attention.mhsa_bwd_reference(q, k, v, bias, kmask, out, lse, dout, H)
+    torch.cuda.synchronize()
+    assert cuda_attention.LAUNCHES_ATTN_BWD == before + 1
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    for a, r in zip(got, ref):
+        if r is None:
+            assert a is None
+            continue
+        assert a.shape == r.shape and a.dtype == r.dtype
+        assert float((a.float() - r.float()).abs().max()) <= rel * float(r.float().abs().max())
+
+
+def test_attention_grads_on_card_as_on_cpu(dev):
+    """T = 1 and T = 37 through the wrapper's padding, with the conformer's
+    bias and a key mask: d(q, k, v, bias) on the card (K6 + K6-bwd) against
+    the CPU (plain versions), f32."""
+    from uasr_torch.ops import cuda_attention
+
+    for T in (1, 37):
+        q, k, v, kmask, bias = _attn_problem(dev, 3, T, 2, 16, T, torch.float32)
+        w = torch.randn(3, T, 2, 16, device=dev, generator=torch.Generator(device=dev)
+                        .manual_seed(T))
+        grads = []
+        for d in (dev, torch.device("cpu")):
+            before = cuda_attention.LAUNCHES_ATTN_BWD
+            leaves = [x.reshape(3, T, 2, 16).to(d).requires_grad_() for x in (q, k, v)]
+            b = bias[None].to(d).requires_grad_()
+            out = cuda_attention.fused_dot_product_attention(*leaves, bias=b,
+                                                             mask=(kmask[:, :, None, :] > 0).to(d))
+            (out * w.to(d)).sum().backward()
+            assert cuda_attention.LAUNCHES_ATTN_BWD - before == (d.type == "cuda")
+            grads.append([x.grad.cpu() for x in (*leaves, b)])
+        for a, r in zip(*grads):
+            assert float((a - r).abs().max()) <= 1e-4 * max(1.0, float(r.abs().max()))
+
+
+def test_attention_bwd_kernel_rejects_bad_input(dev):
+    from uasr_torch.ops import cuda_attention
+
+    q, k, v, kmask, bias, out, lse, dout = _attn_bwd_problem(dev, 2, 16, 2, 16, 0, torch.float32)
+    with pytest.raises(ValueError, match="lse"):
+        cuda_attention.mhsa_bwd_cuda(q, k, v, None, kmask, out, lse[:, :1].contiguous(), dout, 2)
+    with pytest.raises(ValueError, match="head size"):
+        cuda_attention.mhsa_bwd_cuda(q, k, v, None, kmask, out, lse, dout, 4)  # dh = 8
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_attention.mhsa_bwd_cuda(q, k, v, None, kmask, out, lse,
+                                     dout.transpose(0, 1).contiguous().transpose(0, 1), 2)
+    with pytest.raises(ValueError, match="bias"):
+        cuda_attention.mhsa_bwd_cuda(q, k, v, bias.to(torch.bfloat16), kmask, out, lse, dout, 2)
+
+
+@pytest.mark.parametrize("encoder", ["uni_gru", "lc_bigru", "transformer", "conformer"])
+def test_encoder_training_step_on_card_matches_cpu(dev, encoder):
+    """CTCTrainer of each encoder on CUDA (K5 + K5-bwd, or K6 + K6-bwd)
+    against the same trainer on the CPU (plain versions), f32, same weights
+    and batch: first-step loss and gradients per tensor (a tensor whose
+    gradient is at the rounding floor, as the key projections' bias, is
+    held to 1e-2 of the global norm), then two steps' losses."""
+    import itertools
+
+    from uasr_torch import config as tc
+    from uasr_torch import train
+    from uasr_torch.data.dataset import batch_iterator, make_synthetic_dataset
+    from uasr_torch.ops import cuda_attention
+
+    examples, vocab = make_synthetic_dataset(num_utts=8, num_phones=6, seed=3)
+    batches = list(itertools.islice(batch_iterator(examples, 4, 16000, 8, shuffle=False), 2))
+    kw = dict(encoder=encoder, hidden_size=32, num_gru_layers=2, num_heads=2,
+              transformer_layers=2, ffn_dim=64, conv_channels=4, gru_pallas=True,
+              attn_pallas=True, lc_chunk=4, lc_lookahead=2, conformer_kernel=7,
+              conformer_rel_clip=8)
+    cfg = tc.Config(frontend=tc.FrontendConfig(num_mel_bins=16), model=tc.ModelConfig(**kw),
+                    ctc=tc.CTCConfig(use_pallas=True),
+                    train=tc.TrainConfig(lr=1e-3, lr_schedule="constant"), vocab_size=len(vocab))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        trainer = train.CTCTrainer(cfg, device=d)
+        state = trainer.init_state()
+        if encoder == "conformer":
+            gen = torch.Generator().manual_seed(7)
+            with torch.no_grad():
+                for i in range(2):
+                    t = state.params[f"rel_bias{i}"]
+                    t.copy_(0.3 * torch.randn(t.shape, generator=gen))
+        init = {k: v.detach().clone() for k, v in state.params.items()}
+        before = (cuda_gru.LAUNCHES_GRU_BWD, cuda_attention.LAUNCHES_ATTN_BWD)
+        aux, grads = trainer.loss_and_grads(init, batches[0], trainer.step_generator(0))
+        launched = (cuda_gru.LAUNCHES_GRU_BWD - before[0],
+                    cuda_attention.LAUNCHES_ATTN_BWD - before[1])
+        if d.type == "cuda":
+            want = {"uni_gru": (2, 0), "lc_bigru": (4, 0)}.get(encoder, (0, 2))
+            assert launched == want
+        steps = []
+        for b in batches:
+            state, a = trainer.train_step(state, b)
+            steps.append(float(a["loss"]))
+        runs.append((float(aux["loss"]), {k: g.cpu() for k, g in grads.items()}, steps))
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = runs
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    total = float(train.global_norm(g_cpu.values()))
+    for k, g in g_cpu.items():
+        assert float((g_card[k] - g).norm()) <= 1e-4 * max(float(g.norm()), 1e-2 * total), k
+    for a, b in zip(s_card, s_cpu):
+        assert abs(a - b) <= 1e-4 * abs(b)

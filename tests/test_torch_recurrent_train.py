@@ -1,0 +1,188 @@
+"""Training the recurrent encoders: the plain versions of K5's coefficient
+outputs, K5-bwd and K8 (uasr_torch.models.cuda_gru) against the JAX
+package's Pallas GRU kernel in interpret mode, and three CTCTrainer steps
+of uni_gru and lc_bigru against JAX's CTCTrainer on the CPU.
+
+Kernel level: the coefficients against ``_fwd(..., save_coeffs=True)``
+(f32 1e-5, bf16 one bf16 ulp of the largest); d(xproj, wh, bh) of a
+weighted sum of ys through ``GRUScan`` on CPU tensors against ``jax.grad``
+of ``pallas_gru_scan(..., interpret=True)`` with BWD_IMPL set to the same
+value on both sides (f32 atol 2e-4 / rtol 1e-3 as tests/test_pallas_gru.py;
+bf16 one bf16 ulp of each gradient's largest magnitude). Cases: T = 1, a
+length-0 row, G in {1, 2}, T odd (not a multiple of the JAX BWD_TIME_TILE).
+
+Trainer level (f32, H = 16, 2 layers, B = 4, SpecAugment off): the JAX side
+runs gru_pallas with pallas_gru_scan rebound to interpret mode, the port
+its kernel flags on CPU tensors (plain versions); loss and grad_norm rtol
+1e-4 per step, parameters after step 3 atol 1e-4, under both BWD_IMPL.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import uasr.models.pallas_gru as jax_gru
+from uasr import train as jax_train
+from uasr.config import Config as JaxConfig
+from uasr.config import FrontendConfig as JaxFrontendConfig
+from uasr.config import ModelConfig as JaxModelConfig
+from uasr.config import TrainConfig as JaxTrainConfig
+from uasr.data.dataset import Batch as JaxBatch
+from uasr_torch import config as tc
+from uasr_torch import train
+from uasr_torch.convert import flax_to_state_dict
+from uasr_torch.data.dataset import batch_iterator, make_synthetic_dataset
+from uasr_torch.models import cuda_gru
+
+DT = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16)}
+GRAD_F32 = dict(atol=2e-4, rtol=1e-3)
+LOSS_RTOL = 1e-4
+PARAM_ATOL = 1e-4
+
+
+def _bf16_ulp(x) -> float:
+    """One bf16 ulp at the largest magnitude of x (8 significant bits)."""
+    m = float(np.abs(np.asarray(x, np.float32)).max())
+    return 2.0 ** (np.floor(np.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _problem(T, G, B, H, seed):
+    rng = np.random.RandomState(seed)
+    xp = (0.5 * rng.randn(T, G, B, 3 * H)).astype(np.float32)
+    wh = (rng.randn(G, H, 3 * H) / np.sqrt(H)).astype(np.float32)
+    bh = (0.1 * rng.randn(G, 3 * H)).astype(np.float32)
+    lengths = rng.randint(0, T + 1, (G, B))
+    lengths[0, 0] = T
+    lengths[-1, -1] = 0  # a row that never steps
+    tmask = np.arange(T)[:, None, None] < lengths[None]
+    w_out = rng.randn(T, G, B, H).astype(np.float32)
+    return (xp, wh, bh), tmask, w_out
+
+
+# T = 1; G = 1 and 2; odd T (the JAX backward pads to its time tile of 2);
+# a batch of one row
+GRU_CASES = [(1, 1, 3, 8), (1, 2, 2, 16), (7, 1, 4, 16), (9, 2, 3, 8), (6, 2, 1, 24)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("T,G,B,H", GRU_CASES)
+def test_coefficients_match_pallas_save_coeffs(T, G, B, H, dtype):
+    tdt, jdt = DT[dtype]
+    (xp, wh, bh), tmask, _ = _problem(T, G, B, H, T + G + B)
+    ys, c4, ch = jax_gru._fwd(jnp.asarray(xp, jdt), jnp.asarray(wh, jdt), jnp.asarray(bh, jdt),
+                              jnp.asarray(tmask), True, save_coeffs=True)
+    tys, tc4, tch = cuda_gru.gru_scan_reference(
+        *(torch.tensor(a).to(tdt) for a in (xp, wh, bh)), torch.tensor(tmask), save_coeffs=True)
+    assert tc4.dtype == tdt and tch.dtype == torch.float32
+    assert tc4.shape == (T, G, B, 4 * H) and tch.shape == (T, G, B, H)
+    for got, want in ((tys, ys), (tc4, c4), (tch, ch)):
+        want = np.asarray(want, np.float32)
+        tol = 1e-5 if dtype == "float32" else _bf16_ulp(want)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0, atol=tol)
+    # a row that never steps: every coefficient 0, the carry's 1
+    zero = torch.tensor(~tmask.any(0))  # [G, B]
+    assert not tc4.permute(1, 2, 0, 3)[zero].any()
+    assert bool((tch.permute(1, 2, 0, 3)[zero] == 1).all())
+
+
+@pytest.mark.parametrize("impl", ["fused", "linear"])
+@pytest.mark.parametrize("dtype", sorted(DT))
+@pytest.mark.parametrize("T,G,B,H", GRU_CASES)
+def test_backward_matches_pallas_interpret(T, G, B, H, dtype, impl, monkeypatch):
+    """K5-bwd (fused) or K5's coefficients + K8 (linear), plain versions,
+    through GRUScan against jax.grad of the Pallas kernel's custom VJP."""
+    monkeypatch.setattr(jax_gru, "BWD_IMPL", impl)
+    monkeypatch.setattr(cuda_gru, "BWD_IMPL", impl)
+    tdt, jdt = DT[dtype]
+    arrays, tmask, w_out = _problem(T, G, B, H, 10 * T + G + B)
+
+    def jloss(xp, wh, bh):
+        ys = jax_gru.pallas_gru_scan(xp, wh, bh, jnp.asarray(tmask), True)
+        return jnp.sum(ys.astype(jnp.float32) * w_out)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(a, jdt) for a in arrays))
+    leaves = [torch.tensor(a).to(tdt).requires_grad_() for a in arrays]
+    before = (cuda_gru.LAUNCHES_GRU, cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_LIN)
+    ys = cuda_gru.gru_scan(*leaves, torch.tensor(tmask))
+    (ys.float() * torch.tensor(w_out)).sum().backward()
+    # CPU tensors: the plain versions, no launch
+    assert (cuda_gru.LAUNCHES_GRU, cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_LIN) == before
+    for leaf, jg, name in zip(leaves, want, ["dxproj", "dwh", "dbh"]):
+        jg = np.asarray(jg.astype(jnp.float32))
+        assert leaf.grad.dtype == tdt and leaf.grad.shape == leaf.shape, name
+        bar = GRAD_F32 if dtype == "float32" else dict(atol=_bf16_ulp(jg), rtol=0)
+        np.testing.assert_allclose(leaf.grad.float().numpy(), jg, err_msg=name, **bar)
+
+
+def test_gru_scan_runs_the_forward_alone_without_a_gradient(monkeypatch):
+    """No gradient to take: the plain forward only, as JAX's custom VJP
+    runs the primal alone (no coefficients saved under ``linear``)."""
+    monkeypatch.setattr(cuda_gru, "BWD_IMPL", "linear")
+    (xp, wh, bh), tmask, _ = _problem(5, 1, 2, 8, 0)
+    args = [torch.tensor(a, requires_grad=True) for a in (xp, wh, bh)]
+    with torch.no_grad():
+        ys = cuda_gru.gru_scan(*args, torch.tensor(tmask))
+    assert ys.grad_fn is None
+    torch.testing.assert_close(ys, cuda_gru.gru_scan_reference(*args, torch.tensor(tmask)),
+                               rtol=0, atol=0)
+    assert cuda_gru.gru_scan(*args, torch.tensor(tmask)).grad_fn is not None
+
+
+# ------------------------------------------------------------- trainer
+
+
+def _batches(n, seed=0):
+    examples, vocab = make_synthetic_dataset(num_utts=4 * n, num_phones=6, seed=seed)
+    return list(itertools.islice(batch_iterator(examples, 4, 16000, 8, shuffle=False), n)), vocab
+
+
+def _model_kw(encoder):
+    kw = dict(encoder=encoder, hidden_size=16, num_gru_layers=2)
+    if encoder == "lc_bigru":
+        kw.update(lc_chunk=4, lc_lookahead=2)
+    return kw
+
+
+@pytest.mark.parametrize("impl", ["fused", "linear"])
+@pytest.mark.parametrize("encoder", ["uni_gru", "lc_bigru"])
+def test_three_steps_match_jax_ctc_trainer(encoder, impl, monkeypatch):
+    monkeypatch.setattr(jax_gru, "BWD_IMPL", impl)
+    monkeypatch.setattr(cuda_gru, "BWD_IMPL", impl)
+    pallas = jax_gru.pallas_gru_scan
+    monkeypatch.setattr(jax_gru, "pallas_gru_scan",
+                        lambda xp, wh, bh, tmask: pallas(xp, wh, bh, tmask, True))
+    batches, vocab = _batches(3, seed=1)
+    kw = _model_kw(encoder)
+    jcfg = JaxConfig(frontend=JaxFrontendConfig(num_mel_bins=16),
+                     model=JaxModelConfig(gru_pallas=True, **kw),
+                     train=JaxTrainConfig(lr=1e-3, lr_schedule="constant", total_steps=3),
+                     vocab_size=len(vocab))
+    jtrainer = jax_train.CTCTrainer(jcfg)
+    jstate = jtrainer.init_state(jax.random.PRNGKey(0), batches[0])
+    cfg = tc.Config(frontend=tc.FrontendConfig(num_mel_bins=16),
+                    model=tc.ModelConfig(gru_pallas=True, **kw), ctc=tc.CTCConfig(use_pallas=True),
+                    train=tc.TrainConfig(lr=1e-3, lr_schedule="constant"), vocab_size=len(vocab))
+    trainer = train.CTCTrainer(cfg, device="cpu")
+    trainer.model.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, jstate.params),
+                                                     cfg))
+    state = trainer.init_state()
+    step_fn = jtrainer.jitted_train_step()
+    rng = jax.random.PRNGKey(1)
+    before = (cuda_gru.LAUNCHES_GRU, cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_LIN)
+    for b in batches:
+        jstate, jaux = step_fn(jstate, JaxBatch(*map(jnp.asarray, b)), rng)
+        state, aux = trainer.train_step(state, b)
+        np.testing.assert_allclose(float(aux["loss"]), float(jaux["loss"]), rtol=LOSS_RTOL)
+        np.testing.assert_allclose(float(aux["grad_norm"]), float(jaux["grad_norm"]),
+                                   rtol=LOSS_RTOL)
+    assert (cuda_gru.LAUNCHES_GRU, cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_LIN) == before
+    want = flax_to_state_dict(jax.tree.map(np.asarray, jstate.params), trainer.cfg)
+    assert set(want) == set(state.params)
+    for k, v in want.items():
+        np.testing.assert_allclose(state.params[k].detach().numpy(), v.numpy(), atol=PARAM_ATOL,
+                                   rtol=0, err_msg=k)

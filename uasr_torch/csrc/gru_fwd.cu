@@ -1,7 +1,7 @@
 // K5: grouped GRU forward recurrence for Hopper (sm_90a).
 //
 // Replaces the TPU kernel uasr/models/pallas_gru.py::_fwd_kernel (reached
-// through pallas_gru_scan -> _fwd with save_coeffs=False), forward only.
+// through pallas_gru_scan -> _fwd), with its save_coeffs outputs.
 //
 // Inputs, time-major: xp [T, G, B, 3H] input projections (bias added);
 // wh [G, H, 3H], bh [G, 3H]; tmask [T, G, B] f32. Output ys [T, G, B, H],
@@ -11,7 +11,12 @@
 //   r = sigmoid(xr + hr), z = sigmoid(xz + hz), n = tanh(xn + r * hn)
 //   h_cand = (1 - z) * n + z * h,  h = mf * h_cand + (1 - mf) * h
 // The carry is rounded to the output dtype every step and reread from that
-// rounded value, as the TPU kernel does.
+// rounded value, as the TPU kernel does. With save_coeffs (c4 and ch not
+// null) the step also writes the backward's linearisation coefficients
+// from the same gates (pallas_gru.py:113-130), h = the f32 carry read:
+//   c_n2 = mf (1-z)(1-n^2), c4 = (c_n2 hn r(1-r), mf (h-n) z(1-z), c_n2, c_n2 r)
+//   in T, ch = (1-mf) + mf z in f32 (it scales the carried gradient, so its
+//   rounding would compound over T).
 //
 // Design: K2's persistent cooperative grid (bigru_fwd.cu) with G groups
 // and the batch split over CTA groups. CTA (g, s, c) owns U hidden units
@@ -41,8 +46,9 @@ constexpr int PAD = 4;  // floats of row padding in shared memory
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh, const T* __restrict__ bh,
-               const float* __restrict__ tmask, T* ys, unsigned* bar, int Tn, int G, int B,
-               int H, int U, int nblk, int S, int Bs) {
+               const float* __restrict__ tmask, T* ys, T* __restrict__ c4,
+               float* __restrict__ ch, unsigned* bar, int Tn, int G, int B, int H, int U,
+               int nblk, int S, int Bs) {
   extern __shared__ __align__(16) float smem[];
   constexpr int VEC = 16 / sizeof(T);
   const int g = blockIdx.x / (S * nblk);
@@ -120,6 +126,16 @@ gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh, const T* __re
         const float mf = mt[b];
         const float h_new = mf * h_cand + (1.f - mf) * h_prev;
         hdst[(size_t)b * H + j] = from_f32<T>(h_new);
+        if (c4) {
+          const size_t row = ((size_t)t * G + g) * B + b;
+          const float c_n2 = mf * ((1.f - z) * (1.f - n * n));
+          T* c = c4 + row * 4 * H;
+          c[j] = from_f32<T>(c_n2 * (hn * (r * (1.f - r))));
+          c[H + j] = from_f32<T>(mf * ((h_prev - n) * (z * (1.f - z))));
+          c[2 * H + j] = from_f32<T>(c_n2);
+          c[3 * H + j] = from_f32<T>(c_n2 * r);
+          ch[row * H + j] = (1.f - mf) + mf * z;
+        }
       }
       __syncthreads();
     }
@@ -134,8 +150,8 @@ struct Plan {
 
 template <typename T>
 cudaError_t launch(const void* xp, const void* wh, const void* bh, const float* tmask, void* ys,
-                   unsigned* bar, int max_groups, int Tn, int G, int B, int H,
-                   cudaStream_t stream, int* units, int* splits) {
+                   void* c4, float* ch, unsigned* bar, int max_groups, int Tn, int G, int B,
+                   int H, cudaStream_t stream, int* units, int* splits) {
   int sms = 0, smem_max = 0;
   cudaError_t e = uasr_coop_limits(&sms, &smem_max);
   if (e != cudaSuccess) return e;
@@ -169,8 +185,9 @@ cudaError_t launch(const void* xp, const void* wh, const void* bh, const float* 
   const T* w = static_cast<const T*>(wh);
   const T* bb = static_cast<const T*>(bh);
   T* y = static_cast<T*>(ys);
+  T* c = static_cast<T*>(c4);
   int U = best.U, nblk = best.nblk, S = best.S, Bs = best.Bs;
-  void* args[] = {&x, &w, &bb, &tmask, &y, &bar, &Tn, &G, &B, &H, &U, &nblk, &S, &Bs};
+  void* args[] = {&x, &w, &bb, &tmask, &y, &c, &ch, &bar, &Tn, &G, &B, &H, &U, &nblk, &S, &Bs};
   e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(G * S * nblk), dim3(THREADS), args,
                                   best.smem, stream);
   if (e != cudaSuccess) return e;
@@ -180,21 +197,25 @@ cudaError_t launch(const void* xp, const void* wh, const void* bh, const float* 
 }  // namespace
 
 // xp [T, G, B, 3H], wh [G, H, 3H], bh [G, 3H], ys [T, G, B, H] all of
-// `dtype` (UASR_F32 or UASR_BF16); tmask [T, G, B] f32; bar 2 * 32 *
-// max_groups zeroed uint32 (one barrier per group and batch split).
+// `dtype` (UASR_F32 or UASR_BF16); tmask [T, G, B] f32; c4 [T, G, B, 4H]
+// of `dtype` and ch [T, G, B, H] f32, both null or both given (save_coeffs);
+// bar 2 * 32 * max_groups zeroed uint32 (one barrier per group and split).
 // *units and *splits receive the hidden units per CTA and the batch splits
 // per group. H must be a multiple of 8 (16-byte rows).
 UASR_EXPORT int uasr_gru_fwd(const void* xp, const void* wh, const void* bh, const float* tmask,
-                             void* ys, unsigned* bar, int max_groups, int T, int G, int B, int H,
-                             int dtype, void* stream, int device, int* units, int* splits) {
+                             void* ys, void* c4, float* ch, unsigned* bar, int max_groups, int T,
+                             int G, int B, int H, int dtype, void* stream, int device, int* units,
+                             int* splits) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  if (T < 1 || G < 1 || B < 1 || H < 8 || H % 8 || max_groups < G) return cudaErrorInvalidValue;
+  if (T < 1 || G < 1 || B < 1 || H < 8 || H % 8 || max_groups < G || (!c4) != (!ch))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == UASR_F32)
-    return launch<float>(xp, wh, bh, tmask, ys, bar, max_groups, T, G, B, H, st, units, splits);
+    return launch<float>(xp, wh, bh, tmask, ys, c4, ch, bar, max_groups, T, G, B, H, st, units,
+                         splits);
   if (dtype == UASR_BF16)
-    return launch<__nv_bfloat16>(xp, wh, bh, tmask, ys, bar, max_groups, T, G, B, H, st, units,
-                                 splits);
+    return launch<__nv_bfloat16>(xp, wh, bh, tmask, ys, c4, ch, bar, max_groups, T, G, B, H, st,
+                                 units, splits);
   return cudaErrorInvalidValue;
 }

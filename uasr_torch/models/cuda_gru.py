@@ -1,7 +1,9 @@
 """K2 and K2-bwd, the two-stream BiGRU recurrence and its backward, and K5,
-the grouped GRU recurrence: wrappers of ``csrc/bigru_fwd.cu``,
-``csrc/bigru_bwd.cu`` and ``csrc/gru_fwd.cu``, their plain PyTorch
-versions, and the ``torch.autograd.Function`` that joins K2 and K2-bwd.
+K5-bwd and K8, the grouped GRU recurrence and its two backwards: wrappers of
+``csrc/bigru_fwd.cu``, ``csrc/bigru_bwd.cu``, ``csrc/gru_fwd.cu``,
+``csrc/gru_bwd.cu`` and ``csrc/gru_bwd_lin.cu``, their plain PyTorch
+versions, and the ``torch.autograd.Function``s that join each forward to
+its backward.
 
 Counterpart of ``uasr/models/pallas_gru.py::pallas_bigru_scan`` (TPU
 kernels ``_fwd2_kernel`` and ``_bwd2_kernel`` with the custom VJP
@@ -11,15 +13,19 @@ run their plain versions for CPU tensors. The weight gradients dwh and
 dbh are whole-trajectory products outside the kernel, as in the JAX
 package.
 
-``gru_scan`` is the counterpart of ``pallas_gru_scan`` (TPU kernel
-``_fwd_kernel``): K5 for CUDA tensors, its plain version for CPU tensors.
-Its backward (K5-bwd, ``_bwd_kernel``) is not ported yet, so a CUDA call
-that would need a gradient raises.
+``gru_scan`` is the counterpart of ``pallas_gru_scan`` (TPU kernels
+``_fwd_kernel``, ``_bwd_kernel`` and ``_bwd_lin_kernel`` with the custom
+VJP ``_fwd_rule`` / ``_bwd_rule``), differentiable through ``GRUScan``.
+Its backward follows ``BWD_IMPL``, read from ``UASR_GRU_BWD_IMPL`` as the
+JAX module reads it: ``fused`` (default) recomputes the gates (K5-bwd);
+``linear`` has the forward emit per-step coefficients (K5 with
+``save_coeffs``) and runs the slim reverse chain (K8).
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -28,9 +34,16 @@ from uasr_torch import _build
 LAUNCHES = 0  # K2 launches by bigru_scan_cuda (read by chip_smoke.py)
 LAUNCHES_BWD = 0  # K2-bwd launches by bigru_scan_bwd_cuda
 LAUNCHES_GRU = 0  # K5 launches by gru_scan_cuda
+LAUNCHES_GRU_BWD = 0  # K5-bwd launches by gru_scan_bwd_cuda
+LAUNCHES_GRU_LIN = 0  # K8 launches by gru_scan_bwd_lin_cuda
 LAST_UNITS = None  # hidden units per CTA of the last K2 launch
 LAST_UNITS_BWD = None  # hidden units per CTA of the last K2-bwd launch
 LAST_GRU_PLAN = None  # (hidden units per CTA, batch splits) of the last K5 launch
+LAST_GRU_BWD_PLAN = None  # the same of the last K5-bwd or K8 launch
+
+# backward of gru_scan: "linear" = K5 with save_coeffs + K8, else K5-bwd
+# (pallas_gru.py::BWD_IMPL, the same variable)
+BWD_IMPL = os.environ.get("UASR_GRU_BWD_IMPL", "fused")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRU_BAR_GROUPS = 256  # barriers K5 may use: one per group and batch split
@@ -265,10 +278,31 @@ def bigru_scan(p0, p1, wh, bh, tmask):
     return BiGRUScan.apply(p0, p1, wh, bh, tmask)
 
 
-# ------------------------------------------------------------------ K5
+# ------------------------------------------------------- K5, K5-bwd, K8
 
 
-def gru_scan_reference(xproj, wh, bh, tmask):
+def _gates(xp, hp, h_prev):
+    """Reset-after gates in f32 (``_gates_2d``): r, z, n and hn."""
+    H = h_prev.shape[-1]
+    xr, xz, xn = xp.split(H, -1)
+    hr, hz, hn = hp.split(H, -1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return r, z, n, hn
+
+
+def _coeffs(r, z, n, hn, h_prev, mf):
+    """The backward step's linearisation coefficients, f32
+    (``_fwd_kernel`` with ``save_coeffs``, ``_bwd_kernel`` phase 1):
+    c4 = (c_r, c_z, c_n2, c_nh) [..., 4H] and ch = (1 - mf) + mf z."""
+    c_n2 = mf * ((1.0 - z) * (1.0 - n * n))
+    c4 = torch.cat([c_n2 * (hn * (r * (1.0 - r))), mf * ((h_prev - n) * (z * (1.0 - z))),
+                    c_n2, c_n2 * r], -1)
+    return c4, (1.0 - mf) + mf * z
+
+
+def gru_scan_reference(xproj, wh, bh, tmask, save_coeffs: bool = False):
     """Plain version of K5, step for step.
 
     xproj [T, G, B, 3H] input projections (bias added); wh [G, H, 3H];
@@ -276,7 +310,9 @@ def gru_scan_reference(xproj, wh, bh, tmask):
     forward in frame order. Returns ys [T, G, B, H] in xproj's dtype. The
     recurrent product takes h in wh's dtype with f32 accumulation, the
     gates run in f32, and the carry is rounded to the output dtype every
-    step and reread from that value, as the kernel does.
+    step and reread from that value, as the kernel does. With
+    ``save_coeffs`` also returns the backward's coefficients from the same
+    gates: c4 [T, G, B, 4H] in xproj's dtype and ch [T, G, B, H] in f32.
     """
     T, G, B, H3 = xproj.shape
     H = H3 // 3
@@ -284,78 +320,274 @@ def gru_scan_reference(xproj, wh, bh, tmask):
     w = wh.to(torch.float32)
     bias = bh.to(torch.float32)[:, None, :]
     h = torch.zeros(G, B, H, dtype=torch.float32, device=xproj.device)
-    ys = []
+    ys, c4s, chs = [], [], []
     for t in range(T):
         hp = torch.bmm(h.to(wh.dtype).to(torch.float32), w) + bias
-        xr, xz, xn = xproj[t].to(torch.float32).split(H, -1)
-        hr, hz, hn = hp.split(H, -1)
-        r = torch.sigmoid(xr + hr)
-        z = torch.sigmoid(xz + hz)
-        n = torch.tanh(xn + r * hn)
+        r, z, n, hn = _gates(xproj[t].to(torch.float32), hp, h)
         h_cand = (1.0 - z) * n + z * h
         mf = mask[t]
         h_store = (mf * h_cand + (1.0 - mf) * h).to(xproj.dtype)
         ys.append(h_store)
+        if save_coeffs:
+            c4, ch = _coeffs(r, z, n, hn, h, mf)
+            c4s.append(c4.to(xproj.dtype))
+            chs.append(ch)
         h = h_store.to(torch.float32)
+    if save_coeffs:
+        return torch.stack(ys), torch.stack(c4s), torch.stack(chs)
     return torch.stack(ys)
+
+
+def _reverse_chain(c4, ch, dy, wh, out_dtype):
+    """The reverse chain of K5-bwd's phase 2 and of K8, step for step:
+    d = dh + dy[t] (f32); e = c4[t] * d per gate block, stored in
+    ``out_dtype``; dh = ch[t] d + (e_r, e_z, e_nh)->wh.dtype @ wh^T (f32
+    accumulation). Returns e [T, G, B, 4H] = (dr_pre, dz_pre, dn_pre, dhn)."""
+    T, G, B, H = dy.shape
+    f32 = torch.float32
+    w_t = wh.to(f32).transpose(1, 2)  # [G, 3H, H]
+    dh = torch.zeros(G, B, H, dtype=f32, device=dy.device)
+    out = torch.empty(T, G, B, 4 * H, dtype=out_dtype, device=dy.device)
+    for t in reversed(range(T)):
+        d = dh + dy[t].to(f32)
+        e = c4[t].to(f32) * d.repeat(1, 1, 4)
+        out[t] = e.to(out_dtype)
+        dhproj = torch.cat([e[..., :2 * H], e[..., 3 * H:]], -1).to(wh.dtype).to(f32)
+        dh = ch[t] * d + torch.bmm(dhproj, w_t)
+    return out
+
+
+def _prev_trajectory(ys):
+    """h_prev at every step: ys shifted one step, zeros at t = 0."""
+    return torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+
+
+def gru_scan_bwd_reference(xproj, wh, bh, tmask, ys, dy):
+    """Plain version of K5-bwd (``_bwd_fused``), step for step.
+
+    K5's inputs, its output ys and the cotangent dy [T, G, B, H]. Phase 1
+    recomputes hp = h_prev @ wh + bh (h_prev read in the stored dtype, f32
+    accumulation) and the gates in f32 into the coefficients; phase 2 is
+    the reverse chain. Returns (dxp [T, G, B, 3H], dhn [T, G, B, H]) in
+    xproj's dtype: d of the input projections and of the n block of
+    h_prev @ wh."""
+    H = ys.shape[-1]
+    f32 = torch.float32
+    h_prev = _prev_trajectory(ys).to(f32)
+    hp = torch.matmul(h_prev, wh.to(f32)) + bh.to(f32)[:, None, :]
+    r, z, n, hn = _gates(xproj.to(f32), hp, h_prev)
+    c4, ch = _coeffs(r, z, n, hn, h_prev, tmask.to(f32)[..., None])
+    out = _reverse_chain(c4, ch, dy, wh, xproj.dtype)
+    return out[..., :3 * H], out[..., 3 * H:]
+
+
+def gru_scan_bwd_lin_reference(c4, ch, dy, wh):
+    """Plain version of K8 (``_bwd_linear``): the reverse chain from the
+    forward's coefficients c4 [T, G, B, 4H] and ch [T, G, B, H] (f32).
+    Returns [T, G, B, 4H] = (dr_pre, dz_pre, dn_pre, dhn) in dy's dtype."""
+    return _reverse_chain(c4, ch, dy, wh, dy.dtype)
+
+
+def _launch_args(dev):
+    return (torch.cuda.current_stream(dev).cuda_stream,
+            dev.index if dev.index is not None else torch.cuda.current_device())
+
+
+def _check_gru(what, dt, H, G, tensors):
+    if dt not in _DTYPES:
+        raise ValueError(f"{what} takes float32 or bfloat16, got {dt}")
+    dev = tensors[0][0].device
+    for t, shape, tdt in tensors:
+        if t.shape != shape or t.dtype != tdt or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous {tdt} {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if H % 8:
+        raise ValueError(f"{what} takes a hidden size that is a multiple of 8, got {H}")
+    if G > _GRU_BAR_GROUPS:
+        raise ValueError(f"{what} takes at most {_GRU_BAR_GROUPS} groups, got {G}")
 
 
 def _lib_gru() -> ctypes.CDLL:
     lib = _build.load("gru_fwd")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.uasr_gru_fwd.argtypes = [P] * 6 + [I] * 6 + [P, I, P, P]
+    lib.uasr_gru_fwd.argtypes = [P] * 8 + [I] * 6 + [P, I, P, P]
     lib.uasr_gru_fwd.restype = I
     return lib
 
 
-def gru_scan_cuda(xproj, wh, bh, tmask):
-    """Launch K5 on CUDA tensors; same contract as the plain version.
-    Forward only: raises NotImplementedError where autograd would need
-    K5's backward."""
+def gru_scan_cuda(xproj, wh, bh, tmask, save_coeffs: bool = False):
+    """Launch K5 on CUDA tensors; same contract as the plain version."""
     global LAUNCHES_GRU, LAST_GRU_PLAN
     T, G, B, H3 = xproj.shape
     H = H3 // 3
     dt = xproj.dtype
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (xproj, wh, bh)):
-        raise NotImplementedError(
-            "the GRU recurrence's backward (kernel K5-bwd, pallas_gru.py::_bwd_kernel) is not "
-            "ported yet (ROADMAP.md Queue 1: training the recurrent and attention encoders); "
-            "K5 runs forward only")
     if not xproj.is_cuda:
         raise ValueError("gru kernel takes CUDA tensors; gru_scan runs the plain version on "
                          "the CPU")
-    if dt not in _DTYPES:
-        raise ValueError(f"gru kernel takes float32 or bfloat16, got {dt}")
-    for t, shape in ((xproj, (T, G, B, H3)), (wh, (G, H, H3)), (bh, (G, H3))):
-        if t.shape != shape or t.dtype != dt or t.device != xproj.device or not t.is_contiguous():
-            raise ValueError(f"gru kernel: expected contiguous {dt} {shape} on {xproj.device}")
-    if H % 8:
-        raise ValueError(f"gru kernel takes a hidden size that is a multiple of 8, got {H}")
-    if G > _GRU_BAR_GROUPS:
-        raise ValueError(f"gru kernel takes at most {_GRU_BAR_GROUPS} groups, got {G}")
+    _check_gru("gru kernel", dt, H, G,
+               [(xproj, (T, G, B, H3), dt), (wh, (G, H, H3), dt), (bh, (G, H3), dt)])
     if tmask.shape != (T, G, B):
         raise ValueError(f"gru kernel: tmask must be [T, G, B], got {tuple(tmask.shape)}")
     dev = xproj.device
     mask = tmask.to(device=dev, dtype=torch.float32).contiguous()
     ys = torch.empty(T, G, B, H, dtype=dt, device=dev)
+    c4 = torch.empty(T, G, B, 4 * H, dtype=dt, device=dev) if save_coeffs else None
+    ch = torch.empty(T, G, B, H, dtype=torch.float32, device=dev) if save_coeffs else None
     bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
     units, splits = ctypes.c_int(0), ctypes.c_int(0)
     lib = _lib_gru()
     code = lib.uasr_gru_fwd(
         xproj.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(), ys.data_ptr(),
-        bar.data_ptr(), _GRU_BAR_GROUPS, T, G, B, H, _DTYPES[dt],
-        torch.cuda.current_stream(dev).cuda_stream,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        None if c4 is None else c4.data_ptr(), None if ch is None else ch.data_ptr(),
+        bar.data_ptr(), _GRU_BAR_GROUPS, T, G, B, H, _DTYPES[dt], *_launch_args(dev),
         ctypes.byref(units), ctypes.byref(splits),
     )
     _build.check(lib, code, "gru_fwd kernel")
     LAUNCHES_GRU += 1
     LAST_GRU_PLAN = (units.value, splits.value)
-    return ys
+    return (ys, c4, ch) if save_coeffs else ys
+
+
+def _lib_gru_bwd() -> ctypes.CDLL:
+    lib = _build.load("gru_bwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.uasr_gru_bwd.argtypes = [P] * 13 + [I] * 6 + [P, I, P, P]
+    lib.uasr_gru_bwd.restype = I
+    return lib
+
+
+def gru_scan_bwd_cuda(xproj, wh, bh, tmask, ys, dy):
+    """Launch K5-bwd on CUDA tensors; same contract as the plain version."""
+    global LAUNCHES_GRU_BWD, LAST_GRU_BWD_PLAN
+    T, G, B, H3 = xproj.shape
+    H = H3 // 3
+    dt = xproj.dtype
+    if not xproj.is_cuda:
+        raise ValueError("gru backward kernel takes CUDA tensors; GRUScan runs the plain "
+                         "version on the CPU")
+    _check_gru("gru backward kernel", dt, H, G,
+               [(xproj, (T, G, B, H3), dt), (wh, (G, H, H3), dt), (bh, (G, H3), dt),
+                (ys, (T, G, B, H), dt), (dy, (T, G, B, H), dt)])
+    if tmask.shape != (T, G, B):
+        raise ValueError(f"gru backward kernel: tmask must be [T, G, B], got "
+                         f"{tuple(tmask.shape)}")
+    dev = xproj.device
+    f32 = torch.float32
+    mask = tmask.to(device=dev, dtype=f32).contiguous()
+    dxp = torch.empty(T, G, B, H3, dtype=dt, device=dev)
+    dhn = torch.empty(T, G, B, H, dtype=dt, device=dev)
+    c4 = torch.empty(T, G, B, 4 * H, dtype=f32, device=dev)  # phase-1 coefficients
+    ch = torch.empty(T, G, B, H, dtype=f32, device=dev)
+    chd = torch.empty(G, B, H, dtype=f32, device=dev)  # ch * d carried to the next step
+    xch = torch.empty(2, G, B, H3, dtype=dt, device=dev)  # per-step exchange rows
+    bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
+    units, splits = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _lib_gru_bwd()
+    code = lib.uasr_gru_bwd(
+        xproj.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(), ys.data_ptr(),
+        dy.data_ptr(), dxp.data_ptr(), dhn.data_ptr(), c4.data_ptr(), ch.data_ptr(),
+        chd.data_ptr(), xch.data_ptr(), bar.data_ptr(), _GRU_BAR_GROUPS, T, G, B, H,
+        _DTYPES[dt], *_launch_args(dev), ctypes.byref(units), ctypes.byref(splits),
+    )
+    _build.check(lib, code, "gru_bwd kernel")
+    LAUNCHES_GRU_BWD += 1
+    LAST_GRU_BWD_PLAN = (units.value, splits.value)
+    return dxp, dhn
+
+
+def _lib_gru_lin() -> ctypes.CDLL:
+    lib = _build.load("gru_bwd_lin")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.uasr_gru_bwd_lin.argtypes = [P] * 8 + [I] * 6 + [P, I, P, P]
+    lib.uasr_gru_bwd_lin.restype = I
+    return lib
+
+
+def gru_scan_bwd_lin_cuda(c4, ch, dy, wh):
+    """Launch K8 on CUDA tensors; same contract as the plain version."""
+    global LAUNCHES_GRU_LIN, LAST_GRU_BWD_PLAN
+    T, G, B, H = dy.shape
+    dt = dy.dtype
+    if not dy.is_cuda:
+        raise ValueError("gru linear backward kernel takes CUDA tensors; GRUScan runs the "
+                         "plain version on the CPU")
+    _check_gru("gru linear backward kernel", dt, H, G,
+               [(dy, (T, G, B, H), dt), (c4, (T, G, B, 4 * H), dt),
+                (ch, (T, G, B, H), torch.float32), (wh, (G, H, 3 * H), dt)])
+    dev = dy.device
+    out = torch.empty(T, G, B, 4 * H, dtype=dt, device=dev)
+    chd = torch.empty(G, B, H, dtype=torch.float32, device=dev)
+    xch = torch.empty(2, G, B, 3 * H, dtype=dt, device=dev)
+    bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
+    units, splits = ctypes.c_int(0), ctypes.c_int(0)
+    lib = _lib_gru_lin()
+    code = lib.uasr_gru_bwd_lin(
+        c4.data_ptr(), ch.data_ptr(), dy.data_ptr(), wh.data_ptr(), out.data_ptr(),
+        chd.data_ptr(), xch.data_ptr(), bar.data_ptr(), _GRU_BAR_GROUPS, T, G, B, H,
+        _DTYPES[dt], *_launch_args(dev), ctypes.byref(units), ctypes.byref(splits),
+    )
+    _build.check(lib, code, "gru_bwd_lin kernel")
+    LAUNCHES_GRU_LIN += 1
+    LAST_GRU_BWD_PLAN = (units.value, splits.value)
+    return out
+
+
+def _gru_weight_grads(ys, drz, dn, wh_dtype, bh_dtype):
+    """dwh [G, H, 3H] and dbh [G, 3H] as whole-trajectory products of the
+    h_prev trajectory with the rounded (dr_pre, dz_pre) and dhn, f32
+    accumulation, returned in wh's and bh's dtypes (``_bwd_fused``,
+    ``_bwd_linear``)."""
+    f32 = torch.float32
+    h = _prev_trajectory(ys).to(f32)
+    drz, dn = drz.to(f32), dn.to(f32)
+    dwh = torch.cat([torch.einsum("tgbh,tgbo->gho", h, drz),
+                     torch.einsum("tgbh,tgbo->gho", h, dn)], -1)
+    dbh = torch.cat([drz.sum((0, 2)), dn.sum((0, 2))], -1)
+    return dwh.to(wh_dtype), dbh.to(bh_dtype)
+
+
+class GRUScan(torch.autograd.Function):
+    """K5 forward, K5-bwd or K8 backward (``pallas_gru_scan``'s custom
+    VJP). The forward saves what ``_fwd_rule`` saves: (xproj, wh, bh,
+    tmask, ys) for ``fused``, (wh, bh, ys, c4, ch) for ``linear``, the
+    implementation being read when the forward runs."""
+
+    @staticmethod
+    def forward(ctx, xproj, wh, bh, tmask):
+        fn = gru_scan_cuda if xproj.is_cuda else gru_scan_reference
+        ctx.linear = BWD_IMPL == "linear"
+        if ctx.linear:
+            ys, c4, ch = fn(xproj, wh, bh, tmask, save_coeffs=True)
+            ctx.save_for_backward(wh, bh, ys, c4, ch)
+        else:
+            ys = fn(xproj, wh, bh, tmask)
+            ctx.save_for_backward(xproj, wh, bh, tmask, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dy):
+        dy = dy.contiguous()
+        H = dy.shape[-1]
+        if ctx.linear:
+            wh, bh, ys, c4, ch = ctx.saved_tensors
+            fn = gru_scan_bwd_lin_cuda if dy.is_cuda else gru_scan_bwd_lin_reference
+            out = fn(c4, ch, dy, wh)
+            dxp, drz, dn = out[..., :3 * H], out[..., :2 * H], out[..., 3 * H:]
+        else:
+            xproj, wh, bh, tmask, ys = ctx.saved_tensors
+            fn = gru_scan_bwd_cuda if dy.is_cuda else gru_scan_bwd_reference
+            dxp, dn = fn(xproj, wh, bh, tmask, ys, dy)
+            drz = dxp[..., :2 * H]
+        dwh, dbh = _gru_weight_grads(ys, drz, dn, wh.dtype, bh.dtype)
+        return dxp, dwh, dbh, None
 
 
 def gru_scan(xproj, wh, bh, tmask):
     """Grouped GRU recurrence (``pallas_gru_scan``): K5 for CUDA tensors,
-    its plain version for CPU tensors."""
+    its plain version for CPU tensors; differentiable through ``GRUScan``
+    (K5-bwd or K8, or their plain versions). Without a gradient to take,
+    only the forward runs, as under JAX's custom VJP."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xproj, wh, bh)):
+        return GRUScan.apply(xproj, wh, bh, tmask)
     fn = gru_scan_cuda if xproj.is_cuda else gru_scan_reference
     return fn(xproj, wh, bh, tmask)

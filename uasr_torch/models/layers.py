@@ -205,8 +205,9 @@ class GRULayer(nn.Module):
     steps are one product, in the compute dtype.
 
     With ``use_pallas`` and no ``h0`` the recurrence is
-    ``cuda_gru.gru_scan`` with one group: kernel K5 for CUDA tensors, its
-    plain version for CPU tensors (f32 gates), and the final state is the
+    ``cuda_gru.gru_scan`` with one group: kernel K5 forward and K5-bwd (or
+    K8, with ``UASR_GRU_BWD_IMPL=linear``) backward for CUDA tensors, their
+    plain versions for CPU tensors (f32 gates), and the final state is the
     last step's output, which is frozen past each utterance's end. With an
     ``h0`` (a streaming chunk) the recurrence is the plain step loop of
     the JAX package's ``lax.scan`` branch, gates in ``dtype``: the TPU
@@ -283,8 +284,9 @@ class MultiHeadAttention(nn.Module):
     attention over heads, ``out`` projection back to D plus bias, all in
     the compute dtype. Q, K and V stay packed [B, T, heads * dh] (viewed as
     [B, T, heads, dh]), the layout kernel K6 takes. ``attn_pallas`` picks
-    ``fused_dot_product_attention`` (K6 for CUDA tensors, its plain
-    version for CPU tensors), else ``dot_product_attention`` (flax's).
+    ``fused_dot_product_attention`` (K6 forward and K6-bwd backward for
+    CUDA tensors, their plain versions for CPU tensors), else
+    ``dot_product_attention`` (flax's).
     ``dropout`` drops attention weights in ``train()`` mode."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,

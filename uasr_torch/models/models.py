@@ -5,10 +5,12 @@
 - ``CNNEncoder``: strided conv, dilated residual stack, f32 dense logits,
   the streaming recipe's encoder;
 - ``UniGRUEncoder`` and ``LCBiGRUEncoder``: the causal recurrent encoders
-  (patch embed, carried-tail context conv, GRU layers through kernel K5)
-  with their streaming ``step`` and initial carries;
+  (patch embed, carried-tail context conv, GRU layers through kernel K5,
+  trained through K5-bwd or K8) with their streaming ``step`` and initial
+  carries;
 - ``TransformerEncoder`` and ``ConformerEncoder``: the attention encoders
-  (multi-head self-attention through kernel K6 with ``attn_pallas``).
+  (multi-head self-attention through kernels K6 and K6-bwd with
+  ``attn_pallas``).
 
 ``build_model`` raises ``NotImplementedError`` for ``classifier`` until
 its slice lands (ROADMAP.md Queue 1).

@@ -1,21 +1,21 @@
-"""K6, the fused multi-head self-attention forward: the wrapper of
-``csrc/mhsa_fwd.cu``, its plain PyTorch version, and
+"""K6 and K6-bwd, the fused multi-head self-attention forward and backward:
+the wrappers of ``csrc/mhsa_fwd.cu`` and ``csrc/mhsa_bwd.cu``, their plain
+PyTorch versions, the ``torch.autograd.Function`` that joins them, and
 ``fused_dot_product_attention``, the counterpart of
-``uasr/ops/pallas_attention.py`` (TPU kernel ``_fwd_kernel`` behind
-``_attn_core``).
+``uasr/ops/pallas_attention.py`` (TPU kernels ``_fwd_kernel`` and
+``_bwd_kernel`` behind ``_attn_core``'s custom VJP).
 
 ``fused_dot_product_attention`` takes flax's layout [B, T, heads, dh]
 (a view of the packed [B, T, heads * dh] projection, so no relayout),
 pads T to a multiple of 8, turns a key-only mask [B or 1, 1, 1, T] into
 [B, 1, Tp] int32 and a batch-shared bias [1, H, T, T] or [H, T, T] into
-f32 [H, Tp, Tp], and runs ``attn_core``: K6 for CUDA tensors, its plain
-version for CPU tensors. As the JAX wrapper hands active dropout, other
+f32 [H, Tp, Tp], and runs ``attn_core``: K6 forward and K6-bwd backward
+for CUDA tensors, their plain versions for CPU tensors. The bias gradient
+flows back through the wrapper's pad and f32 cast by autograd, as it does
+through the JAX wrapper's. As the JAX wrapper hands active dropout, other
 masks and per-example biases to flax, this one hands them to
 ``ops/attention.py::dot_product_attention``: the JAX package's semantics,
 not a fallback on failure. K6 raises on input it does not take.
-
-K6's backward (K6-bwd, ``_bwd_kernel``) is not ported yet: a CUDA call
-that would need a gradient raises.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from uasr_torch import _build
 from uasr_torch.ops.attention import dot_product_attention
 
 LAUNCHES_ATTN = 0  # K6 launches by mhsa_fwd_cuda (read by chip_smoke.py)
+LAUNCHES_ATTN_BWD = 0  # K6-bwd launches by mhsa_bwd_cuda
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -80,38 +81,37 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _check_attn(what, q, tensors, bias, kmask, num_heads: int) -> None:
+    """Raise on input the attention kernels do not take."""
+    B, Tp, D = q.shape
+    H = num_heads
+    dt = q.dtype
+    if not q.is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors; attn_core runs the plain version on the "
+                         "CPU")
+    if dt not in _DTYPES:
+        raise ValueError(f"{what} takes float32 or bfloat16, got {dt}")
+    for t in tensors:
+        if t.shape != (B, Tp, D) or t.dtype != dt or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous {dt} {(B, Tp, D)} on {q.device}")
+    if D % H or D // H not in _HEAD_DIMS:
+        raise ValueError(f"{what} takes a head size in {_HEAD_DIMS}, got {D} / {H}")
+    if Tp % 8:
+        raise ValueError(f"{what} takes a length padded to a multiple of 8, got {Tp}")
+    if kmask.shape != (B, 1, Tp) or kmask.dtype != torch.int32 or kmask.device != q.device:
+        raise ValueError(f"{what}: kmask must be int32 [B, 1, Tp] = {(B, 1, Tp)}")
+    if bias is not None and (bias.shape != (H, Tp, Tp) or bias.dtype != torch.float32
+                             or bias.device != q.device or not bias.is_contiguous()):
+        raise ValueError(f"{what}: bias must be contiguous float32 {(H, Tp, Tp)}")
+
+
 def mhsa_fwd_cuda(q, k, v, bias, kmask, num_heads: int):
-    """Launch K6 on CUDA tensors; same contract as the plain version.
-    Forward only: raises NotImplementedError where autograd would need
-    K6's backward."""
+    """Launch K6 on CUDA tensors; same contract as the plain version."""
     global LAUNCHES_ATTN
     B, Tp, D = q.shape
     H = num_heads
     dt = q.dtype
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "the attention backward (kernel K6-bwd, pallas_attention.py::_bwd_kernel) is not "
-            "ported yet (ROADMAP.md Queue 1: training the recurrent and attention encoders); "
-            "K6 runs forward only")
-    if not q.is_cuda:
-        raise ValueError("attention kernel takes CUDA tensors; attn_core runs the plain version "
-                         "on the CPU")
-    if dt not in _DTYPES:
-        raise ValueError(f"attention kernel takes float32 or bfloat16, got {dt}")
-    for t in (q, k, v):
-        if t.shape != (B, Tp, D) or t.dtype != dt or t.device != q.device or not t.is_contiguous():
-            raise ValueError(f"attention kernel: expected contiguous {dt} {(B, Tp, D)} on "
-                             f"{q.device}")
-    if D % H or D // H not in _HEAD_DIMS:
-        raise ValueError(f"attention kernel takes a head size in {_HEAD_DIMS}, got {D} / {H}")
-    if Tp % 8:
-        raise ValueError(f"attention kernel takes a length padded to a multiple of 8, got {Tp}")
-    if kmask.shape != (B, 1, Tp) or kmask.dtype != torch.int32 or kmask.device != q.device:
-        raise ValueError(f"attention kernel: kmask must be int32 [B, 1, Tp] = {(B, 1, Tp)}")
-    if bias is not None and (bias.shape != (H, Tp, Tp) or bias.dtype != torch.float32
-                             or bias.device != q.device or not bias.is_contiguous()):
-        raise ValueError(f"attention kernel: bias must be contiguous float32 {(H, Tp, Tp)}")
+    _check_attn("attention kernel", q, (q, k, v), bias, kmask, H)
     lib = _lib()
     smem = lib.uasr_mhsa_smem(D // H, Tp)
     if smem > SMEM_LIMIT:
@@ -131,11 +131,109 @@ def mhsa_fwd_cuda(q, k, v, bias, kmask, num_heads: int):
     return out, lse
 
 
+def mhsa_bwd_reference(q, k, v, bias, kmask, out, lse, dout, num_heads: int):
+    """Plain version of K6-bwd (``_bwd_kernel``). K6's inputs, its (out,
+    lse) and the cotangent dout [B, Tp, H * dh], cast to q's dtype first.
+    Per (b, head), in f32 unless stated: s = q k^T * scale + bias + the
+    -1e30 key mask; p = exp(s - lse); dv = (p -> dtype)^T do; dp = do v^T;
+    delta = sum(do * o); t = p (dp - delta); tb = (t * scale) -> dtype;
+    dq = tb k and dk = tb^T q, each rounded to q's dtype. Returns (dq, dk,
+    dv) [B, Tp, H * dh] and d_bias [H, Tp, Tp] f32 (None without a bias),
+    the sum of t over the batch in ascending b, the TPU grid's order."""
+    B, Tp, D = q.shape
+    H = num_heads
+    dh = D // H
+    dt, f32 = q.dtype, torch.float32
+    scale = _scale(dh)
+
+    def heads(x):
+        return x.to(dt).reshape(B, Tp, H, dh).permute(0, 2, 1, 3).to(f32)
+
+    qh, kh, vh, oh, doh = (heads(x) for x in (q, k, v, out, dout))
+    madd = torch.where(kmask > 0, 0.0, NEG).to(f32)  # [B, 1, Tp]
+    grads = [torch.empty(B, H, Tp, dh, dtype=dt, device=q.device) for _ in range(3)]
+    dbias = None if bias is None else torch.zeros(H, Tp, Tp, dtype=f32, device=q.device)
+    for b in range(B):
+        s = (qh[b] @ kh[b].transpose(-1, -2)) * scale  # [H, Tp, Tp]
+        if bias is not None:
+            s = s + bias.to(f32)
+        p = torch.exp((s + madd[b][:, None, :]) - lse[b][..., None])
+        grads[2][b] = (p.to(dt).to(f32).transpose(-1, -2) @ doh[b]).to(dt)
+        dp = doh[b] @ vh[b].transpose(-1, -2)
+        delta = (doh[b] * oh[b]).sum(-1, keepdim=True)
+        t = p * (dp - delta)
+        if dbias is not None:
+            dbias += t
+        tb = (t * scale).to(dt).to(f32)
+        grads[0][b] = (tb @ kh[b]).to(dt)
+        grads[1][b] = (tb.transpose(-1, -2) @ qh[b]).to(dt)
+    dq, dk, dv = (g.permute(0, 2, 1, 3).reshape(B, Tp, D) for g in grads)
+    return dq, dk, dv, dbias
+
+
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("mhsa_bwd")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.uasr_mhsa_bwd.argtypes = [P] * 13 + [I] * 4 + [ctypes.c_float, I, P, I]
+    lib.uasr_mhsa_bwd.restype = I
+    return lib
+
+
+def mhsa_bwd_cuda(q, k, v, bias, kmask, out, lse, dout, num_heads: int):
+    """Launch K6-bwd on CUDA tensors; same contract as the plain version."""
+    global LAUNCHES_ATTN_BWD
+    B, Tp, D = q.shape
+    H = num_heads
+    _check_attn("attention backward kernel", q, (q, k, v, out, dout), bias, kmask, H)
+    if lse.shape != (B, H, Tp) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"attention backward kernel: lse must be contiguous float32 "
+                         f"{(B, H, Tp)}")
+    dev = q.device
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = None if bias is None else torch.empty(H, Tp, Tp, dtype=torch.float32, device=dev)
+    delta = torch.empty(B, H, Tp, dtype=torch.float32, device=dev)  # sum(do * o) per row
+    lib = _lib_bwd()
+    code = lib.uasr_mhsa_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        kmask.contiguous().data_ptr(), lse.data_ptr(), None if bias is None else bias.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if dbias is None else dbias.data_ptr(), delta.data_ptr(), B, Tp, H, D // H,
+        _scale(D // H), _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+    )
+    _build.check(lib, code, "mhsa_bwd kernel")
+    LAUNCHES_ATTN_BWD += 1
+    return dq, dk, dv, dbias
+
+
+class MHSAttention(torch.autograd.Function):
+    """K6 forward, K6-bwd backward (``_attn_core``'s custom VJP): the
+    forward saves (q, k, v, bias, kmask, out, lse), as ``_attn_fwd_rule``
+    does, and returns (out, lse), lse without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, kmask, num_heads: int):
+        fn = mhsa_fwd_cuda if q.is_cuda else mhsa_fwd_reference
+        out, lse = fn(q, k, v, bias, kmask, num_heads)
+        ctx.save_for_backward(q, k, v, bias, kmask, out, lse)
+        ctx.num_heads = num_heads
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, bias, kmask, out, lse = ctx.saved_tensors
+        fn = mhsa_bwd_cuda if dout.is_cuda else mhsa_bwd_reference
+        dq, dk, dv, dbias = fn(q, k, v, bias, kmask, out, lse,
+                               dout.to(q.dtype).contiguous(), ctx.num_heads)
+        return dq, dk, dv, dbias, None, None
+
+
 def attn_core(q, k, v, bias, kmask, num_heads: int):
     """Padded fused attention (``_attn_core``): (out, lse), K6 for CUDA
-    tensors, its plain version for CPU tensors."""
-    fn = mhsa_fwd_cuda if q.is_cuda else mhsa_fwd_reference
-    return fn(q, k, v, bias, kmask, num_heads)
+    tensors, its plain version for CPU tensors; differentiable through
+    ``MHSAttention`` (K6-bwd or its plain version)."""
+    return MHSAttention.apply(q, k, v, bias, kmask, num_heads)
 
 
 def _pad_to(a, axis: int, size: int):

@@ -2,7 +2,9 @@
 ``CTCTrainer``, checkpoint keepers and ``run_ctc_training``).
 
 One training step: frontend (K1 for CUDA tensors) -> optional SpecAugment
--> encoder (the BiGRU through K2 forward / K2-bwd backward) -> CTC loss
+-> encoder (the BiGRU through K2 forward / K2-bwd backward; the GRU layers
+of ``uni_gru`` and ``lc_bigru`` through K5 / K5-bwd or K8; the attention of
+``transformer`` and ``conformer`` through K6 / K6-bwd) -> CTC loss
 (K3 / K3-bwd with ``ctc.use_pallas``, else the scan loss) -> gradients ->
 global-norm clip -> Adam, all on one device. Eval decodes greedily (or
 with the prefix beam) and scores the edit distance.
