@@ -48,7 +48,8 @@ and prints no result line):
    offline T=300 B=64, the lc_bigru backward windows T=24 B=1216, one
    streaming step's windows T=24 B=64) and K6 fused attention at the
    attention encoders' (B=32, T=400, 8 heads of 64, bf16, with the
-   conformer's bias and without), against their plain versions;
+   conformer's bias and without, f32; and T=832, a 33 s utterance, bf16
+   with the bias), against their plain versions;
 8. the recurrent streaming path: configs/aishell_streaming.yaml with
    ``model.encoder=lc_bigru`` and then ``uni_gru`` (``gru_pallas``), 64
    streams through StreamingRecognizer, greedy and beam 8, against the
@@ -59,21 +60,23 @@ and prints no result line):
 9. the attention decode path: configs/librispeech_ctc_bigru.yaml with
    ``model.encoder=conformer`` and ``transformer`` (``attn_pallas``; the
    conformer's relative-position tables drawn N(0, 0.3^2)) through
-   ``run_inference``, transformer_layers K6 per request, logits against
-   the plain path;
+   ``run_inference``, the conformer also on one request of 4 utterances
+   up to 33 s (T = 825, padded to 832), transformer_layers K6 per
+   request, logits against the plain path;
 10. K5's coefficient outputs, K5-bwd and K8 at the recurrent encoders'
    training shapes (H=384: the 12 s forward GRU T=300 B=64, the lc_bigru
    backward windows T=24 B=1216) in f32 and bf16, and K6-bwd at the
    attention encoders' (B=32, T=400, 8 heads of 64: bf16 with the
-   conformer's bias and without, f32), against their plain versions;
+   conformer's bias and without, f32; T=832 bf16 with the bias), against
+   their plain versions, d_bias bit-equal over two launches;
 11. the training paths of those four encoders: ``CTCTrainer.train_step``
    at full width (aishell_streaming with lc_bigru and uni_gru, B=64, 4 to
    12 s, ``ctc.use_pallas``; librispeech with conformer and transformer,
    B=32, 4 to 16 s, the recipe's SpecAugment, clip and schedule), a set-up
    step and one step per bucket with exact launch counts, one lc_bigru step
-   with the linear backward (K8), a profile of one 12 s and one 16 s step,
-   and the first step's loss and gradients on the kernel path against the
-   plain path, bf16 and f32;
+   with the linear backward (K8), a profile of one 12 s lc_bigru step and
+   of one 16 s conformer and transformer step, and the first step's loss
+   and gradients on the kernel path against the plain path, bf16 and f32;
 12. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
@@ -181,27 +184,31 @@ def char_vocab():
     return Vocab(tokens=[BLK, *letters, "'", "<space>", UNK, PAD, "<eos>"], blank_id=0)
 
 
-def make_requests(np, cfg, n_req: int = 4, cps: float = 14):
-    """One batch per bucket boundary; lengths spread over the bucket, the
-    longest exactly at the boundary, ``cps`` characters per second."""
+def make_request(np, rng, cfg, B: int, hi_s: float, cps: float = 14):
+    """B utterances of random audio spread over (hi_s - 4, hi_s] seconds, the
+    longest exactly hi_s, ``cps`` characters per second (labels capped at
+    max_label_len)."""
     from uasr_torch.data.dataset import Batch
 
+    sr, V = cfg.frontend.sample_rate, cfg.dim_output
+    lo_s = max(hi_s - 4.0, 1.0)
+    secs = rng.uniform(lo_s, hi_s, B)
+    secs[0] = hi_s
+    lens = (secs * sr).astype(np.int32)
+    L = int(lens.max())
+    audio = (0.1 * rng.randn(B, L)).astype(np.float32)
+    audio[np.arange(L)[None, :] >= lens[:, None]] = 0.0
+    ulen = np.minimum((secs * cps).astype(np.int32), cfg.data.max_label_len)
+    labels = rng.randint(1, V - 3, (B, cfg.data.max_label_len)).astype(np.int32)
+    labels[np.arange(labels.shape[1])[None, :] >= ulen[:, None]] = 0
+    return Batch(audio, lens, labels, ulen)
+
+
+def make_requests(np, cfg, n_req: int = 4, cps: float = 14):
+    """One batch of data.batch_size per bucket boundary (make_request)."""
     rng = np.random.RandomState(SEED)
-    sr, B, V = cfg.frontend.sample_rate, cfg.data.batch_size, cfg.dim_output
-    out = []
-    for hi_s in cfg.data.bucket_boundaries[:n_req]:
-        lo_s = max(hi_s - 4.0, 1.0)
-        secs = rng.uniform(lo_s, hi_s, B)
-        secs[0] = hi_s
-        lens = (secs * sr).astype(np.int32)
-        L = int(lens.max())
-        audio = (0.1 * rng.randn(B, L)).astype(np.float32)
-        audio[np.arange(L)[None, :] >= lens[:, None]] = 0.0
-        ulen = np.minimum((secs * cps).astype(np.int32), cfg.data.max_label_len)
-        labels = rng.randint(1, V - 3, (B, cfg.data.max_label_len)).astype(np.int32)
-        labels[np.arange(labels.shape[1])[None, :] >= ulen[:, None]] = 0
-        out.append(Batch(audio, lens, labels, ulen))
-    return out
+    return [make_request(np, rng, cfg, cfg.data.batch_size, hi_s, cps)
+            for hi_s in cfg.data.bucket_boundaries[:n_req]]
 
 
 def phase_kernels(torch, np, results: dict) -> None:
@@ -1166,6 +1173,34 @@ def phase_daemon(torch, np, encoder: str = "cnn", rounds: int = 4) -> None:
 # transformer): B = 32, T = 400 after the conv front, d = 512, 8 heads
 K5_H, K5_T, K5_WINDOW, K5_WINDOWS = 384, 300, 24, 19
 K6_B, K6_T, K6_HEADS, K6_DH = 32, 400, 8, 64
+# a 33 s utterance: 825 encoder frames, padded to Tp = 832 (past the 552
+# that K6 once kept whole in shared memory)
+K6_LONG_T, LONG_SECONDS = 832, 33.0
+
+
+def attention_problem(torch, gen, T: int):
+    """K6's inputs at B=32, 8 x 64: keys of a row spread over the last
+    quarter of T (a full row and a row with one valid key), q, k, v and a
+    cotangent N(0, 1) in f32, the conformer-like bias N(0, 0.3^2) rounded
+    to bf16."""
+    dev = torch.device(DEVICE)
+    B, D = K6_B, K6_HEADS * K6_DH
+    lengths = torch.randint(3 * T // 4, T + 1, (B,), device=dev, generator=gen)
+    lengths[0], lengths[1] = T, 1
+    kmask = (torch.arange(T, device=dev)[None] < lengths[:, None]).to(torch.int32)[:, None]
+    qkv = [torch.randn(B, T, D, device=dev, generator=gen) for _ in range(3)]
+    dout = torch.randn(B, T, D, device=dev, generator=gen)
+    bias = (0.3 * torch.randn(K6_HEADS, T, T, device=dev, generator=gen)).to(torch.bfloat16).float()
+    return lengths, kmask, qkv, dout, bias
+
+
+def sdpa_mask(torch, kmask, bias, dt):
+    """The key mask (0 or -1e30) and the bias as one float mask [B, H or 1,
+    T, T] for scaled_dot_product_attention, in dtype dt."""
+    fmask = torch.where(kmask[:, :, None, :] > 0, 0.0, -1e30)
+    if bias is not None:
+        fmask = fmask + bias[None]
+    return fmask.to(dt)
 
 
 def phase_k5_k6(torch, np, results: dict) -> None:
@@ -1219,16 +1254,16 @@ def phase_k5_k6(torch, np, results: dict) -> None:
         results[f"K5:{what}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                                      bound_by=by, library_ms=lib)
 
-    # ---- K6: B=32, T=400, 8 x 64, keys of a 12-16 s bucket, bf16 (and f32)
-    B, T, Hh, dh = K6_B, K6_T, K6_HEADS, K6_DH
-    D = Hh * dh
-    lengths = torch.randint(3 * T // 4, T + 1, (B,), device=dev, generator=gen)
-    lengths[0], lengths[1] = T, 1  # a full row and a row with one valid key
-    kmask = (torch.arange(T, device=dev)[None] < lengths[:, None]).to(torch.int32)[:, None]
-    qkv = [torch.randn(B, T, D, device=dev, generator=gen) for _ in range(3)]
-    bias = (0.3 * torch.randn(Hh, T, T, device=dev, generator=gen)).to(torch.bfloat16).float()
-    for what, dtype, b in (("bias", "bfloat16", bias), ("nobias", "bfloat16", None),
-                           ("f32", "float32", bias)):
+    # ---- K6: B=32, T=400, 8 x 64, keys of a 12-16 s bucket, bf16 (and f32);
+    # T=832 (a 33 s utterance), bf16 with the bias
+    B, Hh, dh = K6_B, K6_HEADS, K6_DH
+    problems = {T: attention_problem(torch, gen, T) for T in (K6_T, K6_LONG_T)}
+    for what, T, dtype, with_bias in (("bias", K6_T, "bfloat16", True),
+                                      ("nobias", K6_T, "bfloat16", False),
+                                      ("f32", K6_T, "float32", True),
+                                      ("bias:832", K6_LONG_T, "bfloat16", True)):
+        lengths, kmask, qkv, _, bias = problems[T]
+        b = bias if with_bias else None
         dt = getattr(torch, dtype)
         q, k, v = (x.to(dt).contiguous() for x in qkv)
         args = (q, k, v, b, kmask, Hh)
@@ -1244,6 +1279,7 @@ def phase_k5_k6(torch, np, results: dict) -> None:
         ms = cuda_ms(torch, lambda: k6.mhsa_fwd_cuda(*args), 20)
         plain = cuda_ms(torch, lambda: k6.mhsa_fwd_reference(*args), 5)
         esize = 2 if dtype == "bfloat16" else 4
+        D = Hh * dh
         nbytes = (esize * 4 * B * T * D + (4 * Hh * T * T if b is not None else 0) + 4 * B * T
                   + 4 * B * Hh * T)
         keys = int(lengths.sum())  # every query row attends over its row's valid keys
@@ -1251,10 +1287,7 @@ def phase_k5_k6(torch, np, results: dict) -> None:
         # scaled_dot_product_attention on [B, heads, T, dh] with the bias and
         # the key mask as one float mask: one PyTorch call, same function
         qh, kh, vh = (x.view(B, T, Hh, dh).transpose(1, 2).contiguous() for x in (q, k, v))
-        fmask = torch.where(kmask[:, :, None, :] > 0, 0.0, -1e30)
-        if b is not None:
-            fmask = fmask + b[None]
-        fmask = fmask.to(dt)
+        fmask = sdpa_mask(torch, kmask, b, dt)
         lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=fmask),
                       20)
         print(f"K6 mhsa    {what:8s} B={B} T={T} heads={Hh} dh={dh} {dtype}: out max|d| "
@@ -1262,6 +1295,7 @@ def phase_k5_k6(torch, np, results: dict) -> None:
               f"{plain:.4f} ms SDPA {lib:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
         results[f"K6:{what}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                                      bound_by=by, library_ms=lib)
+        del fmask, out, r_out
 
 
 def phase_recurrent_stream(torch, np, launches: dict) -> None:
@@ -1419,9 +1453,10 @@ def attention_config(encoder: str, vocab_size: int):
 
 def phase_attention(torch, np, launches: dict) -> None:
     """The attention decode path at full width: run_inference with the
-    conformer and the transformer on the four bucket requests (beam 16),
-    transformer_layers K6 per request, and the 16 s request's logits on the
-    kernel path against the plain path."""
+    conformer and the transformer on the four bucket requests (beam 16) and
+    the conformer on a request of 4 utterances up to 33 s, transformer_layers
+    K6 per request, and the 16 s (and 33 s) request's logits on the kernel
+    path against the plain path."""
     from uasr_torch import infer
     from uasr_torch.frontend.features import compute_features, make_frontend_state
     from uasr_torch.models.models import build_model
@@ -1442,10 +1477,14 @@ def phase_attention(torch, np, launches: dict) -> None:
                     t.copy_(0.3 * torch.randn(t.shape, generator=gen))
         fstate = make_frontend_state(cfg.frontend, device=dev)
         requests = make_requests(np, cfg)
+        if encoder == "conformer":
+            # and one request of 4 utterances up to 33 s: Tp = 832 through K6
+            requests.append(make_request(np, np.random.RandomState(SEED + 33), cfg, 4,
+                                         LONG_SECONDS))
         print(f"attention: {cfg.name} with {encoder}, d={cfg.model.hidden_size} "
               f"{cfg.model.num_heads} heads x{cfg.model.transformer_layers}, {cfg.model.dtype}, "
               f"V={cfg.dim_output}, beam {cfg.ctc.beam_width}, {len(requests)} requests of B="
-              f"{cfg.data.batch_size}", flush=True)
+              f"{[b.audio.shape[0] for b in requests]}", flush=True)
         infer.run_inference(cfg, model, fstate, requests[:1], vocab=vocab, device=dev)
         total = dict.fromkeys(_counters(), 0)
         want = dict(total, K1=1, K4=1, K6=cfg.model.transformer_layers)
@@ -1456,36 +1495,37 @@ def phase_attention(torch, np, launches: dict) -> None:
             wall = r["rtf"] * r["audio_seconds"]
             check(counts == want, f"{encoder} request launches {counts}, expected {want}")
             check(np.isfinite(r["per"]) and infer.LAST_BEAM_IMPL == "cuda", f"{encoder}: {r}")
-            print(f"  {encoder} request {b.audio.shape[1] / 16000:5.1f} s bucket: wall "
-                  f"{wall * 1e3:.2f} ms, {r['audio_seconds'] / wall:.1f} audio-s/s, PER "
+            print(f"  {encoder} request B={b.audio.shape[0]} {b.audio.shape[1] / 16000:5.1f} s: "
+                  f"wall {wall * 1e3:.2f} ms, {r['audio_seconds'] / wall:.1f} audio-s/s, PER "
                   f"{r['per']:.3f}, launches {counts}", flush=True)
             for k, v in counts.items():
                 total[k] += v
         if encoder == "conformer":
             launches.update({"K6": total["K6"]})
-            profile_call(torch, lambda: infer.run_inference(cfg, model, fstate, requests[-1:],
+            profile_call(torch, lambda: infer.run_inference(cfg, model, fstate, requests[3:4],
                                                             vocab=vocab, device=dev),
                          "one 16 s conformer request")
-        b = requests[-1]
-        audio = torch.as_tensor(b.audio, device=dev)
-        alen = torch.as_tensor(b.audio_lengths, device=dev, dtype=torch.long)
+        # the 16 s request's logits (and the conformer's 33 s request's) on
+        # the kernel path against the plain path
+        for b, T in ((requests[3], K6_T), *(((requests[4], 825),) if len(requests) > 4 else ())):
+            audio = torch.as_tensor(b.audio, device=dev)
+            alen = torch.as_tensor(b.audio_lengths, device=dev, dtype=torch.long)
 
-        def logits():
-            with torch.inference_mode():
-                return model(*compute_features(audio, alen, fstate, cfg.frontend))
+            def logits():
+                with torch.inference_mode():
+                    return model(*compute_features(audio, alen, fstate, cfg.frontend))
 
-        lk, nk = logits()
-        with plain_versions():
-            lp, npl = logits()
-        check(lk.shape == (b.audio.shape[0], K6_T, cfg.dim_output),
-              f"{encoder} logits shape {tuple(lk.shape)}")
-        check(bool(torch.isfinite(lk).all()) and bool(torch.equal(nk, npl)),
-              f"{encoder}: non-finite logits or lengths differ")
-        err = float((lk - lp).abs().max())
-        check(err <= 5e-2, f"{encoder}: kernel-path logits max|d| {err:.3e} > 5e-2")
-        print(f"  {encoder} logits kernel path vs plain path, bf16: max|d| {err:.3e} (tol 5e-2)",
-              flush=True)
-
+            lk, nk = logits()
+            with plain_versions():
+                lp, npl = logits()
+            check(lk.shape == (b.audio.shape[0], T, cfg.dim_output),
+                  f"{encoder} logits shape {tuple(lk.shape)}")
+            check(bool(torch.isfinite(lk).all()) and bool(torch.equal(nk, npl)),
+                  f"{encoder}: non-finite logits or lengths differ")
+            err = float((lk - lp).abs().max())
+            check(err <= 5e-2, f"{encoder} T={T}: kernel-path logits max|d| {err:.3e} > 5e-2")
+            print(f"  {encoder} logits T={T} kernel path vs plain path, bf16: max|d| {err:.3e} "
+                  f"(tol 5e-2)", flush=True)
 
 
 def _gru_problem(torch, gen, T: int, rows: int, H: int, dt):
@@ -1581,23 +1621,22 @@ def phase_train_k5_k6(torch, np, results: dict) -> None:
             results[f"K8:{what}:{dtype}"] = dict(max_abs_err=l_err, ms=ms_l, plain_ms=plain_l,
                                                  bound_ms=bms_l, bound_by=by_l, library_ms=lib)
 
-    # ---- K6-bwd: B=32, T=400, 8 x 64, keys of a 12-16 s bucket
-    B, T, Hh, dh = K6_B, K6_T, K6_HEADS, K6_DH
-    D = Hh * dh
-    lengths = torch.randint(3 * T // 4, T + 1, (B,), device=dev, generator=gen)
-    lengths[0], lengths[1] = T, 1  # a full row and a row with one valid key
-    kmask = (torch.arange(T, device=dev)[None] < lengths[:, None]).to(torch.int32)[:, None]
-    qkv = [torch.randn(B, T, D, device=dev, generator=gen) for _ in range(3)]
-    doutf = torch.randn(B, T, D, device=dev, generator=gen)
-    bias = (0.3 * torch.randn(Hh, T, T, device=dev, generator=gen)).to(torch.bfloat16).float()
-    for what, dtype, b in (("bias", "bfloat16", bias), ("nobias", "bfloat16", None),
-                           ("f32", "float32", bias)):
+    # ---- K6-bwd: B=32, T=400, 8 x 64, keys of a 12-16 s bucket; T=832
+    B, Hh, dh = K6_B, K6_HEADS, K6_DH
+    problems = {T: attention_problem(torch, gen, T) for T in (K6_T, K6_LONG_T)}
+    for what, T, dtype, with_bias in (("bias", K6_T, "bfloat16", True),
+                                      ("nobias", K6_T, "bfloat16", False),
+                                      ("f32", K6_T, "float32", True),
+                                      ("bias:832", K6_LONG_T, "bfloat16", True)):
+        lengths, kmask, qkv, doutf, bias = problems[T]
+        b = bias if with_bias else None
         dt = getattr(torch, dtype)
         q, k, v = (x.to(dt).contiguous() for x in qkv)
         out, lse = k6.mhsa_fwd_cuda(q, k, v, b, kmask, Hh)
         dout = doutf.to(dt)
         args = (q, k, v, b, kmask, out, lse, dout, Hh)
         got = k6.mhsa_bwd_cuda(*args)
+        again = k6.mhsa_bwd_cuda(*args)
         ref = k6.mhsa_bwd_reference(*args)
         torch.cuda.synchronize()
         # relative to each tensor's largest magnitude: bf16 2e-2 (p and t
@@ -1607,16 +1646,19 @@ def phase_train_k5_k6(torch, np, results: dict) -> None:
                 for a, r in zip(got, ref) if r is not None]
         err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref)
                   if r is not None)
+        same = b is None or bool(torch.equal(got[3], again[3]))
         print(f"K6-bwd     {what:8s} B={B} T={T} heads={Hh} dh={dh} {dtype}: max|d|/max|ref| "
               f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e}"
-              + (f" d_bias {errs[3]:.3e}" if b is not None else "") + f" (tol {rel})",
-              flush=True)
+              + (f" d_bias {errs[3]:.3e}, bit-equal over two launches: {same}"
+                 if b is not None else "") + f" (tol {rel})", flush=True)
         check(all(bool(torch.isfinite(a.float()).all()) for a in got if a is not None),
               f"K6-bwd {what}: non-finite output")
         check(max(errs) <= rel, f"K6-bwd {what}: max|d|/max|ref| {max(errs):.3e} > {rel}")
+        check(same, f"K6-bwd {what}: d_bias differs between two launches")
         ms = cuda_ms(torch, lambda: k6.mhsa_bwd_cuda(*args), 10)
         plain = cuda_ms(torch, lambda: k6.mhsa_bwd_reference(*args), 2)
         es = 2 if dtype == "bfloat16" else 4
+        D = Hh * dh
         nbytes = (es * 8 * B * T * D + (2 * 4 * Hh * T * T if b is not None else 0) + 4 * B * T
                   + 4 * B * Hh * T)
         keys = int(lengths.sum())  # every query row attends over its row's valid keys
@@ -1626,10 +1668,7 @@ def phase_train_k5_k6(torch, np, results: dict) -> None:
         qh, kh, vh = (x.view(B, T, Hh, dh).transpose(1, 2).contiguous().requires_grad_()
                       for x in (q, k, v))
         gh = dout.view(B, T, Hh, dh).transpose(1, 2).contiguous()
-        fmask = torch.where(kmask[:, :, None, :] > 0, 0.0, -1e30)
-        if b is not None:
-            fmask = fmask + b[None]
-        fmask = fmask.to(dt)
+        fmask = sdpa_mask(torch, kmask, b, dt)
 
         def sdpa():
             return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=fmask)
@@ -1640,6 +1679,7 @@ def phase_train_k5_k6(torch, np, results: dict) -> None:
               f"{fwd:.4f}) bound {bms:.4f} ms ({by})", flush=True)
         results[f"K6-bwd:{what}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                                          bound_by=by, library_ms=lib)
+        del fmask, got, again, ref, qh, kh, vh
 
 
 def encoder_train_config(encoder: str):
@@ -1658,7 +1698,8 @@ def phase_encoder_train(torch, np, launches: dict) -> None:
     """The training paths of the recurrent and attention encoders at full
     width through CTCTrainer: a set-up step, then one step per bucket with
     its exact launch counts, one lc_bigru step with the linear backward,
-    a profile of one 12 s (lc_bigru) and one 16 s (conformer) step, and the
+    a profile of one 12 s (lc_bigru) and one 16 s (conformer, transformer)
+    step, and the
     first step's loss and gradients on the kernel path against the plain
     path."""
     from uasr_torch import train
@@ -1763,7 +1804,7 @@ def phase_encoder_train(torch, np, launches: dict) -> None:
             launches["K8"] = counts["K8"]
         check(all(bool(torch.isfinite(p).all()) for p in state.params.values()),
               f"{encoder}: non-finite parameters after training")
-        if encoder in ("lc_bigru", "conformer"):
+        if encoder in ("lc_bigru", "conformer", "transformer"):
             profile_call(torch, lambda: step(batches[-1]),
                          f"one {batches[-1].audio.shape[1] / sr:.0f} s {encoder} training step")
         compare_first_step(torch, cfg, init_params, trainer.to_device(batches[-1]),

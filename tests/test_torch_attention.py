@@ -5,7 +5,8 @@ uasr_torch.models.layers.MultiHeadAttention) and attention encoders
 K6's plain version is held against the JAX package's
 fused_dot_product_attention in interpret mode (out f32 5e-6, as
 tests/test_pallas_attention.py holds the kernel to flax) and its lse
-against the Pallas forward; the plain attention against flax's
+against the Pallas forward, and at Tp = 832 with K6-bwd's plain version
+against jax.grad of the Pallas core; the plain attention against flax's
 nn.dot_product_attention; the encoders' logits against the JAX encoders
 on converted weights, attn_pallas on (the Pallas kernel in interpret mode
 via UASR_PALLAS_ATTN, K6's plain version here) and off (f32 2e-4, the JAX
@@ -89,6 +90,37 @@ def test_attention_core_out_and_lse_match_pallas(with_bias, dtype):
     tol = 5e-6 if dtype == "float32" else 1e-2
     np.testing.assert_allclose(to.float().numpy(), np.asarray(jo, np.float32), rtol=0, atol=tol)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=5e-6)
+
+
+def test_plain_versions_match_pallas_past_the_old_length_cap():
+    """K6's and K6-bwd's plain versions at Tp = 832 (33 s of audio, past
+    the 552 that an earlier K6 kept whole in shared memory) against the Pallas
+    forward and jax.grad of _attn_core (interpret): B = 2, 2 heads of 16,
+    f32, a bias, a row with 500 valid keys. The card holds K6 and K6-bwd
+    against these plain versions at the same length. Bars: out and lse
+    5e-6; dq, dk, dv and d_bias 1e-5 of each tensor's largest magnitude."""
+    from uasr.ops.pallas_attention import _attn_core
+
+    rng = np.random.RandomState(832)
+    B, Tp, H, dh = 2, 832, 2, 16
+    q, k, v, w = (rng.randn(B, Tp, H * dh).astype(np.float32) for _ in range(4))
+    bias = (0.3 * rng.randn(H, Tp, Tp)).astype(np.float32)
+    kmask = (np.arange(Tp)[None] < np.array([Tp, 500])[:, None]).astype(np.int32)[:, None]
+    jo, jl = pallas_attn_fwd(*(jnp.asarray(x) for x in (q, k, v, bias, kmask)), H, True, True)
+
+    def loss(*args):
+        return jnp.sum(_attn_core(*args, jnp.asarray(kmask), H, True, True) * w)
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(x) for x in (q, k, v, bias)))
+    tq, tk, tv, tb, tm = (torch.tensor(x) for x in (q, k, v, bias, kmask))
+    to, tl = cuda_attention.mhsa_fwd_reference(tq, tk, tv, tb, tm, H)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=0, atol=5e-6)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=5e-6)
+    got = cuda_attention.mhsa_bwd_reference(tq, tk, tv, tb, tm, to, tl, torch.tensor(w), H)
+    for g, jg, name in zip(got, want, ["dq", "dk", "dv", "dbias"]):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(g.numpy(), jg, rtol=0, atol=1e-5 * float(np.abs(jg).max()),
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

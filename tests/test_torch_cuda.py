@@ -514,8 +514,11 @@ def _attn_problem(dev, B, T, H, dh, seed, dtype):
 
 
 # T = 8 (the padded T = 1), a ragged T padded to 40, T = 400 (the slice's
-# 16 s request) with 8 heads of 64, every head size K6 takes
-ATTN_CASES = [(2, 8, 2, 16), (3, 40, 2, 32), (3, 128, 4, 64), (2, 400, 8, 64), (2, 64, 2, 128)]
+# 16 s request) with 8 heads of 64, every head size K6 takes, and lengths
+# past the 552 that K6 once kept whole in shared memory: Tp = 640, 832 (33 s
+# of audio) and 1024 (once refused)
+ATTN_CASES = [(2, 8, 2, 16), (3, 40, 2, 32), (3, 128, 4, 64), (2, 400, 8, 64), (2, 64, 2, 128),
+              (2, 640, 2, 64), (2, 832, 8, 64), (1, 1024, 1, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -563,10 +566,6 @@ def test_attention_kernel_rejects_bad_input(dev):
     with pytest.raises(ValueError, match="multiple of 8"):
         cuda_attention.mhsa_fwd_cuda(q[:, :12].contiguous(), k[:, :12].contiguous(),
                                      v[:, :12].contiguous(), None, kmask[..., :12], 2)
-    with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros(1, 1024, 64, device=dev)
-        cuda_attention.mhsa_fwd_cuda(big, big, big, None,
-                                     torch.ones(1, 1, 1024, dtype=torch.int32, device=dev), 1)
     with pytest.raises(ValueError, match="kmask"):
         cuda_attention.mhsa_fwd_cuda(q, k, v, None, kmask.float(), 2)
     with pytest.raises(ValueError, match="bias"):
@@ -675,12 +674,12 @@ def _attn_bwd_problem(dev, B, T, H, dh, seed, dtype):
 
 
 # T = 8 (the padded T = 1); a padded T = 40; T = 400 with 8 heads of 64 (the
-# slice's 16 s batch, at B = 2); Tp = 640, beyond K6's shared-memory limit
-# (the backward has none); every head size. The last row has one valid key:
+# slice's 16 s batch, at B = 2); Tp = 640 and 832 (33 s), past K6's old
+# shared-memory limit; every head size. The last row has one valid key:
 # its p is one-hot, so its t, dq and dk are rounding noise, and the full
 # first row sets each tensor's scale.
 ATTN_BWD_CASES = [(2, 8, 2, 16), (3, 40, 2, 32), (2, 400, 8, 64), (2, 640, 2, 64),
-                  (2, 64, 2, 128)]
+                  (2, 64, 2, 128), (2, 832, 8, 64)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -709,16 +708,17 @@ def test_attention_bwd_kernel_matches_plain(dev, B, Tp, H, dh, with_bias, dtype)
 
 
 def test_attention_grads_on_card_as_on_cpu(dev):
-    """T = 1 and T = 37 through the wrapper's padding, with the conformer's
-    bias and a key mask: d(q, k, v, bias) on the card (K6 + K6-bwd) against
-    the CPU (plain versions), f32."""
+    """T = 1, T = 37 and T = 830 (padded to 832, 33 s of audio) through the
+    wrapper's padding, with the conformer's bias and a key mask: the output
+    and d(q, k, v, bias) on the card (K6 + K6-bwd) against the CPU (plain
+    versions), f32."""
     from uasr_torch.ops import cuda_attention
 
-    for T in (1, 37):
+    for T in (1, 37, 830):
         q, k, v, kmask, bias = _attn_problem(dev, 3, T, 2, 16, T, torch.float32)
         w = torch.randn(3, T, 2, 16, device=dev, generator=torch.Generator(device=dev)
                         .manual_seed(T))
-        grads = []
+        outs, grads = [], []
         for d in (dev, torch.device("cpu")):
             before = cuda_attention.LAUNCHES_ATTN_BWD
             leaves = [x.reshape(3, T, 2, 16).to(d).requires_grad_() for x in (q, k, v)]
@@ -727,9 +727,28 @@ def test_attention_grads_on_card_as_on_cpu(dev):
                                                              mask=(kmask[:, :, None, :] > 0).to(d))
             (out * w.to(d)).sum().backward()
             assert cuda_attention.LAUNCHES_ATTN_BWD - before == (d.type == "cuda")
+            outs.append(out.detach().cpu())
             grads.append([x.grad.cpu() for x in (*leaves, b)])
+        assert float((outs[0] - outs[1]).abs().max()) <= 1e-5
         for a, r in zip(*grads):
             assert float((a - r).abs().max()) <= 1e-4 * max(1.0, float(r.abs().max()))
+
+
+@pytest.mark.parametrize("B,Tp", [(2, 8), (9, 400), (32, 832)])
+def test_attention_bwd_dbias_is_deterministic(dev, B, Tp):
+    """Two K6-bwd launches give bit-identical d_bias: each batch group's
+    partial is summed in a fixed order and the groups are added in order,
+    with no atomics (one group at B = 2, several at B = 9 and 32)."""
+    from uasr_torch.ops import cuda_attention
+
+    q, k, v, kmask, bias, out, lse, dout = _attn_bwd_problem(dev, B, Tp, 2, 64, Tp + B,
+                                                             torch.bfloat16)
+    runs = [cuda_attention.mhsa_bwd_cuda(q, k, v, bias, kmask, out, lse, dout, 2)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][3], runs[1][3])
+    ref = cuda_attention.mhsa_bwd_reference(q, k, v, bias, kmask, out, lse, dout, 2)[3]
+    assert float((runs[0][3] - ref).abs().max()) <= 2e-2 * float(ref.abs().max())
 
 
 def test_attention_bwd_kernel_rejects_bad_input(dev):

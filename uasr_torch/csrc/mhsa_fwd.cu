@@ -14,35 +14,40 @@
 //   m = rowmax(s);  e = exp(s - m);  l = sum(e)  (f32)
 //   o = e.to(q dtype) @ v_h  (f32 accumulation);  out = (o / l).to(q dtype)
 //   lse = m + log(l)
-// The row max is exact (all scores of a row sit in shared memory before
-// any exp), so e is rounded against the same m as on the TPU; an online
-// softmax would round it against a running max.
 //
-// Design: one CTA of 256 threads per (query tile of QT = 32 rows, head,
-// batch row). The CTA stages the tile's queries and then all Tp keys of
-// its head (f32, rows padded to dh + 4 floats so neighbouring rows fall on
-// other banks), computes the [QT, Tp] scores into shared memory (a thread
-// per key, its QT dot products against broadcast query rows), takes each
-// row's max, exp and sum with one warp per row, restages the buffer with
-// V_h, and forms o with each thread holding QT * dh / 256 outputs of one
-// column. Shared memory: Tp (dh + 4) + QT dh + QT Tp floats, so Tp is
-// bounded (512 at dh = 64); the wrapper refuses more.
+// Design: one CTA of one warpgroup per (batch row, 64-row query tile,
+// head); the batch row is the fastest grid axis, so the CTAs resident
+// together read the same bias rows [h, tile, :] and share them in L2. Keys
+// come in tiles of 64 through a two-stage cp.async ring
+// (mhsa_tiles.cuh), so shared memory does not grow with Tp and any Tp
+// that is a multiple of 8 runs. The row max must be exact before any exp
+// (an online softmax would round e against a running max and drift from
+// the TPU in bf16), so the CTA makes two passes over the keys: pass 1
+// forms S = Q K^T (wgmma, f32), scale, bias and mask and keeps the row
+// max; pass 2 forms S again and e = exp(s - m), sums l, rounds e to bf16
+// in registers and accumulates O += e V on wgmma against that fixed max,
+// with no rescaling. Keys past Tp in the last tile are dropped (score
+// -inf, e = 0), not masked with -1e30, so a row whose keys are all masked
+// still averages over exactly Tp keys. f32 runs the same two passes with
+// the products on CUDA cores (mhsa_tiles.cuh's Ops<float>).
 //
-// Bound: 4 B H Tp^2 dh operations on bf16 inputs against ~4 B Tp H dh
-// bytes: operations, on tensor cores. This kernel runs them on CUDA cores
-// in f32; wgmma for QK^T and PV is later work.
+// Bound: 4 B H Tp^2 dh operations on bf16 inputs (6 with the second QK^T
+// pass) against 4 B Tp H dh elements plus the H Tp^2 f32 bias: bytes at
+// B = 32, Tp = 400, 8 x 64 (~58 MB against ~10.5 GFLOP on the tensor
+// cores). The bias is read twice per CTA from L2; K and V once per query
+// tile.
 
-#include "common.cuh"
+#include "mhsa_tiles.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int QT = 32;  // query rows per CTA
-constexpr float NEG = -1e30f;
+using namespace mhsa;
 
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
+template <typename T, int DH>
+constexpr size_t fwd_smem() {
+  // Q, the stages of K, V and the key mask, P staging (f32)
+  using O = Ops<T, DH>;
+  return (1 + 2 * STAGES) * O::TILE_BYTES + STAGES * TILE * sizeof(int) + O::SCRATCH_BYTES;
 }
 
 template <typename T, int DH>
@@ -50,121 +55,121 @@ __global__ void __launch_bounds__(THREADS)
 mhsa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const int* __restrict__ kmask, const float* __restrict__ bias, T* out,
                 float* lse, int Tp, int H, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int KS = DH + 4;  // padded row of the K / V buffer
-  const int q0 = blockIdx.x * QT;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int D = H * DH;
-  const int SS = Tp;  // score row stride (Tp is a multiple of 8)
-  float* kv_s = smem;                        // [Tp][KS] K_h, then V_h
-  float* q_s = kv_s + (size_t)Tp * KS;       // [QT][DH]
-  float* s_s = q_s + QT * DH;                // [QT][Tp] scores, then e
-  float* madd_s = s_s + (size_t)QT * SS;     // [Tp] 0 or -1e30
-  float* ml_s = madd_s + Tp;                 // [QT][2] row max and sum
-  const int nq = min(QT, Tp - q0);
+  using O = Ops<T, DH>;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* q_s = smem;
+  uint8_t* k_s = q_s + O::TILE_BYTES;           // [STAGES]
+  uint8_t* v_s = k_s + STAGES * O::TILE_BYTES;  // [STAGES]
+  int* km_s = reinterpret_cast<int*>(v_s + STAGES * O::TILE_BYTES);  // [STAGES][TILE]
+  float* scratch = reinterpret_cast<float*>(km_s + STAGES * TILE);
+
+  const int b = blockIdx.x, q0 = blockIdx.y * TILE, h = blockIdx.z;
+  const int D = H * DH, nkt = (Tp + TILE - 1) / TILE, steps = 2 * nkt;
   const size_t base = (size_t)b * Tp * D + (size_t)h * DH;
+  const int* km_b = kmask + (size_t)b * Tp;
+  const float* bias_h = bias ? bias + (size_t)h * Tp * Tp : nullptr;
+  const Frag f;
+  const int row0 = q0 + f.r0, row1 = row0 + 8;
 
-  for (int i = threadIdx.x; i < QT * DH; i += THREADS) {
-    const int r = i / DH, c = i - r * DH;
-    q_s[i] = r < nq ? to_f32(q[base + (size_t)(q0 + r) * D + c]) : 0.f;
-  }
-  for (int i = threadIdx.x; i < Tp * DH; i += THREADS) {
-    const int r = i / DH, c = i - r * DH;
-    kv_s[r * KS + c] = to_f32(k[base + (size_t)r * D + c]);
-  }
-  for (int j = threadIdx.x; j < Tp; j += THREADS)
-    madd_s[j] = kmask[(size_t)b * Tp + j] > 0 ? 0.f : NEG;
-  __syncthreads();
+  // step s < nkt: pass 1, key tile s; s >= nkt: pass 2, key and value tile s - nkt
+  auto load_step = [&](int step) {
+    if (step < steps) {
+      const int st = step % STAGES, k0 = (step % nkt) * TILE;
+      O::load(k_s + st * O::TILE_BYTES, k + base + (size_t)k0 * D, D, Tp - k0);
+      if (step >= nkt) O::load(v_s + st * O::TILE_BYTES, v + base + (size_t)k0 * D, D, Tp - k0);
+      load_row_chunk(km_s + st * TILE, km_b + k0, Tp - k0);
+    }
+    cp_commit();
+  };
 
-  // scores: thread per key j, all QT rows
-  const float* bh = bias ? bias + ((size_t)h * Tp + q0) * Tp : nullptr;
-  for (int j = threadIdx.x; j < Tp; j += THREADS) {
-    float acc[QT];
+  O::load(q_s, q + base + (size_t)q0 * D, D, Tp - q0);  // joins step 0's group
+  for (int i = 0; i < STAGES - 1; ++i) load_step(i);
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float o[DH / 2];
 #pragma unroll
-    for (int i = 0; i < QT; ++i) acc[i] = 0.f;
-    const float* kr = kv_s + j * KS;
-#pragma unroll 4
-    for (int c = 0; c < DH; c += 4) {
-      const float4 k4 = *reinterpret_cast<const float4*>(kr + c);
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+
+  for (int step = 0; step < steps; ++step) {
+    load_step(step + STAGES - 1);
+    cp_wait<STAGES - 1>();
+    fence_async_smem();
+    __syncthreads();
+    const int st = step % STAGES, k0 = (step % nkt) * TILE;
+    float s[32];
+    O::begin(s);
+    O::nt(s, q_s, k_s + st * O::TILE_BYTES);
+    O::commit();
+    // this thread's bias pairs, loaded while the product runs
+    float2 bv[16];
 #pragma unroll
-      for (int i = 0; i < QT; ++i) {
-        const float4 q4 = *reinterpret_cast<const float4*>(q_s + i * DH + c);
-        acc[i] = fmaf(q4.x, k4.x, acc[i]);
-        acc[i] = fmaf(q4.y, k4.y, acc[i]);
-        acc[i] = fmaf(q4.z, k4.z, acc[i]);
-        acc[i] = fmaf(q4.w, k4.w, acc[i]);
+    for (int j = 0; j < 8; ++j) {
+      const int col = k0 + 8 * j + f.c;
+      const bool ok = bias_h && col < Tp;
+      bv[2 * j] = ok && row0 < Tp
+                      ? *reinterpret_cast<const float2*>(bias_h + (size_t)row0 * Tp + col)
+                      : make_float2(0.f, 0.f);
+      bv[2 * j + 1] = ok && row1 < Tp
+                          ? *reinterpret_cast<const float2*>(bias_h + (size_t)row1 * Tp + col)
+                          : make_float2(0.f, 0.f);
+    }
+    O::wait(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + f.c + e;
+        const float madd = k0 + col < Tp ? (km_s[st * TILE + col] > 0 ? 0.f : NEG) : -INFINITY;
+        const float b0 = e ? bv[2 * j].y : bv[2 * j].x, b1 = e ? bv[2 * j + 1].y : bv[2 * j + 1].x;
+        s[4 * j + e] = __fadd_rn(__fadd_rn(__fmul_rn(s[4 * j + e], scale), b0), madd);
+        s[4 * j + 2 + e] = __fadd_rn(__fadd_rn(__fmul_rn(s[4 * j + 2 + e], scale), b1), madd);
       }
-    }
-    const float ma = madd_s[j];
+    if (step < nkt) {
 #pragma unroll
-    for (int i = 0; i < QT; ++i) {
-      float sc = acc[i] * scale;
-      if (bh && i < nq) sc += bh[(size_t)i * Tp + j];
-      s_s[i * SS + j] = sc + ma;
+      for (int j = 0; j < 8; ++j) {
+        m0 = fmaxf(m0, fmaxf(s[4 * j], s[4 * j + 1]));
+        m1 = fmaxf(m1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+    } else {
+      if (step == nkt) {  // the quad's four threads hold one row
+        m0 = quad_max(m0);
+        m1 = quad_max(m1);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          s[4 * j + e] = expf(__fsub_rn(s[4 * j + e], m0));
+          s[4 * j + 2 + e] = expf(__fsub_rn(s[4 * j + 2 + e], m1));
+          l0 += s[4 * j + e];
+          l1 += s[4 * j + 2 + e];
+        }
+      typename O::PFrag pf;
+      O::round_frag(pf, s);
+      O::begin(o);
+      O::rs(o, pf, v_s + st * O::TILE_BYTES, scratch);
+      O::commit();
+      O::wait(o);
     }
+    __syncthreads();  // stage st is refilled at the next step
   }
-  __syncthreads();
 
-  // softmax statistics, one warp per row: exact max first, then
-  // e = exp(s - m) summed in f32 and stored rounded to q's dtype
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = warp; i < QT; i += THREADS / 32) {
-    float* row = s_s + i * SS;
-    float m = -INFINITY;
-    for (int j = lane; j < Tp; j += 32) m = fmaxf(m, row[j]);
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
 #pragma unroll
-    for (int o = 16; o > 0; o /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    float l = 0.f;
-    for (int j = lane; j < Tp; j += 32) {
-      const float e = expf(row[j] - m);
-      l += e;
-      row[j] = round_to<T>(e);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) l += __shfl_xor_sync(0xffffffffu, l, o);
-    if (lane == 0) {
-      ml_s[2 * i] = m;
-      ml_s[2 * i + 1] = l;
-    }
+  for (int j = 0; j < DH / 8; ++j) {
+    const size_t col = base + 8 * j + f.c;
+    if (row0 < Tp)
+      store_pair(out + col + (size_t)row0 * D, __fdiv_rn(o[4 * j], l0),
+                 __fdiv_rn(o[4 * j + 1], l0));
+    if (row1 < Tp)
+      store_pair(out + col + (size_t)row1 * D, __fdiv_rn(o[4 * j + 2], l1),
+                 __fdiv_rn(o[4 * j + 3], l1));
   }
-  __syncthreads();  // K_h no longer read: restage the buffer with V_h
-  for (int i = threadIdx.x; i < Tp * DH; i += THREADS) {
-    const int r = i / DH, c = i - r * DH;
-    kv_s[r * KS + c] = to_f32(v[base + (size_t)r * D + c]);
+  if (threadIdx.x % 4 == 0) {
+    float* lse_bh = lse + ((size_t)b * H + h) * Tp;
+    if (row0 < Tp) lse_bh[row0] = m0 + logf(l0);
+    if (row1 < Tp) lse_bh[row1] = m1 + logf(l1);
   }
-  __syncthreads();
-
-  // o = e @ V_h: thread owns column d of rows rg, rg + NG, ...
-  constexpr int NG = THREADS / DH;  // row groups
-  constexpr int RPT = QT / NG;      // rows per thread
-  const int d = threadIdx.x % DH, rg = threadIdx.x / DH;
-  float o[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) o[r] = 0.f;
-  for (int j = 0; j < Tp; j += 4) {
-    const float v0 = kv_s[(j + 0) * KS + d], v1 = kv_s[(j + 1) * KS + d];
-    const float v2 = kv_s[(j + 2) * KS + d], v3 = kv_s[(j + 3) * KS + d];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float4 e4 = *reinterpret_cast<const float4*>(s_s + (rg + r * NG) * SS + j);
-      o[r] = fmaf(e4.x, v0, o[r]);
-      o[r] = fmaf(e4.y, v1, o[r]);
-      o[r] = fmaf(e4.z, v2, o[r]);
-      o[r] = fmaf(e4.w, v3, o[r]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int i = rg + r * NG;
-    if (i < nq) out[base + (size_t)(q0 + i) * D + d] = from_f32<T>(o[r] / ml_s[2 * i + 1]);
-  }
-  for (int i = threadIdx.x; i < nq; i += THREADS)
-    lse[((size_t)b * H + h) * Tp + q0 + i] = ml_s[2 * i] + logf(ml_s[2 * i + 1]);
-}
-
-template <int DH>
-size_t smem_bytes(int Tp) {
-  return ((size_t)Tp * (DH + 4) + QT * DH + (size_t)QT * Tp + Tp + 2 * QT) * sizeof(float);
 }
 
 template <typename T, int DH>
@@ -172,10 +177,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* kmask
                    const float* bias, void* out, float* lse, int B, int Tp, int H, float scale,
                    cudaStream_t stream) {
   auto kernel = mhsa_fwd_kernel<T, DH>;
-  const size_t smem = smem_bytes<DH>(Tp);
+  constexpr size_t smem = fwd_smem<T, DH>();
   cudaError_t e = uasr_set_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((Tp + QT - 1) / QT, H, B);
+  const dim3 grid(B, (Tp + TILE - 1) / TILE, H);
   kernel<<<grid, THREADS, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                           static_cast<const T*>(v), kmask, bias,
                                           static_cast<T*>(out), lse, Tp, H, scale);
@@ -197,17 +202,6 @@ cudaError_t dispatch(int dh, const void* q, const void* k, const void* v, const 
 
 }  // namespace
 
-// Shared memory (bytes) one CTA needs at (dh, Tp); 0 for an unsupported dh.
-UASR_EXPORT long long uasr_mhsa_smem(int dh, int Tp) {
-  switch (dh) {
-    case 16: return (long long)smem_bytes<16>(Tp);
-    case 32: return (long long)smem_bytes<32>(Tp);
-    case 64: return (long long)smem_bytes<64>(Tp);
-    case 128: return (long long)smem_bytes<128>(Tp);
-  }
-  return 0;
-}
-
 // q, k, v, out [B, Tp, H * dh] of `dtype` (UASR_F32 or UASR_BF16); kmask
 // [B, 1, Tp] int32; bias [H, Tp, Tp] f32 or null; lse [B, H, Tp] f32.
 // Tp must be a multiple of 8 and dh one of 16, 32, 64, 128; scale is
@@ -217,9 +211,10 @@ UASR_EXPORT int uasr_mhsa_fwd(const void* q, const void* k, const void* v, const
                               int dh, float scale, int dtype, void* stream, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  if (B < 1 || H < 1 || Tp < 8 || Tp % 8) return cudaErrorInvalidValue;
+  if (B < 1 || H < 1 || H > 65535 || Tp < 8 || Tp % 8) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == UASR_F32) return dispatch<float>(dh, q, k, v, kmask, bias, out, lse, B, Tp, H, scale, s);
+  if (dtype == UASR_F32)
+    return dispatch<float>(dh, q, k, v, kmask, bias, out, lse, B, Tp, H, scale, s);
   if (dtype == UASR_BF16)
     return dispatch<__nv_bfloat16>(dh, q, k, v, kmask, bias, out, lse, B, Tp, H, scale, s);
   return cudaErrorInvalidValue;

@@ -35,7 +35,6 @@ LAUNCHES_ATTN_BWD = 0  # K6-bwd launches by mhsa_bwd_cuda
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 NEG = -1e30
 
 
@@ -76,8 +75,6 @@ def _lib() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.uasr_mhsa_fwd.argtypes = [P] * 7 + [I] * 4 + [ctypes.c_float, I, P, I]
     lib.uasr_mhsa_fwd.restype = I
-    lib.uasr_mhsa_smem.argtypes = [I, I]
-    lib.uasr_mhsa_smem.restype = ctypes.c_longlong
     return lib
 
 
@@ -103,6 +100,9 @@ def _check_attn(what, q, tensors, bias, kmask, num_heads: int) -> None:
     if bias is not None and (bias.shape != (H, Tp, Tp) or bias.dtype != torch.float32
                              or bias.device != q.device or not bias.is_contiguous()):
         raise ValueError(f"{what}: bias must be contiguous float32 {(H, Tp, Tp)}")
+    # the kernels copy 16-byte chunks (cp.async)
+    if any(t.data_ptr() % 16 for t in (*tensors, kmask, *([] if bias is None else [bias]))):
+        raise ValueError(f"{what}: every tensor must start on a 16-byte boundary")
 
 
 def mhsa_fwd_cuda(q, k, v, bias, kmask, num_heads: int):
@@ -111,17 +111,14 @@ def mhsa_fwd_cuda(q, k, v, bias, kmask, num_heads: int):
     B, Tp, D = q.shape
     H = num_heads
     dt = q.dtype
+    kmask = kmask.contiguous()
     _check_attn("attention kernel", q, (q, k, v), bias, kmask, H)
     lib = _lib()
-    smem = lib.uasr_mhsa_smem(D // H, Tp)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"attention kernel: length {Tp} at head size {D // H} needs {smem} B of "
-                         f"shared memory, above the {SMEM_LIMIT} B a block may use")
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Tp, dtype=torch.float32, device=q.device)
     dev = q.device
     code = lib.uasr_mhsa_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), kmask.contiguous().data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kmask.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Tp, H,
         D // H, _scale(D // H), _DTYPES[dt], torch.cuda.current_stream(dev).cuda_stream,
         dev.index if dev.index is not None else torch.cuda.current_device(),
@@ -174,8 +171,10 @@ def mhsa_bwd_reference(q, k, v, bias, kmask, out, lse, dout, num_heads: int):
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("mhsa_bwd")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.uasr_mhsa_bwd.argtypes = [P] * 13 + [I] * 4 + [ctypes.c_float, I, P, I]
+    lib.uasr_mhsa_bwd.argtypes = [P] * 14 + [I] * 4 + [ctypes.c_float, I, P, I]
     lib.uasr_mhsa_bwd.restype = I
+    lib.uasr_mhsa_bwd_groups.argtypes = [I] * 3
+    lib.uasr_mhsa_bwd_groups.restype = I
     return lib
 
 
@@ -184,20 +183,30 @@ def mhsa_bwd_cuda(q, k, v, bias, kmask, out, lse, dout, num_heads: int):
     global LAUNCHES_ATTN_BWD
     B, Tp, D = q.shape
     H = num_heads
+    kmask = kmask.contiguous()
     _check_attn("attention backward kernel", q, (q, k, v, out, dout), bias, kmask, H)
-    if lse.shape != (B, H, Tp) or lse.dtype != torch.float32 or not lse.is_contiguous():
+    if (lse.shape != (B, H, Tp) or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.data_ptr() % 16):
         raise ValueError(f"attention backward kernel: lse must be contiguous float32 "
                          f"{(B, H, Tp)}")
     dev = q.device
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    dbias = None if bias is None else torch.empty(H, Tp, Tp, dtype=torch.float32, device=dev)
     delta = torch.empty(B, H, Tp, dtype=torch.float32, device=dev)  # sum(do * o) per row
     lib = _lib_bwd()
+    dbias = part = None
+    if bias is not None:
+        # the dq pass's batch groups each sum their rows' d_bias; group 0
+        # into dbias, the others into `part`, added in order by the kernel
+        groups = lib.uasr_mhsa_bwd_groups(B, Tp, H)
+        dbias = torch.empty(H, Tp, Tp, dtype=torch.float32, device=dev)
+        if groups > 1:
+            part = torch.empty(groups - 1, H, Tp, Tp, dtype=torch.float32, device=dev)
     code = lib.uasr_mhsa_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        kmask.contiguous().data_ptr(), lse.data_ptr(), None if bias is None else bias.data_ptr(),
+        kmask.data_ptr(), lse.data_ptr(), None if bias is None else bias.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        None if dbias is None else dbias.data_ptr(), delta.data_ptr(), B, Tp, H, D // H,
+        None if dbias is None else dbias.data_ptr(), None if part is None else part.data_ptr(),
+        delta.data_ptr(), B, Tp, H, D // H,
         _scale(D // H), _DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream,
         dev.index if dev.index is not None else torch.cuda.current_device(),
     )
