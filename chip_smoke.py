@@ -63,9 +63,11 @@ and prints no result line):
    ``run_inference``, the conformer also on one request of 4 utterances
    up to 33 s (T = 825, padded to 832), transformer_layers K6 per
    request, logits against the plain path;
-10. K5's coefficient outputs, K5-bwd and K8 at the recurrent encoders'
-   training shapes (H=384: the 12 s forward GRU T=300 B=64, the lc_bigru
-   backward windows T=24 B=1216) in f32 and bf16, and K6-bwd at the
+10. K5's coefficient outputs, K5-bwd (and its coefficient kernel alone)
+   and K8 at the recurrent encoders' training shapes (H=384: the 12 s
+   forward GRU T=300 B=64, the lc_bigru backward windows T=24 B=1216) in
+   f32 and bf16 with ragged lengths, and in f32 with every row live, as
+   cuDNN's yardstick runs, and K6-bwd at the
    attention encoders' (B=32, T=400, 8 heads of 64: bf16 with the
    conformer's bias and without, f32; T=832 bf16 with the bias), against
    their plain versions, d_bias bit-equal over two launches;
@@ -583,7 +585,8 @@ def _counters():
             "K2-bwd": (cuda_gru, "LAUNCHES_BWD"), "K3": (cuda_ctc, "LAUNCHES"),
             "K3-bwd": (cuda_ctc, "LAUNCHES_BWD"), "K4": (cuda_beam, "LAUNCHES"),
             "K5": (cuda_gru, "LAUNCHES_GRU"), "K6": (cuda_attention, "LAUNCHES_ATTN"),
-            "K5-bwd": (cuda_gru, "LAUNCHES_GRU_BWD"), "K8": (cuda_gru, "LAUNCHES_GRU_LIN"),
+            "K5-bwd": (cuda_gru, "LAUNCHES_GRU_BWD"),
+            "K5-bwd:coeffs": (cuda_gru, "LAUNCHES_GRU_COEFFS"), "K8": (cuda_gru, "LAUNCHES_GRU_LIN"),
             "K6-bwd": (cuda_attention, "LAUNCHES_ATTN_BWD")}
 
 
@@ -741,7 +744,7 @@ def phase_train(torch, np, launches: dict) -> None:
     print(f"  set-up step (16 s bucket): wall {(time.perf_counter() - t0) * 1e3:.2f} ms, "
           f"loss {loss:.4f}, grad_norm {gnorm:.4f}", flush=True)
     want = {"K1": 1, "K7": 0, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1, "K4": 0, "K5": 0,
-            "K6": 0, "K5-bwd": 0, "K8": 0, "K6-bwd": 0}
+            "K6": 0, "K5-bwd": 0, "K5-bwd:coeffs": 0, "K8": 0, "K6-bwd": 0}
     total = dict.fromkeys(want, 0)
     for b in batches:
         reset_launches()
@@ -944,7 +947,8 @@ def phase_stream(torch, np, launches: dict) -> None:
         dataclasses.replace(cfg, ctc=dataclasses.replace(cfg.ctc, use_beam=False)), model,
         device=dev)
     want_greedy = {"K1": 0, "K7": 1, "K2": 0, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0,
-                   "K5": 0, "K6": 0, "K5-bwd": 0, "K8": 0, "K6-bwd": 0}
+                   "K5": 0, "K6": 0, "K5-bwd": 0, "K5-bwd:coeffs": 0, "K8": 0,
+                   "K6-bwd": 0}
 
     def greedy_step(d):
         check(d == want_greedy, f"greedy step launches {d}, expected {want_greedy}")
@@ -1528,18 +1532,101 @@ def phase_attention(torch, np, launches: dict) -> None:
                   f"(tol 5e-2)", flush=True)
 
 
-def _gru_problem(torch, gen, T: int, rows: int, H: int, dt):
+def _gru_problem(torch, gen, T: int, rows: int, H: int, dt, full: bool = False):
     """K5's inputs at one group with ragged lengths (a full row, a row of
-    length 0), and a cotangent of ys."""
+    length 0), or every row live for all T steps (`full`), and a cotangent
+    of ys."""
     dev = torch.device(DEVICE)
     lengths = torch.randint(0, T + 1, (rows,), device=dev, generator=gen)
     lengths[0], lengths[-1] = T, 0
+    if full:
+        lengths.fill_(T)
     tmask = (torch.arange(T, device=dev)[:, None] < lengths[None])[:, None]  # [T, 1, B]
     xp = 0.5 * torch.randn(T, 1, rows, 3 * H, device=dev, generator=gen)
     wh = torch.randn(1, H, 3 * H, device=dev, generator=gen) / H ** 0.5
     bh = 0.1 * torch.randn(1, 3 * H, device=dev, generator=gen)
     dy = torch.randn(T, 1, rows, H, device=dev, generator=gen) / rows
     return tuple(x.to(dt).contiguous() for x in (xp, wh, bh)), tmask, dy.to(dt), lengths
+
+
+def gru_bwd_case(torch, gen, what: str, T: int, rows: int, H: int, dtype: str,
+                 full: bool = False) -> tuple:
+    """K5's coefficient outputs, K5-bwd (its coefficient kernel also alone)
+    and K8 at one shape against their plain versions, with their times,
+    bounds and cuDNN's GRU backward on the same shape. Returns the K5-bwd
+    and K8 result rows."""
+    from uasr_torch.models import cuda_gru as k5
+
+    dev = torch.device(DEVICE)
+    dt = getattr(torch, dtype)
+    args, tmask, dy, lengths = _gru_problem(torch, gen, T, rows, H, dt, full)
+    ys, c4, ch = k5.gru_scan_cuda(*args, tmask, save_coeffs=True)
+    r_ys, r_c4, r_ch = k5.gru_scan_reference(*args, tmask, save_coeffs=True)
+    got = k5.gru_scan_bwd_cuda(*args, tmask, ys, dy)
+    plan = k5.LAST_GRU_BWD_PLAN
+    ref = k5.gru_scan_bwd_reference(*args, tmask, ys, dy)
+    bc4, bch = k5.gru_bwd_coeffs_cuda(*args, tmask, ys)
+    r_bc4, r_bch = k5.gru_bwd_coeffs_reference(*args, tmask, ys)
+    lin = k5.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1])
+    plan_l = k5.LAST_GRU_BWD_PLAN
+    r_lin = k5.gru_scan_bwd_lin_reference(c4, ch, dy, args[1])
+    torch.cuda.synchronize()
+    # K2-bwd's bars: f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest
+    # reference value; K5's coefficients follow each side's own carry,
+    # which in bf16 may round an ulp apart (K5's bf16 bar); the backward's
+    # coefficient kernel reads the same ys as its plain version: f32 1e-5
+    tol = 1e-4 if dtype == "float32" else 2 ** -7
+    c_err = max(float((a.float() - r.float()).abs().max()) / max(
+        1.0, float(r.float().abs().max())) for a, r in ((c4, r_c4), (ch, r_ch)))
+    bc_err = max(float((a - r).abs().max()) for a, r in ((bc4, r_bc4), (bch, r_bch)))
+    bc_tol = 1e-5 if dtype == "float32" else 2 ** -7 * float(r_bc4.abs().max())
+    scale = max(float(r.float().abs().max()) for r in ref)
+    err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
+    l_scale = float(r_lin.float().abs().max())
+    l_err = float((lin.float() - r_lin.float()).abs().max())
+    zero = lengths == 0
+    tag = f"{what}:full" if full else what
+    print(f"K5-bwd/K8  {tag:13s} {dtype:8s} T={T} B={rows} H={H} (units/CTA, splits) K5-bwd "
+          f"{plan} K8 {plan_l}: K5 coefficients max|d|/max(1,|ref|) {c_err:.3e}; K5-bwd "
+          f"coefficient kernel max|d| {bc_err:.3e} (tol {bc_tol:.3e}); K5-bwd max|d| "
+          f"{err:.3e}, K8 {l_err:.3e}, largest |ref| {scale:.3e} / {l_scale:.3e} "
+          f"(tol {tol} x)", flush=True)
+    check(all(bool(torch.isfinite(a.float()).all()) for a in (*got, lin, c4, ch, bc4, bch)),
+          f"K5-bwd/K8 {tag} {dtype}: non-finite output")
+    check(c_err <= tol, f"K5 coefficients {tag} {dtype}: {c_err:.3e} > {tol}")
+    check(bc_err <= bc_tol, f"K5-bwd coefficient kernel {tag} {dtype}: {bc_err:.3e}")
+    check(err <= tol * max(scale, 1.0), f"K5-bwd {tag} {dtype}: max|d| {err:.3e}")
+    check(l_err <= tol * max(l_scale, 1.0), f"K8 {tag} {dtype}: max|d| {l_err:.3e}")
+    check(not any(bool(t[:, 0, zero].any()) for t in (*got, lin)),
+          f"K5-bwd/K8 {tag} {dtype}: a zero-length row got a gradient")
+    ms = cuda_ms(torch, lambda: k5.gru_scan_bwd_cuda(*args, tmask, ys, dy), 10)
+    ms_c = cuda_ms(torch, lambda: k5.gru_bwd_coeffs_cuda(*args, tmask, ys), 10)
+    ms_l = cuda_ms(torch, lambda: k5.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1]), 10)
+    plain = cuda_ms(torch, lambda: k5.gru_scan_bwd_reference(*args, tmask, ys, dy), 1)
+    plain_l = cuda_ms(torch, lambda: k5.gru_scan_bwd_lin_reference(c4, ch, dy, args[1]), 1)
+    es = 4 if dtype == "float32" else 2
+    steps = int(lengths.sum())  # row-steps the masks keep active
+    TB = T * rows
+    nbytes = es * (TB * 3 * H + H * 3 * H + 3 * H + 2 * TB * H + TB * 3 * H + TB * H) + 4 * TB
+    bms, by = bound(nbytes, 2 * 2 * steps * H * 3 * H, dtype)
+    nbytes_l = es * (TB * 4 * H + TB * H + H * 3 * H + TB * 4 * H) + 4 * TB * H
+    bms_l, by_l = bound(nbytes_l, 2 * steps * H * 3 * H, dtype)
+    # cuDNN's unidirectional GRU on the same unmasked shapes (input D = H):
+    # forward + backward minus forward
+    gru = torch.nn.GRU(H, H).to(device=dev, dtype=dt)
+    gru.flatten_parameters()
+    x = torch.randn(T, rows, H, device=dev, generator=gen).to(dt).requires_grad_()
+    gy = torch.randn(T, rows, H, device=dev, generator=gen).to(dt)
+    fwd = cuda_ms(torch, lambda: gru(x)[0], 10)
+    lib = cuda_ms(torch, lambda: gru(x)[0].backward(gy), 10) - fwd
+    print(f"  K5-bwd kernel {ms:.4f} ms (coefficient kernel alone {ms_c:.4f}) plain "
+          f"{plain:.4f} ms bound {bms:.4f} ms ({by}); K8 kernel {ms_l:.4f} ms plain "
+          f"{plain_l:.4f} ms bound {bms_l:.4f} ms ({by_l}); cuDNN GRU bwd {lib:.4f} ms (fwd "
+          f"{fwd:.4f}); live row-steps {steps} of {TB}", flush=True)
+    return (dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                 library_ms=lib),
+            dict(max_abs_err=l_err, ms=ms_l, plain_ms=plain_l, bound_ms=bms_l, bound_by=by_l,
+                 library_ms=lib))
 
 
 def phase_train_k5_k6(torch, np, results: dict) -> None:
@@ -1550,76 +1637,22 @@ def phase_train_k5_k6(torch, np, results: dict) -> None:
     backward minus forward; neither is on any path)."""
     import torch.nn.functional as F
 
-    from uasr_torch.models import cuda_gru as k5
     from uasr_torch.ops import cuda_attention as k6
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
 
     # ---- K5-bwd, K8: the 12 s forward GRU of lc_bigru and uni_gru (T=300,
-    # B=64) and the lc_bigru backward windows (T=24, B=64*19), H=384
-    H = K5_H
+    # B=64) and the lc_bigru backward windows (T=24, B=64*19), H=384; ragged
+    # lengths (about half the row-steps live) in f32 and bf16, and in f32
+    # with every row live for all T steps, as cuDNN always runs and as real
+    # lc_bigru windows nearly all are
     for what, T, rows in (("offline", K5_T, STREAM_B), ("windows", K5_WINDOW,
                                                         STREAM_B * K5_WINDOWS)):
-        for dtype in ("float32", "bfloat16"):
-            dt = getattr(torch, dtype)
-            args, tmask, dy, lengths = _gru_problem(torch, gen, T, rows, H, dt)
-            ys, c4, ch = k5.gru_scan_cuda(*args, tmask, save_coeffs=True)
-            r_ys, r_c4, r_ch = k5.gru_scan_reference(*args, tmask, save_coeffs=True)
-            got = k5.gru_scan_bwd_cuda(*args, tmask, ys, dy)
-            ref = k5.gru_scan_bwd_reference(*args, tmask, ys, dy)
-            lin = k5.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1])
-            r_lin = k5.gru_scan_bwd_lin_reference(c4, ch, dy, args[1])
-            torch.cuda.synchronize()
-            # K2-bwd's bars: f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest
-            # reference value; the coefficients follow each side's own carry,
-            # which in bf16 may round an ulp apart (K5's bf16 bar)
-            tol = 1e-4 if dtype == "float32" else 2 ** -7
-            c_err = max(float((a.float() - r.float()).abs().max()) / max(
-                1.0, float(r.float().abs().max())) for a, r in ((c4, r_c4), (ch, r_ch)))
-            scale = max(float(r.float().abs().max()) for r in ref)
-            err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
-            l_scale = float(r_lin.float().abs().max())
-            l_err = float((lin.float() - r_lin.float()).abs().max())
-            zero = lengths == 0
-            print(f"K5-bwd/K8  {what:8s} {dtype:8s} T={T} B={rows} H={H} (units/CTA, splits)="
-                  f"{k5.LAST_GRU_BWD_PLAN}: coefficients max|d|/max(1,|ref|) {c_err:.3e}; K5-bwd "
-                  f"max|d| {err:.3e}, K8 {l_err:.3e}, largest |ref| {scale:.3e} / {l_scale:.3e} "
-                  f"(tol {tol} x)", flush=True)
-            check(all(bool(torch.isfinite(a.float()).all()) for a in (*got, lin, c4, ch)),
-                  f"K5-bwd/K8 {what} {dtype}: non-finite output")
-            check(c_err <= tol, f"K5 coefficients {what} {dtype}: {c_err:.3e} > {tol}")
-            check(err <= tol * max(scale, 1.0), f"K5-bwd {what} {dtype}: max|d| {err:.3e}")
-            check(l_err <= tol * max(l_scale, 1.0), f"K8 {what} {dtype}: max|d| {l_err:.3e}")
-            check(not any(bool(t[:, 0, zero].any()) for t in (*got, lin)),
-                  f"K5-bwd/K8 {what} {dtype}: a zero-length row got a gradient")
-            ms = cuda_ms(torch, lambda: k5.gru_scan_bwd_cuda(*args, tmask, ys, dy), 10)
-            ms_l = cuda_ms(torch, lambda: k5.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1]), 10)
-            plain = cuda_ms(torch, lambda: k5.gru_scan_bwd_reference(*args, tmask, ys, dy), 1)
-            plain_l = cuda_ms(torch, lambda: k5.gru_scan_bwd_lin_reference(c4, ch, dy, args[1]),
-                              1)
-            es = 4 if dtype == "float32" else 2
-            steps = int(lengths.sum())  # row-steps the masks keep active
-            TB = T * rows
-            nbytes = es * (TB * 3 * H + H * 3 * H + 3 * H + 2 * TB * H + TB * 3 * H + TB * H) + 4 * TB
-            bms, by = bound(nbytes, 2 * 2 * steps * H * 3 * H, dtype)
-            nbytes_l = es * (TB * 4 * H + TB * H + H * 3 * H + TB * 4 * H) + 4 * TB * H
-            bms_l, by_l = bound(nbytes_l, 2 * steps * H * 3 * H, dtype)
-            # cuDNN's unidirectional GRU on the same unmasked shapes (input
-            # D = H): forward + backward minus forward
-            gru = torch.nn.GRU(H, H).to(device=dev, dtype=dt)
-            gru.flatten_parameters()
-            x = torch.randn(T, rows, H, device=dev, generator=gen).to(dt).requires_grad_()
-            gy = torch.randn(T, rows, H, device=dev, generator=gen).to(dt)
-            fwd = cuda_ms(torch, lambda: gru(x)[0], 10)
-            lib = cuda_ms(torch, lambda: gru(x)[0].backward(gy), 10) - fwd
-            print(f"  K5-bwd kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by}); "
-                  f"K8 kernel {ms_l:.4f} ms plain {plain_l:.4f} ms bound {bms_l:.4f} ms ({by_l}); "
-                  f"cuDNN GRU bwd {lib:.4f} ms (fwd {fwd:.4f})", flush=True)
-            results[f"K5-bwd:{what}:{dtype}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                                     bound_ms=bms, bound_by=by, library_ms=lib)
-            results[f"K8:{what}:{dtype}"] = dict(max_abs_err=l_err, ms=ms_l, plain_ms=plain_l,
-                                                 bound_ms=bms_l, bound_by=by_l, library_ms=lib)
+        for dtype, full in (("float32", False), ("bfloat16", False), ("float32", True)):
+            res, res_l = gru_bwd_case(torch, gen, what, T, rows, K5_H, dtype, full)
+            key = f"{what}:full" if full else f"{what}:{dtype}"
+            results[f"K5-bwd:{key}"], results[f"K8:{key}"] = res, res_l
 
     # ---- K6-bwd: B=32, T=400, 8 x 64, keys of a 12-16 s bucket; T=832
     B, Hh, dh = K6_B, K6_HEADS, K6_DH
@@ -1749,8 +1782,9 @@ def phase_encoder_train(torch, np, launches: dict) -> None:
             if recurrent:
                 grus = (2 if encoder == "lc_bigru" else 1) * m.num_gru_layers
                 chunk = cfg.frontend.streaming_chunk_frames * cfg.frontend.frame_shift
+                fused = {"K5-bwd": grus, "K5-bwd:coeffs": grus}  # a chain and its coefficients
                 return dict(zero, K7=-(-b.audio.shape[1] // chunk), K5=grus, K3=1, **{
-                    "K3-bwd": 1, "K8" if linear else "K5-bwd": grus})
+                    "K3-bwd": 1, **({"K8": grus} if linear else fused)})
             return dict(zero, K1=1, K6=m.transformer_layers, K3=1,
                         **{"K6-bwd": m.transformer_layers, "K3-bwd": 1})
 

@@ -5,7 +5,8 @@ batch rows split over several passes and idle hidden units (K2), one-beam
 and full-warp beams, V above a warp and at 4233, a non-zero blank, zero
 lengths, and a decode fed in chunks from a carried state (K4),
 T = 1, odd T, one row and batch rows split over passes (K2-bwd), small and
-large S, a non-zero blank and zero-length rows (K3, K3-bwd), input each
+large S, a non-zero blank and zero-length rows (K3, K3-bwd), the edges of
+K5-bwd's tensor-core tiles and its coefficient kernel alone, input each
 kernel must refuse, and the encoder, one training step and the streaming
 recognizer on CUDA against the same weights on the CPU.
 
@@ -445,13 +446,16 @@ def test_training_step_on_card_matches_cpu(dev):
 # ---------------------------------------------------------------- K5, K6
 
 
-def _gru_group_problem(dev, T, G, B, H, seed):
-    """Inputs of K5 with mixed lengths per group, incl. a row of length 0."""
+def _gru_group_problem(dev, T, G, B, H, seed, dead=0):
+    """Inputs of K5 with mixed lengths per group, incl. a row of length 0;
+    the last `dead` rows of every group have length 0."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     lengths = torch.randint(0, T + 1, (G, B), device=dev, generator=gen)
     lengths[0, 0] = T
     if B > 1:
         lengths[-1, 1] = 0
+    if dead:
+        lengths[:, B - dead:] = 0
     tmask = torch.arange(T, device=dev)[:, None, None] < lengths[None]  # [T, G, B]
     xp = 0.5 * torch.randn(T, G, B, 3 * H, device=dev, generator=gen)
     wh = torch.randn(G, H, 3 * H, device=dev, generator=gen) / H ** 0.5
@@ -586,9 +590,44 @@ def _bar(ref, dtype):
 
 # T = 1; B = 1; one group and two; the lc_bigru backward windows (B = 1216,
 # T = 24, H = 384) and the 12 s forward GRU (T = 300, B = 64) come from
-# chip_smoke.py; rows over several tiles and splits; length-0 rows
+# chip_smoke.py; rows over several tiles and splits; length-0 rows. At the
+# edges of the tensor-core tiles (128 rows x 32 units in the coefficient
+# kernel, warp tiles of 16 x 16 or 32 x 32 in the chain): T B not a
+# multiple of 128 (B = 1217), H not a multiple of 16 or 32 (H = 40, 24),
+# G = 2 at H = 384, whole 128-row tiles masked (DEAD_ROWS), and K5's
+# widest H (1056), where 16 rows of wh just fit beside the chain's ring.
 GRU_BWD_CASES = [(1, 1, 1, 8), (1, 2, 3, 16), (9, 1, 1, 384), (7, 2, 5, 24),
-                 (24, 1, 1216, 384), (6, 2, 300, 64), (13, 1, 40, 512)]
+                 (24, 1, 1216, 384), (6, 2, 300, 64), (13, 1, 40, 512), (24, 1, 1217, 384),
+                 (5, 2, 130, 40), (7, 2, 200, 384), (4, 1, 512, 64), (3, 1, 20, 1056)]
+DEAD_ROWS = {(4, 1, 512, 64): 256}  # zero-length rows at the end of every group
+
+
+def _gru_bwd_problem(dev, T, G, B, H, dtype):
+    args, tmask, lengths = _gru_group_problem(dev, T, G, B, H, T * B + H + G + 1,
+                                              DEAD_ROWS.get((T, G, B, H), 0))
+    return tuple(x.to(dtype).contiguous() for x in args), tmask, lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,G,B,H", GRU_BWD_CASES)
+def test_gru_bwd_coeffs_kernel_matches_plain(dev, T, G, B, H, dtype):
+    """K5-bwd's coefficient kernel (tensor-core h_prev @ wh, then the
+    gates) against its plain version on the same ys: f32 1e-5, bf16 one
+    bf16 ulp (2^-7) of the largest; a masked row gets c4 = 0 and ch = 1."""
+    args, tmask, lengths = _gru_bwd_problem(dev, T, G, B, H, dtype)
+    ys = cuda_gru.gru_scan_cuda(*args, tmask)
+    before = cuda_gru.LAUNCHES_GRU_COEFFS
+    c4, ch = cuda_gru.gru_bwd_coeffs_cuda(*args, tmask, ys)
+    r_c4, r_ch = cuda_gru.gru_bwd_coeffs_reference(*args, tmask, ys)
+    torch.cuda.synchronize()
+    assert cuda_gru.LAUNCHES_GRU_COEFFS == before + 1
+    for got, ref in ((c4, r_c4), (ch, r_ch)):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -7 * float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol
+    off = ~tmask.permute(1, 2, 0)  # [G, B, T]: masked row-steps
+    assert not c4.permute(1, 2, 0, 3)[off].any()
+    assert bool((ch.permute(1, 2, 0, 3)[off] == 1).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -596,20 +635,19 @@ GRU_BWD_CASES = [(1, 1, 1, 8), (1, 2, 3, 16), (9, 1, 1, 384), (7, 2, 5, 24),
 def test_gru_bwd_kernels_match_plain(dev, T, G, B, H, dtype):
     """K5's coefficient outputs, K5-bwd and K8 against their plain
     versions; a row of length 0 gets zero gradients."""
-    args, tmask, lengths = _gru_group_problem(dev, T, G, B, H, T * B + H + G + 1)
-    args = tuple(x.to(dtype).contiguous() for x in args)
+    args, tmask, lengths = _gru_bwd_problem(dev, T, G, B, H, dtype)
     dy = torch.randn(T, G, B, H, device=dev, generator=torch.Generator(device=dev).manual_seed(T))
     dy = dy.to(dtype)
     ys, c4, ch = cuda_gru.gru_scan_cuda(*args, tmask, save_coeffs=True)
     r_ys, r_c4, r_ch = cuda_gru.gru_scan_reference(*args, tmask, save_coeffs=True)
-    before = (cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_LIN)
+    before = (cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_COEFFS, cuda_gru.LAUNCHES_GRU_LIN)
     dxp, dhn = cuda_gru.gru_scan_bwd_cuda(*args, tmask, ys, dy)
     r_dxp, r_dhn = cuda_gru.gru_scan_bwd_reference(*args, tmask, ys, dy)
     out = cuda_gru.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1])
     r_out = cuda_gru.gru_scan_bwd_lin_reference(c4, ch, dy, args[1])
     torch.cuda.synchronize()
-    assert (cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_LIN) == (before[0] + 1,
-                                                                      before[1] + 1)
+    assert (cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_COEFFS,
+            cuda_gru.LAUNCHES_GRU_LIN) == (before[0] + 1, before[1] + 1, before[2] + 1)
     assert c4.dtype == dtype and ch.dtype == torch.float32 and out.dtype == dtype
     # the coefficients follow each side's own carry, which in bf16 may
     # round an ulp apart (K5's bf16 bar): one bf16 ulp of the largest

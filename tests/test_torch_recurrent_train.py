@@ -11,6 +11,10 @@ value on both sides (f32 atol 2e-4 / rtol 1e-3 as tests/test_pallas_gru.py;
 bf16 one bf16 ulp of each gradient's largest magnitude). Cases: T = 1, a
 length-0 row, G in {1, 2}, T odd (not a multiple of the JAX BWD_TIME_TILE).
 
+Error budget of the card's f32 tensor-core products: K5-bwd's plain
+version with its products emulated as 3xTF32 against the f32 plain version
+at T = 24, H = 384 (the card's f32 bar, 1e-4 of the largest gradient).
+
 Trainer level (f32, H = 16, 2 layers, B = 4, SpecAugment off): the JAX side
 runs gru_pallas with pallas_gru_scan rebound to interpret mode, the port
 its kernel flags on CPU tensors (plain versions); loss and grad_norm rtol
@@ -131,6 +135,61 @@ def test_gru_scan_runs_the_forward_alone_without_a_gradient(monkeypatch):
     torch.testing.assert_close(ys, cuda_gru.gru_scan_reference(*args, torch.tensor(tmask)),
                                rtol=0, atol=0)
     assert cuda_gru.gru_scan(*args, torch.tensor(tmask)).grad_fn is not None
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    as the card's cvt.rna.tf32.f32 rounds it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as K5-bwd's f32 tensor-core products take it: hi = tf32(x),
+    lo = tf32(x - hi) for both operands, a_hi b_hi + (a_lo b_hi + a_hi b_lo)
+    with the TF32 products exact in f32 and f32 sums."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_hi @ b_hi + (a_lo @ b_hi + a_hi @ b_lo)
+
+
+def test_3xtf32_products_hold_the_card_bar():
+    """The error budget of K5-bwd's f32 tensor-core products, set on the
+    CPU: the plain K5-bwd with its coefficient product h_prev @ wh and its
+    chain's per-step products taken as 3xTF32 stays within the card's f32
+    bar (1e-4 of the largest gradient) of the f32 plain version at the
+    lc_bigru window shape (T = 24, H = 384; B = 8), and over a hundred
+    times closer than single-pass TF32 (operands rounded once), which lands
+    at about the bar itself."""
+    T, G, B, H = 24, 1, 8, 384
+    f32 = torch.float32
+    arrays, m, _ = _problem(T, G, B, H, 24)
+    xp, wh, bh = (torch.tensor(a) for a in arrays)
+    tmask = torch.tensor(m)
+    dy = torch.tensor(np.random.RandomState(25).randn(T, G, B, H).astype(np.float32))
+    ys = cuda_gru.gru_scan_reference(xp, wh, bh, tmask)
+    ref = cuda_gru.gru_scan_bwd_reference(xp, wh, bh, tmask, ys, dy)
+
+    def bwd(mm):
+        h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+        hp = mm(h_prev, wh) + bh[:, None, :]
+        r, z, n, hn = cuda_gru._gates(xp, hp, h_prev)
+        c4, ch = cuda_gru._coeffs(r, z, n, hn, h_prev, tmask.to(f32)[..., None])
+        w_t = wh.transpose(1, 2)
+        dh = torch.zeros(G, B, H)
+        out = torch.empty(T, G, B, 4 * H)
+        for t in reversed(range(T)):
+            d = dh + dy[t]
+            e = c4[t] * d.repeat(1, 1, 4)
+            out[t] = e
+            dh = ch[t] * d + mm(torch.cat([e[..., :2 * H], e[..., 3 * H:]], -1), w_t)
+        return out[..., :3 * H], out[..., 3 * H:]
+
+    scale = max(1.0, max(float(x.abs().max()) for x in ref))
+    err3, err1 = (max(float((a - x).abs().max()) for a, x in zip(bwd(mm), ref))
+                  for mm in (_mm_3xtf32, lambda a, b: _tf32(a) @ _tf32(b)))
+    assert 0 < err3 <= 1e-4 * scale
+    assert err1 > 100 * err3
 
 
 # ------------------------------------------------------------- trainer

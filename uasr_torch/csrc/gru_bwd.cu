@@ -11,181 +11,293 @@
 // dhn [T, G, B, H] (d of the n block of h_prev @ wh). h_prev at step t is
 // ys[t-1] (zero at t = 0), read in the stored dtype.
 //
-// Phase 1, per step, independent of the carried gradient (:198-219):
+// Two launches. The coefficient kernel (uasr_gru_bwd_coeffs) does what
+// the TPU kernel's first phase does per step (:198-219), for every step at
+// once, since none of it depends on the carried gradient:
 //   hp = h_prev @ wh[g] + bh[g] (f32 accumulation); r, z, n as forward
 //   c_n2 = mf (1-z)(1-n^2), c_r = c_n2 hn r(1-r), c_z = mf (h_prev-n) z(1-z),
-//   c_nh = c_n2 r, ch = (1-mf) + mf z, all f32, into a global scratch
-//   (c4 [T, G, B, 4H], ch [T, G, B, H]).
-// Phase 2, the reverse chain of gru_bwd_chain.cuh (:221-231).
+//   c_nh = c_n2 r, ch = (1-mf) + mf z, all f32, into c4 [T, G, B, 4H] and
+//   ch [T, G, B, H].
+// Then the cooperative kernel (uasr_gru_bwd) runs the reverse chain of
+// gru_bwd_chain.cuh (:221-231) from them.
 // A row of length 0 has mask 0 at every step: c4 = 0 and ch = 1, so every
 // gradient of the row is 0.
 //
-// Design: K5's persistent cooperative grid (gru_fwd.cu: G groups, the
-// batch split over CTA groups with a barrier each) running K2-bwd's two
-// phases (bigru_bwd.cu). Phase 1 stages the 3U wh columns of the CTA's
-// units and, for every step and row tile of its split, h_prev, and writes
-// the coefficients; the thread that writes a coefficient is the one that
-// reads it in phase 2, so no barrier separates the phases.
+// Coefficient kernel design: one tall product [T B, H] x [H, 3H] per
+// group on the tensor cores (mma_sync.cuh: bf16 as stored, f32 as 3xTF32),
+// tiled so the epilogue holds all three gates of a unit: a CTA takes 128
+// (t, b) rows and 32 hidden units, the [128 x 96] tile of their r, z and n
+// columns over K = H, with K chunks of h_prev and wh staged through a
+// two-stage cp.async ring; 8 warps of 32 rows x 16 units. The epilogue
+// adds the bias and computes the gates and coefficients with the
+// expressions of the plain version. A tile whose rows are all masked
+// writes c4 = 0 and ch = 1 without the product.
 //
-// Bound: phase 1's product and phase 2's per-step products are 2 * steps *
-// H * 3H FLOP each over the row-steps the masks keep active (~7 GFLOP each
-// at T = 300, B = 64, H = 384 with half the row-steps live), against ~0.3
-// GB moved in f32: operations in f32, bytes in bf16. The chain of T
-// dependent steps with a barrier each, on CUDA cores, sets the time.
-// Tensor-core products are later work.
+// Bound: the coefficient kernel's 2 T B H 3H FLOP (all row-steps: the
+// masks do not skip its product) and the chain's 2 * steps * H * 3H over
+// the live row-steps, against ~0.5 GB moved in f32 at T = 300, B = 64,
+// H = 384 (xp, ys, dy, dxp, dhn, and the f32 c4 and ch written once and
+// read once): operations in f32, where 3xTF32 takes three tensor-core
+// passes and the operand splits per product. At the lc_bigru windows
+// (T = 24, B = 1216) the chain's products and its restaging of dhproj
+// from L2 set the time; at T = 300, B = 64 its dependent steps do, each a
+// barrier and an epilogue.
 
 #include "gru_bwd_chain.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
 using namespace gru_bwd;
 
+namespace coef {
+constexpr int THREADS = 256;  // 8 warps: 4 along the rows x 2 along the units
+constexpr int ROWS = 128;     // (t, b) rows of a tile
+constexpr int UNITS = 32;     // hidden units of a tile: 96 columns of wh (r, z, n)
+constexpr int CHUNK = 128;    // bytes of an h_prev row per K chunk
+constexpr int STAGES = 2;     // depth of the cp.async ring (3, or 256-byte chunks: slower)
+constexpr int B_LD = 3 * UNITS + 8;  // wh chunk row pitch (elements)
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gru_bwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh, const T* __restrict__ bh,
-               const float* __restrict__ tmask, const T* __restrict__ ys,
-               const T* __restrict__ dy, T* __restrict__ dxp, T* __restrict__ dhn, float* c4,
-               float* ch, float* chd, T* xch, unsigned* bar, int Tn, int G, int B, int H, int U,
-               int nblk, int S, int Bs) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int VEC = 16 / sizeof(T);
-  const Cta c = cta_place(U, nblk, S, Bs, B);
-  const int g = c.g, H3 = 3 * H, HP = H + PAD;
-  const int BT = THREADS / U;
-  const int uu = threadIdx.x % U, bt = threadIdx.x / U;
-  const int j = c.j0 + uu;
+__host__ __device__ constexpr int bk() {
+  return CHUNK / sizeof(T);
+}
+template <typename T>
+__host__ __device__ constexpr int a_ld() {
+  return bk<T>() + 16 / sizeof(T);  // h_prev chunk row pitch (elements)
+}
+template <typename T>
+__host__ __device__ constexpr int stage() {
+  return ROWS * a_ld<T>() + bk<T>() * B_LD;  // elements of one ring stage
+}
+}  // namespace coef
 
-  // ---- phase 1: coefficients of every step
-  {
-    float* w_s = smem;               // [3][U][H + PAD] wh columns of this CTA's units
-    float* h_s = smem + 3 * U * HP;  // [BT][H + PAD] staged h_prev, f32
-    const T* whg = wh + (size_t)g * H * H3;
-    for (int i = threadIdx.x; i < 3 * U * H; i += THREADS) {
-      const int gu = i / H, k = i - gu * H, gate = gu / U, jj = c.j0 + gu - gate * U;
-      w_s[gu * HP + k] = jj < H ? to_f32(whg[(size_t)k * H3 + gate * H + jj]) : 0.f;
-    }
-    float bias_r = 0.f, bias_z = 0.f, bias_n = 0.f;
-    if (j < H) {
-      bias_r = to_f32(bh[(size_t)g * H3 + j]);
-      bias_z = to_f32(bh[(size_t)g * H3 + H + j]);
-      bias_n = to_f32(bh[(size_t)g * H3 + 2 * H + j]);
-    }
-    const float4* wr = reinterpret_cast<const float4*>(w_s + (0 * U + uu) * HP);
-    const float4* wz = reinterpret_cast<const float4*>(w_s + (1 * U + uu) * HP);
-    const float4* wn = reinterpret_cast<const float4*>(w_s + (2 * U + uu) * HP);
-    const size_t group_rows = (size_t)B * H;  // ys elements of one (t, g)
-    __syncthreads();
-    for (int t = 0; t < Tn; ++t) {
-      const T* hsrc = ys + ((size_t)(t > 0 ? t - 1 : 0) * G + g) * group_rows;
-      const T* xpt = xp + ((size_t)t * G + g) * B * H3;
-      const float* mt = tmask + ((size_t)t * G + g) * B;
-      for (int b0 = c.b_lo; b0 < c.b_hi; b0 += BT) {
-        const int nb = min(BT, c.b_hi - b0);
-        const int nvec = H / VEC;
-        for (int i = threadIdx.x; i < nb * nvec; i += THREADS) {
-          const int r = i / nvec, k = (i - r * nvec) * VEC;
-          float v[VEC];
-          if (t > 0) {
-            load16_l2(hsrc + (size_t)(b0 + r) * H + k, v);
-          } else {
+template <typename T>
+__global__ void __launch_bounds__(coef::THREADS, 2)
+gru_bwd_coeffs_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
+                      const T* __restrict__ bh, const float* __restrict__ tmask,
+                      const T* __restrict__ ys, float* __restrict__ c4, float* __restrict__ ch,
+                      int Tn, int G, int B, int H) {
+  using Op = mma::Op<T>;
+  constexpr int KS = Op::K_STEP, BK = coef::bk<T>(), ALD = coef::a_ld<T>(), VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int TB = Tn * B, H3 = 3 * H, grp = blockIdx.z;
+  const int m0 = blockIdx.x * coef::ROWS, j0 = blockIdx.y * coef::UNITS;
+  const int warp = threadIdx.x >> 5, gq = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+
+  // a tile of masked rows only: c4 = 0, ch = 1, as the product path gives
+  bool live = false;
+  if (threadIdx.x < coef::ROWS && m0 + threadIdx.x < TB) {
+    const int m = m0 + threadIdx.x, t = m / B;
+    live = tmask[((size_t)t * G + grp) * B + (m - t * B)] != 0.f;
+  }
+  if (!__syncthreads_or(live)) {
+    for (int i = threadIdx.x; i < coef::ROWS * coef::UNITS; i += coef::THREADS) {
+      const int r = i / coef::UNITS, j = j0 + i - r * coef::UNITS, m = m0 + r;
+      if (m >= TB || j >= H) continue;
+      const int t = m / B;
+      const size_t row = ((size_t)t * G + grp) * B + (m - t * B);
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) v[e] = 0.f;
-          }
+      for (int gate = 0; gate < 4; ++gate) c4[row * 4 * H + gate * H + j] = 0.f;
+      ch[row * H + j] = 1.f;
+    }
+    return;
+  }
+
+  const T* whg = wh + (size_t)grp * H * H3;
+  const int nk = (H + BK - 1) / BK;
+  auto load = [&](int kc) {
+    if (kc >= nk) {
+      cp_commit();
+      return;
+    }
+    T* a_s = smem + (kc % coef::STAGES) * coef::stage<T>();
+    T* b_s = a_s + coef::ROWS * ALD;
+    const int k0 = kc * BK;
+    constexpr int AP = coef::CHUNK / 16;  // 16-byte pieces of a row chunk
+    for (int i = threadIdx.x; i < coef::ROWS * AP; i += coef::THREADS) {
+      const int r = i / AP, kk = (i - r * AP) * VEC, m = m0 + r, t = m / B;
+      const bool ok = m < TB && t > 0 && k0 + kk < H;
+      const T* src = ok ? ys + (((size_t)(t - 1) * G + grp) * B + (m - t * B)) * H + k0 + kk : ys;
+      cp_async16(a_s + r * ALD + kk, src, ok);
+    }
+    constexpr int BP = coef::UNITS * sizeof(T) / 16;  // pieces of one gate's units in a wh row
+    for (int i = threadIdx.x; i < BK * 3 * BP; i += coef::THREADS) {
+      const int kr = i / (3 * BP), rem = i - kr * 3 * BP, gate = rem / BP;
+      const int u = (rem - gate * BP) * VEC, k = k0 + kr, j = j0 + u;
+      const bool ok = k < H && j < H;
+      cp_async16(b_s + kr * coef::B_LD + gate * coef::UNITS + u,
+                 ok ? whg + (size_t)k * H3 + gate * H + j : whg, ok);
+    }
+    cp_commit();
+  };
+
+  float acc[2][3][2][4] = {};  // [row block][gate][unit block][fragment]
+  for (int s = 0; s < coef::STAGES - 1; ++s) load(s);
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_wait<coef::STAGES - 2>();
+    __syncthreads();  // chunk kc is in; every warp is past chunk kc - 1
+    load(kc + coef::STAGES - 1);
+    const T* a_s = smem + (kc % coef::STAGES) * coef::stage<T>() + wm * 32 * ALD;
+    const T* b_s = smem + (kc % coef::STAGES) * coef::stage<T>() + coef::ROWS * ALD + wn * 16;
 #pragma unroll
-          for (int e = 0; e < VEC; e += 4)
-            *reinterpret_cast<float4*>(h_s + r * HP + k + e) =
-                make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+    for (int kk = 0; kk < BK; kk += KS) {
+      Op a[2][4];
+      mma::load_a(a[0], a_s + kk, ALD);
+      mma::load_a(a[1], a_s + 16 * ALD + kk, ALD);
+#pragma unroll
+      for (int gate = 0; gate < 3; ++gate) {
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          Op b[2];
+          mma::load_b_kn(b, b_s + kk * coef::B_LD + gate * coef::UNITS + nt * 8, coef::B_LD);
+          mma::mma(acc[0][gate][nt], acc[0][gate][nt], a[0], b);
+          mma::mma(acc[1][gate][nt], acc[1][gate][nt], a[1], b);
         }
-        __syncthreads();
-        if (bt < nb && j < H) {
-          const int b = b0 + bt;
-          const float4* h4 = reinterpret_cast<const float4*>(h_s + bt * HP);
-          float ar = 0.f, az = 0.f, an = 0.f;
-          for (int k = 0; k < H / 4; ++k) {
-            const float4 h = h4[k], a = wr[k], z = wz[k], n = wn[k];
-            ar = fmaf(h.x, a.x, ar), az = fmaf(h.x, z.x, az), an = fmaf(h.x, n.x, an);
-            ar = fmaf(h.y, a.y, ar), az = fmaf(h.y, z.y, az), an = fmaf(h.y, n.y, an);
-            ar = fmaf(h.z, a.z, ar), az = fmaf(h.z, z.z, az), an = fmaf(h.z, n.z, an);
-            ar = fmaf(h.w, a.w, ar), az = fmaf(h.w, z.w, az), an = fmaf(h.w, n.w, an);
-          }
-          const T* x = xpt + (size_t)b * H3;
-          const float xr = to_f32(x[j]), xz = to_f32(x[H + j]), xn = to_f32(x[2 * H + j]);
-          const float hn = an + bias_n;
-          const float r = 1.f / (1.f + expf(-(xr + (ar + bias_r))));
-          const float z = 1.f / (1.f + expf(-(xz + (az + bias_z))));
-          const float n = tanhf(xn + r * hn);
-          const float h_prev = h_s[bt * HP + j];
-          const float mf = mt[b];
-          const float c_n2 = mf * ((1.f - z) * (1.f - n * n));
-          const size_t row = ((size_t)t * G + g) * B + b;
-          float* cc = c4 + row * 4 * H;
-          cc[j] = c_n2 * (hn * (r * (1.f - r)));             // c_r
-          cc[H + j] = mf * ((h_prev - n) * (z * (1.f - z)));  // c_z
-          cc[2 * H + j] = c_n2;                              // c_n2
-          cc[3 * H + j] = c_n2 * r;                          // c_nh
-          ch[row * H + j] = (1.f - mf) + mf * z;
-        }
-        __syncthreads();
       }
     }
   }
 
-  // ---- phase 2: the reverse chain (reuses the shared memory)
-  reverse_chain<T, float, false>(c4, ch, dy, wh, nullptr, dxp, dhn, chd, xch, bar, Tn, G, B, H,
-                                 U, nblk, S, Bs, smem);
+  // epilogue: rows wm*32 + mi*16 + gq (+8), units wn*16 + nt*8 + 2q (+1)
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 32 + mi * 16 + gq + 8 * h;
+      if (m >= TB) continue;
+      const int t = m / B, b = m - t * B;
+      const size_t row = ((size_t)t * G + grp) * B + b;
+      const float mf = tmask[row];
+      const T* x = xp + row * H3;
+      const T* hrow = ys + (((size_t)(t > 0 ? t - 1 : 0) * G + grp) * B + b) * H;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int j = j0 + wn * 16 + nt * 8 + 2 * q;
+        if (j >= H) continue;  // H even: j + 1 < H too
+        const float2 xr = mma::ld2(x + j), xz = mma::ld2(x + H + j), xn = mma::ld2(x + 2 * H + j);
+        const float2 br = mma::ld2(bh + (size_t)grp * H3 + j);
+        const float2 bz = mma::ld2(bh + (size_t)grp * H3 + H + j);
+        const float2 bn = mma::ld2(bh + (size_t)grp * H3 + 2 * H + j);
+        const float2 hp2 = t > 0 ? mma::ld2(hrow + j) : make_float2(0.f, 0.f);
+        float out[4][2], chv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ar = acc[mi][0][nt][2 * h + e], az = acc[mi][1][nt][2 * h + e];
+          const float an = acc[mi][2][nt][2 * h + e];
+          const float hn = an + (e ? bn.y : bn.x);
+          const float r = 1.f / (1.f + expf(-((e ? xr.y : xr.x) + (ar + (e ? br.y : br.x)))));
+          const float z = 1.f / (1.f + expf(-((e ? xz.y : xz.x) + (az + (e ? bz.y : bz.x)))));
+          const float n = tanhf((e ? xn.y : xn.x) + r * hn);
+          const float h_prev = e ? hp2.y : hp2.x;
+          const float c_n2 = mf * ((1.f - z) * (1.f - n * n));
+          out[0][e] = c_n2 * (hn * (r * (1.f - r)));             // c_r
+          out[1][e] = mf * ((h_prev - n) * (z * (1.f - z)));     // c_z
+          out[2][e] = c_n2;                                      // c_n2
+          out[3][e] = c_n2 * r;                                  // c_nh
+          chv[e] = (1.f - mf) + mf * z;
+        }
+        float* cc = c4 + row * 4 * H + j;
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) mma::st2(cc + gate * H, out[gate][0], out[gate][1]);
+        mma::st2(ch + row * H + j, chv[0], chv[1]);
+      }
+    }
+  }
+}
+
+template <typename T, int MT, int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+gru_bwd_kernel(const float* __restrict__ c4, const float* __restrict__ ch,
+               const T* __restrict__ dy, const T* __restrict__ wh, T* __restrict__ dxp,
+               T* __restrict__ dhn, float* chd, T* xch, unsigned* bar, int Tn, int G, int B,
+               int H, int U, int nblk, int S, int Bs, int WM, int BK) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  reverse_chain<T, float, false, MT, NT>(c4, ch, dy, wh, nullptr, dxp, dhn, chd, xch, bar, Tn, G,
+                                         B, H, U, nblk, S, Bs, WM, BK,
+                                         reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename T>
-cudaError_t launch(const void* xp, const void* wh, const void* bh, const float* tmask,
-                   const void* ys, const void* dy, void* dxp, void* dhn, float* c4, float* ch,
-                   float* chd, void* xch, unsigned* bar, int max_groups, int Tn, int G, int B,
-                   int H, cudaStream_t stream, int* units, int* splits) {
-  auto kernel = gru_bwd_kernel<T>;
-  auto smem_of = [H](int U, int rows) {
-    const size_t p1 = (size_t)(3 * U + rows) * (H + PAD) * sizeof(float);
-    const size_t p2 = chain_smem<T>(U, rows, H);
-    return p1 > p2 ? p1 : p2;
-  };
+cudaError_t launch_coeffs(const void* xp, const void* wh, const void* bh, const float* tmask,
+                          const void* ys, float* c4, float* ch, int Tn, int G, int B, int H,
+                          cudaStream_t stream) {
+  auto kernel = gru_bwd_coeffs_kernel<T>;
+  const size_t smem = coef::STAGES * coef::stage<T>() * sizeof(T);
+  cudaError_t e = uasr_set_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const long tiles = ((long)Tn * B + coef::ROWS - 1) / coef::ROWS;
+  if (tiles > 0x7fffffffL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, (H + coef::UNITS - 1) / coef::UNITS, G);
+  kernel<<<grid, coef::THREADS, smem, stream>>>(
+      static_cast<const T*>(xp), static_cast<const T*>(wh), static_cast<const T*>(bh), tmask,
+      static_cast<const T*>(ys), c4, ch, Tn, G, B, H);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const float* c4, const float* ch, const void* dy, const void* wh, void* dxp,
+                   void* dhn, float* chd, void* xch, unsigned* bar, int max_groups, int Tn, int G,
+                   int B, int H, cudaStream_t stream, int* units, int* splits) {
+  using Kernel = decltype(&gru_bwd_kernel<T, 1, 2>);
+  const Kernel kernels[TILES] = {gru_bwd_kernel<T, TILE_MT[0], TILE_NT[0]>,
+                                 gru_bwd_kernel<T, TILE_MT[1], TILE_NT[1]>};
   Plan best;
-  cudaError_t e = plan_grid(kernel, smem_of, max_groups, G, B, H, &best);
+  cudaError_t e = plan_grid<T>(kernels, max_groups, G, B, H, &best);
   if (e != cudaSuccess) return e;
   *units = best.U;
   *splits = best.S;
-  const T *x = static_cast<const T*>(xp), *w = static_cast<const T*>(wh);
-  const T *bb = static_cast<const T*>(bh), *y = static_cast<const T*>(ys);
-  const T* dyp = static_cast<const T*>(dy);
+  const T *dyp = static_cast<const T*>(dy), *w = static_cast<const T*>(wh);
   T *dx = static_cast<T*>(dxp), *dn = static_cast<T*>(dhn), *xc = static_cast<T*>(xch);
-  int U = best.U, nblk = best.nblk, S = best.S, Bs = best.Bs;
-  void* args[] = {&x,  &w,   &bb, &tmask, &y, &dyp, &dx,   &dn, &c4, &ch, &chd,
-                  &xc, &bar, &Tn, &G,     &B, &H,   &U,    &nblk, &S, &Bs};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(G * S * nblk), dim3(THREADS), args,
-                                  best.smem, stream);
+  int U = best.U, nblk = best.nblk, S = best.S, Bs = best.Bs, WM = best.WM, BK = best.BK;
+  void* args[] = {&c4, &ch, &dyp, &w, &dx, &dn, &chd, &xc, &bar, &Tn, &G, &B, &H, &U,
+                  &nblk, &S, &Bs, &WM, &BK};
+  e = cudaLaunchCooperativeKernel((const void*)kernels[best.tile], dim3(G * S * nblk),
+                                  dim3(THREADS), args, best.smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// xp, dxp [T, G, B, 3H]; wh [G, H, 3H]; bh [G, 3H]; ys, dy, dhn
+// The coefficient kernel. xp [T, G, B, 3H]; wh [G, H, 3H]; bh [G, 3H]; ys
 // [T, G, B, H]: all of `dtype` (UASR_F32 or UASR_BF16). tmask [T, G, B]
-// f32; scratch: c4 [T, G, B, 4H] and ch [T, G, B, H] f32 (phase 1's
-// coefficients), chd [G, B, H] f32, xch [2, G, B, 3H] of `dtype`; bar
-// 2 * 32 * max_groups zeroed uint32. *units and *splits receive the hidden
-// units per CTA and the batch splits per group. H must be a multiple of 8.
-UASR_EXPORT int uasr_gru_bwd(const void* xp, const void* wh, const void* bh, const float* tmask,
-                             const void* ys, const void* dy, void* dxp, void* dhn, float* c4,
-                             float* ch, float* chd, void* xch, unsigned* bar, int max_groups,
-                             int T, int G, int B, int H, int dtype, void* stream, int device,
-                             int* units, int* splits) {
+// f32. Writes c4 [T, G, B, 4H] and ch [T, G, B, H], f32. H must be a
+// multiple of 8.
+UASR_EXPORT int uasr_gru_bwd_coeffs(const void* xp, const void* wh, const void* bh,
+                                    const float* tmask, const void* ys, float* c4, float* ch,
+                                    int T, int G, int B, int H, int dtype, void* stream,
+                                    int device) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (T < 1 || G < 1 || G > 65535 || B < 1 || H < 8 || H % 8) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == UASR_F32)
+    return launch_coeffs<float>(xp, wh, bh, tmask, ys, c4, ch, T, G, B, H, st);
+  if (dtype == UASR_BF16)
+    return launch_coeffs<__nv_bfloat16>(xp, wh, bh, tmask, ys, c4, ch, T, G, B, H, st);
+  return cudaErrorInvalidValue;
+}
+
+// The reverse chain from the coefficient kernel's c4 [T, G, B, 4H] and ch
+// [T, G, B, H] (f32). dy, dhn [T, G, B, H]; dxp [T, G, B, 3H]; wh [G, H, 3H]:
+// all of `dtype`. Scratch: chd [G, B, H] f32, xch [2, G, B, 3H] of
+// `dtype`; bar 2 * 32 * max_groups zeroed uint32. *units and *splits
+// receive the hidden units per CTA and the batch splits per group. H must
+// be a multiple of 8.
+UASR_EXPORT int uasr_gru_bwd(const float* c4, const float* ch, const void* dy, const void* wh,
+                             void* dxp, void* dhn, float* chd, void* xch, unsigned* bar,
+                             int max_groups, int T, int G, int B, int H, int dtype, void* stream,
+                             int device, int* units, int* splits) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (T < 1 || G < 1 || B < 1 || H < 8 || H % 8 || max_groups < G) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == UASR_F32)
-    return launch<float>(xp, wh, bh, tmask, ys, dy, dxp, dhn, c4, ch, chd, xch, bar, max_groups,
-                         T, G, B, H, st, units, splits);
+    return launch<float>(c4, ch, dy, wh, dxp, dhn, chd, xch, bar, max_groups, T, G, B, H, st,
+                         units, splits);
   if (dtype == UASR_BF16)
-    return launch<__nv_bfloat16>(xp, wh, bh, tmask, ys, dy, dxp, dhn, c4, ch, chd, xch, bar,
-                                 max_groups, T, G, B, H, st, units, splits);
+    return launch<__nv_bfloat16>(c4, ch, dy, wh, dxp, dhn, chd, xch, bar, max_groups, T, G, B,
+                                 H, st, units, splits);
   return cudaErrorInvalidValue;
 }

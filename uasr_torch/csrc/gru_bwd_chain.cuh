@@ -1,5 +1,5 @@
 // The reverse chain of the grouped GRU backward, shared by K5-bwd
-// (gru_bwd.cu, its phase 2) and K8 (gru_bwd_lin.cu, the whole kernel), and
+// (gru_bwd.cu, after its coefficient kernel) and K8 (gru_bwd_lin.cu), and
 // the launch plan of both.
 //
 // Per group g and step t = T-1 .. 0, dh = 0 first, dh carried in f32:
@@ -9,58 +9,62 @@
 //   K8: one [.., 4H] row)
 //   dh = ch[t] * d + round_T(e_r, e_z, e_nh) @ wh[g]^T    (f32 accumulation)
 // These are the TPU kernels' rounding points (pallas_gru.py:221-231 and
-// :156-169). The coefficients c4 [T, G, B, 4H] are f32 (K5-bwd's phase 1)
-// or T (the forward's save_coeffs output, K8); ch [T, G, B, H] is f32.
+// :156-169). The coefficients c4 [T, G, B, 4H] are f32 (K5-bwd's
+// coefficient kernel) or T (the forward's save_coeffs output, K8); ch
+// [T, G, B, H] is f32. Both were written by an earlier launch, so they are
+// read through the read-only path.
 //
-// Grid: K5's persistent cooperative grid. CTA (g, s, c) owns hidden units
-// j0 .. j0+U-1 of group g and the batch rows [s Bs, (s+1) Bs). It holds the
-// U rows of wh[g] (the columns of wh^T for its units, all 3H wide) in
-// shared memory as f32. dh[b, j] needs all 3H of the step before's dhproj,
-// so each step every CTA writes its units' dhproj (rounded to T, as the
-// product wants it) into a double-buffered exchange row in global memory,
-// meets the other CTAs of (g, s) at their barrier, and stages the split's
-// rows of [B, 3H] from L2 before its dot products of length 3H. ch * d,
-// which the same thread needs at the next step, stays in a global f32
-// scratch [G, B, H]; thread (row tile, unit) reads the coefficients that
-// it (or the forward) wrote for the same (t, b, j). c4 and ch are read by
-// plain loads (no __restrict__, so never through the non-coherent cache):
-// K5-bwd writes them in the same launch.
+// Grid: K5's persistent cooperative grid, one CTA per SM. CTA (g, s, c)
+// owns hidden units j0 .. j0+U-1 of group g and the batch rows
+// [s Bs, (s+1) Bs). It keeps the U rows of wh[g] (the columns of wh^T for
+// its units, 3H wide, zero past H and 3H) resident in shared memory in T.
+// dh[b, j] needs all 3H of the step before's dhproj, so each step every
+// CTA writes its units' dhproj (rounded to T, as the product wants it)
+// into a double-buffered exchange row in global memory and meets the
+// other CTAs of (g, s) at their barrier.
+//
+// The per-step product [Bs, 3H] x [3H, U] runs on the tensor cores
+// (mma_sync.cuh: bf16 directly, f32 as 3xTF32). The split's dhproj rows
+// stream from L2 (cp.async.cg: the same launch wrote them before the
+// barrier) in K chunks of BK elements through a ring of STAGES stages, BK
+// as large as the shared memory left beside wh allows. A warp computes a
+// tile of 16 MT rows x 8 NT units (16 x 16, or 32 x 32, where its
+// fragments serve four times the mmas and the f32 splits cost less per
+// product); the 8 warps stand WN along the units, WM along the rows (a
+// pass of R = 16 MT WM rows) and WK along K, each taking every WK-th pair
+// of product steps of a chunk, so a small split (few rows, as at offline
+// shapes) still keeps every warp busy. Fragments are loaded 16 bytes at a
+// time with K permuted inside each pair of product steps (load_a2,
+// load_b2), from rows padded to 16 mod 32 words. The warps' partial tiles
+// meet in shared memory (the ring's space) and every thread then runs the
+// epilogue for a few (row, unit pair) items, adding the WK partials in
+// order (deterministic): dh = chd + acc, d = dh + dy, e = c4 d, the
+// outputs, the exchange row and ch d, kept for the next step in a global
+// f32 scratch [G, B, H] that the same thread reads back (same items every
+// step). The epilogue's inputs are loaded before the product, so their
+// latency hides behind it.
 #pragma once
 
 #include "grid_sync.cuh"
+#include "mma_sync.cuh"
 
 namespace gru_bwd {
 
-constexpr int THREADS = 256;
-constexpr int PAD = 4;  // floats of row padding of the f32 rows in shared memory
+constexpr int THREADS = 256;  // 8 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int STAGES = 3;     // depth of the cp.async ring
+constexpr int GRAIN = 256;    // bytes: the K chunk is a multiple of it
+constexpr int ITEMS = 4;      // epilogue items (row, unit pair) per thread, at most
 
 template <typename T>
-__host__ __device__ constexpr int xpad() {
-  return 16 / sizeof(T);  // elements of row padding of the staged exchange rows
+__host__ __device__ constexpr int row_pad() {
+  return 64 / sizeof(T);  // 16 words: row pitches of 16 mod 32 words
 }
-
-// 8 consecutive elements of a shared-memory row (16- or 32-byte aligned)
-__device__ __forceinline__ void load8_smem(const float* p, float* out) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
-  out[4] = b.x, out[5] = b.y, out[6] = b.z, out[7] = b.w;
-}
-__device__ __forceinline__ void load8_smem(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-__device__ __forceinline__ void copy16_l2(const float* src, float* dst) {
-  *reinterpret_cast<float4*>(dst) = __ldcg(reinterpret_cast<const float4*>(src));
-}
-__device__ __forceinline__ void copy16_l2(const __nv_bfloat16* src, __nv_bfloat16* dst) {
-  *reinterpret_cast<uint4*>(dst) = __ldcg(reinterpret_cast<const uint4*>(src));
+// 3H rounded up to 128 bytes: the length of the resident wh rows
+template <typename T>
+__host__ __device__ inline int k_round(int H) {
+  constexpr int q = 128 / sizeof(T);
+  return (3 * H + q - 1) / q * q;
 }
 
 // This CTA's place in the grid: group, batch split, first unit, its rows.
@@ -79,131 +83,245 @@ __device__ __forceinline__ Cta cta_place(int U, int nblk, int S, int Bs, int B) 
   return c;
 }
 
-// Shared memory of the chain: U rows of wh as f32, `rows` staged rows of
-// dhproj in T.
+// Shared memory: U resident rows of wh, and the ring of STAGES x R rows of
+// BK elements, in T; the partial tiles [WK][R][U + 8] f32 reuse the ring.
 template <typename T>
-__host__ __device__ inline size_t chain_smem(int U, int rows, int H) {
-  return (size_t)U * (3 * H + PAD) * sizeof(float) + (size_t)rows * (3 * H + xpad<T>()) * sizeof(T);
+__host__ __device__ inline size_t wh_smem(int U, int H) {
+  return (size_t)U * (k_round<T>(H) + row_pad<T>()) * sizeof(T);
+}
+template <typename T>
+__host__ __device__ inline size_t ring_smem(int R, int BK) {
+  return (size_t)STAGES * R * (BK + row_pad<T>()) * sizeof(T);
+}
+__host__ __device__ inline size_t partial_smem(int WK, int R, int U) {
+  return (size_t)WK * R * (U + 8) * sizeof(float);
 }
 
-// The reverse chain. LIN: out4 [T, G, B, 4H] gets all four blocks (K8);
-// else dxp [T, G, B, 3H] and dhn [T, G, B, H] (K5-bwd).
-template <typename T, typename C, bool LIN>
-__device__ void reverse_chain(const C* c4, const float* ch,
-                              const T* __restrict__ dy, const T* __restrict__ wh, T* out4,
-                              T* dxp, T* dhn, float* chd, T* xch, unsigned* bar, int Tn, int G,
-                              int B, int H, int U, int nblk, int S, int Bs, float* smem) {
-  constexpr int VEC = 16 / sizeof(T);
+// The epilogue's inputs of one row and unit pair, loaded ahead
+struct Pre {
+  float2 dy, cr, cz, cn, cnh, ch, chd;
+};
+
+// The reverse chain with warp tiles of 16 MT rows x 8 NT units. LIN: out4
+// [T, G, B, 4H] gets all four blocks (K8); else dxp [T, G, B, 3H] and dhn
+// [T, G, B, H] (K5-bwd). WM warps along the rows, BK elements per K chunk
+// (from plan_grid).
+template <typename T, typename C, bool LIN, int MT, int NT>
+__device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict__ ch,
+                              const T* __restrict__ dy, const T* __restrict__ wh,
+                              T* __restrict__ out4, T* __restrict__ dxp, T* __restrict__ dhn,
+                              float* chd, T* xch, unsigned* bar, int Tn, int G, int B, int H, int U,
+                              int nblk, int S, int Bs, int WM, int BK, T* smem) {
+  using Op = mma::Op<T>;
+  constexpr int KP = 2 * Op::K_STEP, VEC = 16 / sizeof(T);  // K of a pair of product steps
   const Cta c = cta_place(U, nblk, S, Bs, B);
-  const int g = c.g, H3 = 3 * H, H3P = H3 + PAD, XP = H3 + xpad<T>();
-  const int BT = THREADS / U;
-  const int uu = threadIdx.x % U, bt = threadIdx.x / U;
-  const int j = c.j0 + uu;
-  float* wt_s = smem;                             // [U][3H + PAD] wh rows of the units
-  T* x_s = reinterpret_cast<T*>(smem + U * H3P);  // [BT][3H + xpad] staged dhproj
+  const int g = c.g, H3 = 3 * H, KW = k_round<T>(H), WLD = KW + row_pad<T>();
+  const int ALD = BK + row_pad<T>(), PIECES = BK / VEC, RLD = U + 8;
+  const int WN = U / (8 * NT), WK = WARPS / (WN * WM), R = 16 * MT * WM;
+  const int nk = (KW + BK - 1) / BK, items = R * U / 2;
+  const int warp = threadIdx.x >> 5, gq = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const int wn = warp % WN, wm = (warp / WN) % WM, wk = warp / (WN * WM);
+  T* w_s = smem;                                   // [U][WLD] wh rows j0 .. j0+U-1
+  T* a_s = smem + U * WLD;                         // STAGES x [R][ALD] K chunks of dhproj rows
+  float* part = reinterpret_cast<float*>(a_s);     // [WK][R][RLD] partial tiles
   const T* whg = wh + (size_t)g * H * H3;
-  for (int i = threadIdx.x; i < U * H3; i += THREADS) {
-    const int r = i / H3, k = i - r * H3;
-    wt_s[r * H3P + k] = c.j0 + r < H ? to_f32(whg[(size_t)(c.j0 + r) * H3 + k]) : 0.f;
+  for (int i = threadIdx.x; i < U * (KW / VEC); i += THREADS) {
+    const int u = i / (KW / VEC), k = (i - u * (KW / VEC)) * VEC;
+    const bool ok = c.j0 + u < H && k < H3;
+    cp_async16(w_s + u * WLD + k, ok ? whg + (size_t)(c.j0 + u) * H3 + k : whg, ok);
   }
+  cp_commit();
+  cp_wait<0>();
   __syncthreads();
-  const float* wrow = wt_s + uu * H3P;
   unsigned* gbar = bar + 2 * LINE * (g * S + c.s);
   for (int step = 0; step < Tn; ++step) {
     const int t = Tn - 1 - step;
     const T* xin = xch + ((size_t)((t + 1) & 1) * G + g) * B * H3;  // dhproj of step t + 1
     T* xout = xch + ((size_t)(t & 1) * G + g) * B * H3;
-    for (int b0 = c.b_lo; b0 < c.b_hi; b0 += BT) {
-      const int nb = min(BT, c.b_hi - b0);
+    for (int r0 = c.b_lo; r0 < c.b_hi; r0 += R) {
+      // the epilogue's inputs: item i is row i / (U/2), units 2 (i % (U/2)) + 0, 1
+      Pre pre[ITEMS];
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it) {
+        const int i = threadIdx.x + it * THREADS, r = i / (U / 2);
+        const int b = r0 + r, j = c.j0 + 2 * (i - r * (U / 2));
+        if (i >= items || b >= c.b_hi || j >= H) continue;  // H even: j + 1 < H too
+        const size_t row = ((size_t)t * G + g) * B + b;
+        const C* cc = c4 + row * 4 * H + j;
+        Pre& p = pre[it];
+        p.dy = mma::ld2(dy + row * H + j);
+        p.cr = mma::ld2(cc);
+        p.cz = mma::ld2(cc + H);
+        p.cn = mma::ld2(cc + 2 * H);
+        p.cnh = mma::ld2(cc + 3 * H);
+        p.ch = mma::ld2(ch + row * H + j);
+        p.chd = step > 0 ? mma::ld2(chd + ((size_t)g * B + b) * H + j) : make_float2(0.f, 0.f);
+      }
       if (step > 0) {
-        const int nvec = H3 / VEC;
-        for (int i = threadIdx.x; i < nb * nvec; i += THREADS) {
-          const int r = i / nvec, k = (i - r * nvec) * VEC;
-          copy16_l2(xin + (size_t)(b0 + r) * H3 + k, x_s + r * XP + k);
+        float acc[MT][NT][4] = {}, lo[MT][NT][4] = {};
+        __syncthreads();  // the ring is free: every thread is past the last pass
+        auto load = [&](int kc) {
+          if (kc < nk) {
+            T* dst = a_s + (kc % STAGES) * R * ALD;
+            for (int i = threadIdx.x; i < R * PIECES; i += THREADS) {
+              const int r = i / PIECES, kk = (i - r * PIECES) * VEC, k = kc * BK + kk;
+              const bool ok = r0 + r < c.b_hi && k < H3;
+              cp_async16(dst + r * ALD + kk, ok ? xin + (size_t)(r0 + r) * H3 + k : xin, ok);
+            }
+          }
+          cp_commit();
+        };
+        for (int s = 0; s < STAGES - 1; ++s) load(s);
+        for (int kc = 0; kc < nk; ++kc) {
+          cp_wait<STAGES - 2>();
+          __syncthreads();  // chunk kc is in; every warp is past chunk kc - 1
+          load(kc + STAGES - 1);
+          const T* as = a_s + (kc % STAGES) * R * ALD + wm * 16 * MT * ALD;
+          const T* ws = w_s + wn * 8 * NT * WLD + kc * BK;
+          const int kend = min(BK, KW - kc * BK);
+          for (int kk = wk * KP; kk < kend; kk += WK * KP) {
+            Op a[MT][2][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) mma::load_a2(a[mt], as + mt * 16 * ALD + kk, ALD);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              Op b[2][2];
+              mma::load_b2(b, ws + nt * 8 * WLD + kk, WLD);
+#pragma unroll
+              for (int s = 0; s < 2; ++s)
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) mma::mma(acc[mt][nt], lo[mt][nt], a[mt][s], b[s]);
+            }
+          }
         }
+        cp_wait<0>();
+        __syncthreads();  // the ring is free for the partial tiles
+        float* pw = part + ((size_t)wk * R + wm * 16 * MT) * RLD + wn * 8 * NT;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              mma::st2(pw + (mt * 16 + gq + 8 * h) * RLD + nt * 8 + 2 * q,
+                       acc[mt][nt][2 * h] + lo[mt][nt][2 * h],
+                       acc[mt][nt][2 * h + 1] + lo[mt][nt][2 * h + 1]);
         __syncthreads();
       }
-      if (bt < nb && j < H) {
-        const int b = b0 + bt;
-        const size_t row = ((size_t)t * G + g) * B + b;
-        float dh = 0.f;
-        if (step > 0) {
-          const T* xr = x_s + bt * XP;
-          float acc = 0.f;
-          for (int k = 0; k < H3; k += 8) {
-            float x[8], w[8];
-            load8_smem(xr + k, x);
-            load8_smem(wrow + k, w);
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc = fmaf(x[e], w[e], acc);
+      for (int it = 0; it < ITEMS; ++it) {
+        const int i = threadIdx.x + it * THREADS, r = i / (U / 2), u = 2 * (i - r * (U / 2));
+        const int b = r0 + r, j = c.j0 + u;
+        if (i >= items || b >= c.b_hi || j >= H) continue;
+        const Pre& p = pre[it];
+        const size_t row = ((size_t)t * G + g) * B + b;
+        float dh0 = 0.f, dh1 = 0.f;
+        if (step > 0) {
+          float s0 = 0.f, s1 = 0.f;
+          for (int kw = 0; kw < WK; ++kw) {
+            const float2 v = mma::ld2(part + ((size_t)kw * R + r) * RLD + u);
+            s0 += v.x, s1 += v.y;
           }
-          dh = chd[((size_t)g * B + b) * H + j] + acc;
+          dh0 = p.chd.x + s0;
+          dh1 = p.chd.y + s1;
         }
-        const float d = dh + to_f32(dy[row * H + j]);
-        const C* cc = c4 + row * 4 * H;
-        const float e_r = to_f32(cc[j]) * d, e_z = to_f32(cc[H + j]) * d;
-        const float e_n = to_f32(cc[2 * H + j]) * d, e_nh = to_f32(cc[3 * H + j]) * d;
+        const float d0 = dh0 + p.dy.x, d1 = dh1 + p.dy.y;
+        const float er0 = p.cr.x * d0, er1 = p.cr.y * d1, ez0 = p.cz.x * d0, ez1 = p.cz.y * d1;
+        const float en0 = p.cn.x * d0, en1 = p.cn.y * d1;
+        const float eh0 = p.cnh.x * d0, eh1 = p.cnh.y * d1;
         if (LIN) {
-          T* o = out4 + row * 4 * H;
-          o[j] = from_f32<T>(e_r);
-          o[H + j] = from_f32<T>(e_z);
-          o[2 * H + j] = from_f32<T>(e_n);
-          o[3 * H + j] = from_f32<T>(e_nh);
+          T* o = out4 + row * 4 * H + j;
+          mma::st2(o, er0, er1);
+          mma::st2(o + H, ez0, ez1);
+          mma::st2(o + 2 * H, en0, en1);
+          mma::st2(o + 3 * H, eh0, eh1);
         } else {
-          T* dx = dxp + row * H3;
-          dx[j] = from_f32<T>(e_r);
-          dx[H + j] = from_f32<T>(e_z);
-          dx[2 * H + j] = from_f32<T>(e_n);
-          dhn[row * H + j] = from_f32<T>(e_nh);
+          T* dx = dxp + row * H3 + j;
+          mma::st2(dx, er0, er1);
+          mma::st2(dx + H, ez0, ez1);
+          mma::st2(dx + 2 * H, en0, en1);
+          mma::st2(dhn + row * H + j, eh0, eh1);
         }
-        T* xo = xout + (size_t)b * H3;
-        xo[j] = from_f32<T>(e_r);
-        xo[H + j] = from_f32<T>(e_z);
-        xo[2 * H + j] = from_f32<T>(e_nh);
-        chd[((size_t)g * B + b) * H + j] = ch[row * H + j] * d;
+        T* xo = xout + (size_t)b * H3 + j;
+        mma::st2(xo, er0, er1);
+        mma::st2(xo + H, ez0, ez1);
+        mma::st2(xo + 2 * H, eh0, eh1);
+        mma::st2(chd + ((size_t)g * B + b) * H + j, p.ch.x * d0, p.ch.y * d1);
       }
-      __syncthreads();
     }
     dir_barrier(gbar, (unsigned)nblk);
   }
 }
 
+// The warp tiles: 16 x 16 (MT 1, NT 2) and 32 x 32 (MT 2, NT 4).
+constexpr int TILES = 2;
+constexpr int TILE_MT[TILES] = {1, 2}, TILE_NT[TILES] = {2, 4};
+
 struct Plan {
-  int U, nblk, S, Bs, tiles;
+  int tile, U, nblk, S, Bs, WM, BK;
   size_t smem;
+  long work, bytes;
 };
 
 // The launch plan of a cooperative grid over G groups, `nblk` CTAs of U
-// units per batch split: among the unit widths whose CTAs are all
-// resident (smem_of(U, rows) bytes each), the fewest row tiles per step,
-// then the fewest CTAs per split (less of dhproj restaged per step).
-template <typename K, typename F>
-cudaError_t plan_grid(K kernel, F smem_of, int max_groups, int G, int B, int H, Plan* best) {
+// units per batch split, one CTA per SM (the ring takes the shared memory
+// that wh leaves). For each warp tile and unit width: the most batch
+// splits the SMs hold (down to 16 rows a split), the fewest warps along
+// the rows that cover a split in one pass (at most 8 / WN, a pass of at
+// most 2048 row-units for the epilogue's items, and fewer where the ring
+// would not fit), and the largest K chunk (a multiple of GRAIN bytes)
+// that fits. Among them the least work per SM and step (row-units of its
+// passes, padded to whole warp tiles), then the fewest dhproj bytes
+// restaged per SM and step, then the fewest CTAs per split, then the
+// larger warp tile. kernels[tile] is the kernel of each warp tile. The 16
+// rows of wh at U = 16 bound H: f32 up to 1120, bf16 up to 2240, above
+// K5's own bound (H <= 1056 on 132 SMs).
+template <typename T, typename K>
+cudaError_t plan_grid(const K (&kernels)[TILES], int max_groups, int G, int B, int H, Plan* best) {
   int sms = 0, smem_max = 0;
   cudaError_t e = uasr_coop_limits(&sms, &smem_max);
   if (e != cudaSuccess) return e;
-  *best = Plan{0, 0, 0, 0, 0, 0};
-  for (int U = 1; U <= THREADS; U *= 2) {
-    const int BT = THREADS / U;
-    const size_t smem = smem_of(U, min(B, BT));
-    if (smem > (size_t)smem_max) continue;
-    e = uasr_set_smem(kernel, smem);
-    int occ = 0;
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, smem);
-    if (e != cudaSuccess) return e;
-    const int nblk = (H + U - 1) / U;
-    const int cap = occ * sms;
-    if (G * nblk > cap) continue;
-    int S = min(cap / (G * nblk), (B + BT - 1) / BT);
-    S = max(1, min(S, max_groups / G));
-    const int Bs = (B + S - 1) / S;
-    S = (B + Bs - 1) / Bs;  // no empty split
-    const int tiles = (Bs + BT - 1) / BT;
-    if (best->U == 0 || tiles < best->tiles || (tiles == best->tiles && nblk < best->nblk))
-      *best = Plan{U, nblk, S, Bs, tiles, smem};
+  const int KW = k_round<T>(H), grain = GRAIN / sizeof(T);
+  *best = Plan{-1, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  for (int tile = 0; tile < TILES; ++tile) {
+    const int MT = TILE_MT[tile], NT = TILE_NT[tile];
+    for (int U = 8 * NT; U <= 64; U *= 2) {
+      const int WN = U / (8 * NT), nblk = (H + U - 1) / U;
+      if (WN > WARPS || G * nblk > sms) continue;
+      int S = min(sms / (G * nblk), (B + 15) / 16);
+      S = max(1, min(S, max_groups / G));
+      const int Bs = (B + S - 1) / S;
+      S = (B + Bs - 1) / Bs;  // no empty split
+      const size_t w = wh_smem<T>(U, H);
+      int WM = 1;
+      while (2 * WM * WN <= WARPS && 16 * MT * WM < Bs && 32 * MT * WM * U <= 2 * ITEMS * THREADS)
+        WM *= 2;
+      while (WM > 1 && w + ring_smem<T>(16 * MT * WM, grain) > (size_t)smem_max) WM /= 2;
+      const int R = 16 * MT * WM, WK = WARPS / (WN * WM), passes = (Bs + R - 1) / R;
+      const size_t part = partial_smem(WK, R, U);
+      int BK = grain;
+      while (BK < KW && w + ring_smem<T>(R, BK + grain) <= (size_t)smem_max) BK += grain;
+      while (ring_smem<T>(R, BK) < part) BK += grain;  // room for the partial tiles
+      const size_t smem = w + ring_smem<T>(R, BK);
+      if (smem > (size_t)smem_max) continue;
+      const long per_sm = (G * S * nblk + sms - 1) / sms;
+      const long work = per_sm * passes * R * U, bytes = per_sm * Bs;
+      const bool better =
+          best->tile < 0 || work < best->work ||
+          (work == best->work &&
+           (bytes < best->bytes ||
+            (bytes == best->bytes && (nblk < best->nblk || (nblk == best->nblk && tile > best->tile)))));
+      if (better) *best = Plan{tile, U, nblk, S, Bs, WM, BK, smem, work, bytes};
+    }
   }
-  if (best->U == 0) return cudaErrorCooperativeLaunchTooLarge;
-  return uasr_set_smem(kernel, best->smem);
+  if (best->tile < 0) return cudaErrorCooperativeLaunchTooLarge;
+  const K kernel = kernels[best->tile];
+  e = uasr_set_smem(kernel, best->smem);
+  int occ = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, best->smem);
+  if (e != cudaSuccess) return e;
+  return occ >= 1 ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
 }
 
 }  // namespace gru_bwd

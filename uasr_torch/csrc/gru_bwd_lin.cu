@@ -14,9 +14,10 @@
 // TPU variants do). dxp = out[..., :3H]; dwh and dbh come from columns
 // 0:2H and 3H:4H outside the kernel.
 //
-// Design: K5-bwd's phase 2 alone, on the same persistent cooperative
-// grid: no gate recomputation and no transcendentals, one dot product of
-// length 3H per unit, row and step.
+// Design: K5-bwd's reverse chain alone (gru_bwd_chain.cuh), on the same
+// persistent cooperative grid: no gate recomputation and no
+// transcendentals, one tensor-core product [rows, 3H] x [3H, U] per CTA
+// and step.
 //
 // Bound: 2 * steps * H * 3H FLOP over the active row-steps, and the bytes
 // of c4, ch, dy, wh and out (~0.3 GB in f32 at T = 300, B = 64, H = 384):
@@ -29,35 +30,38 @@ namespace {
 
 using namespace gru_bwd;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int MT, int NT>
+__global__ void __launch_bounds__(THREADS, 1)
 gru_bwd_lin_kernel(const T* __restrict__ c4, const float* __restrict__ ch,
                    const T* __restrict__ dy, const T* __restrict__ wh, T* __restrict__ out,
                    float* chd, T* xch, unsigned* bar, int Tn, int G, int B, int H, int U,
-                   int nblk, int S, int Bs) {
-  extern __shared__ __align__(16) float smem[];
-  reverse_chain<T, T, true>(c4, ch, dy, wh, out, nullptr, nullptr, chd, xch, bar, Tn, G, B, H, U,
-                            nblk, S, Bs, smem);
+                   int nblk, int S, int Bs, int WM, int BK) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  reverse_chain<T, T, true, MT, NT>(c4, ch, dy, wh, out, nullptr, nullptr, chd, xch, bar, Tn, G,
+                                    B, H, U, nblk, S, Bs, WM, BK,
+                                    reinterpret_cast<T*>(smem_raw));
 }
 
 template <typename T>
 cudaError_t launch(const void* c4, const float* ch, const void* dy, const void* wh, void* out,
                    float* chd, void* xch, unsigned* bar, int max_groups, int Tn, int G, int B,
                    int H, cudaStream_t stream, int* units, int* splits) {
-  auto kernel = gru_bwd_lin_kernel<T>;
-  auto smem_of = [H](int U, int rows) { return chain_smem<T>(U, rows, H); };
+  using Kernel = decltype(&gru_bwd_lin_kernel<T, 1, 2>);
+  const Kernel kernels[TILES] = {gru_bwd_lin_kernel<T, TILE_MT[0], TILE_NT[0]>,
+                                 gru_bwd_lin_kernel<T, TILE_MT[1], TILE_NT[1]>};
   Plan best;
-  cudaError_t e = plan_grid(kernel, smem_of, max_groups, G, B, H, &best);
+  cudaError_t e = plan_grid<T>(kernels, max_groups, G, B, H, &best);
   if (e != cudaSuccess) return e;
   *units = best.U;
   *splits = best.S;
   const T *c = static_cast<const T*>(c4), *dyp = static_cast<const T*>(dy);
   const T* w = static_cast<const T*>(wh);
   T *o = static_cast<T*>(out), *xc = static_cast<T*>(xch);
-  int U = best.U, nblk = best.nblk, S = best.S, Bs = best.Bs;
-  void* args[] = {&c, &ch, &dyp, &w, &o, &chd, &xc, &bar, &Tn, &G, &B, &H, &U, &nblk, &S, &Bs};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(G * S * nblk), dim3(THREADS), args,
-                                  best.smem, stream);
+  int U = best.U, nblk = best.nblk, S = best.S, Bs = best.Bs, WM = best.WM, BK = best.BK;
+  void* args[] = {&c,  &ch, &dyp, &w, &o,    &chd, &xc, &bar, &Tn, &G,
+                  &B,  &H,  &U,   &nblk, &S, &Bs,  &WM, &BK};
+  e = cudaLaunchCooperativeKernel((const void*)kernels[best.tile], dim3(G * S * nblk),
+                                  dim3(THREADS), args, best.smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -17,7 +17,8 @@ package.
 ``_fwd_kernel``, ``_bwd_kernel`` and ``_bwd_lin_kernel`` with the custom
 VJP ``_fwd_rule`` / ``_bwd_rule``), differentiable through ``GRUScan``.
 Its backward follows ``BWD_IMPL``, read from ``UASR_GRU_BWD_IMPL`` as the
-JAX module reads it: ``fused`` (default) recomputes the gates (K5-bwd);
+JAX module reads it: ``fused`` (default) recomputes the gates (K5-bwd:
+a coefficient kernel, ``gru_bwd_coeffs_cuda``, then the reverse chain);
 ``linear`` has the forward emit per-step coefficients (K5 with
 ``save_coeffs``) and runs the slim reverse chain (K8).
 """
@@ -34,7 +35,8 @@ from uasr_torch import _build
 LAUNCHES = 0  # K2 launches by bigru_scan_cuda (read by chip_smoke.py)
 LAUNCHES_BWD = 0  # K2-bwd launches by bigru_scan_bwd_cuda
 LAUNCHES_GRU = 0  # K5 launches by gru_scan_cuda
-LAUNCHES_GRU_BWD = 0  # K5-bwd launches by gru_scan_bwd_cuda
+LAUNCHES_GRU_BWD = 0  # K5-bwd (reverse chain) launches by gru_scan_bwd_cuda
+LAUNCHES_GRU_COEFFS = 0  # K5-bwd coefficient-kernel launches by gru_bwd_coeffs_cuda
 LAUNCHES_GRU_LIN = 0  # K8 launches by gru_scan_bwd_lin_cuda
 LAST_UNITS = None  # hidden units per CTA of the last K2 launch
 LAST_UNITS_BWD = None  # hidden units per CTA of the last K2-bwd launch
@@ -294,7 +296,7 @@ def _gates(xp, hp, h_prev):
 
 def _coeffs(r, z, n, hn, h_prev, mf):
     """The backward step's linearisation coefficients, f32
-    (``_fwd_kernel`` with ``save_coeffs``, ``_bwd_kernel`` phase 1):
+    (``_fwd_kernel`` with ``save_coeffs``, K5-bwd's coefficient kernel):
     c4 = (c_r, c_z, c_n2, c_nh) [..., 4H] and ch = (1 - mf) + mf z."""
     c_n2 = mf * ((1.0 - z) * (1.0 - n * n))
     c4 = torch.cat([c_n2 * (hn * (r * (1.0 - r))), mf * ((h_prev - n) * (z * (1.0 - z))),
@@ -339,7 +341,7 @@ def gru_scan_reference(xproj, wh, bh, tmask, save_coeffs: bool = False):
 
 
 def _reverse_chain(c4, ch, dy, wh, out_dtype):
-    """The reverse chain of K5-bwd's phase 2 and of K8, step for step:
+    """The reverse chain of K5-bwd and of K8, step for step:
     d = dh + dy[t] (f32); e = c4[t] * d per gate block, stored in
     ``out_dtype``; dh = ch[t] d + (e_r, e_z, e_nh)->wh.dtype @ wh^T (f32
     accumulation). Returns e [T, G, B, 4H] = (dr_pre, dz_pre, dn_pre, dhn)."""
@@ -362,21 +364,27 @@ def _prev_trajectory(ys):
     return torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
 
 
-def gru_scan_bwd_reference(xproj, wh, bh, tmask, ys, dy):
-    """Plain version of K5-bwd (``_bwd_fused``), step for step.
-
-    K5's inputs, its output ys and the cotangent dy [T, G, B, H]. Phase 1
-    recomputes hp = h_prev @ wh + bh (h_prev read in the stored dtype, f32
-    accumulation) and the gates in f32 into the coefficients; phase 2 is
-    the reverse chain. Returns (dxp [T, G, B, 3H], dhn [T, G, B, H]) in
-    xproj's dtype: d of the input projections and of the n block of
-    h_prev @ wh."""
-    H = ys.shape[-1]
+def gru_bwd_coeffs_reference(xproj, wh, bh, tmask, ys):
+    """Plain version of K5-bwd's coefficient kernel (``_bwd_kernel``'s
+    first phase, all steps at once): hp = h_prev @ wh + bh (h_prev read in
+    the stored dtype, f32 accumulation) and the gates in f32 into the
+    coefficients c4 [T, G, B, 4H] and ch [T, G, B, H], both f32."""
     f32 = torch.float32
     h_prev = _prev_trajectory(ys).to(f32)
     hp = torch.matmul(h_prev, wh.to(f32)) + bh.to(f32)[:, None, :]
     r, z, n, hn = _gates(xproj.to(f32), hp, h_prev)
-    c4, ch = _coeffs(r, z, n, hn, h_prev, tmask.to(f32)[..., None])
+    return _coeffs(r, z, n, hn, h_prev, tmask.to(f32)[..., None])
+
+
+def gru_scan_bwd_reference(xproj, wh, bh, tmask, ys, dy):
+    """Plain version of K5-bwd (``_bwd_fused``), step for step.
+
+    K5's inputs, its output ys and the cotangent dy [T, G, B, H]. The
+    coefficients of ``gru_bwd_coeffs_reference``, then the reverse chain.
+    Returns (dxp [T, G, B, 3H], dhn [T, G, B, H]) in xproj's dtype: d of
+    the input projections and of the n block of h_prev @ wh."""
+    H = ys.shape[-1]
+    c4, ch = gru_bwd_coeffs_reference(xproj, wh, bh, tmask, ys)
     out = _reverse_chain(c4, ch, dy, wh, xproj.dtype)
     return out[..., :3 * H], out[..., 3 * H:]
 
@@ -451,43 +459,70 @@ def gru_scan_cuda(xproj, wh, bh, tmask, save_coeffs: bool = False):
 def _lib_gru_bwd() -> ctypes.CDLL:
     lib = _build.load("gru_bwd")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.uasr_gru_bwd.argtypes = [P] * 13 + [I] * 6 + [P, I, P, P]
+    lib.uasr_gru_bwd_coeffs.argtypes = [P] * 7 + [I] * 5 + [P, I]
+    lib.uasr_gru_bwd_coeffs.restype = I
+    lib.uasr_gru_bwd.argtypes = [P] * 9 + [I] * 6 + [P, I, P, P]
     lib.uasr_gru_bwd.restype = I
     return lib
 
 
-def gru_scan_bwd_cuda(xproj, wh, bh, tmask, ys, dy):
-    """Launch K5-bwd on CUDA tensors; same contract as the plain version."""
-    global LAUNCHES_GRU_BWD, LAST_GRU_BWD_PLAN
+def _check_gru_bwd(what, xproj, wh, bh, tmask, ys, dy=None):
     T, G, B, H3 = xproj.shape
     H = H3 // 3
     dt = xproj.dtype
     if not xproj.is_cuda:
-        raise ValueError("gru backward kernel takes CUDA tensors; GRUScan runs the plain "
-                         "version on the CPU")
-    _check_gru("gru backward kernel", dt, H, G,
+        raise ValueError(f"{what} takes CUDA tensors; GRUScan runs the plain version on the CPU")
+    _check_gru(what, dt, H, G,
                [(xproj, (T, G, B, H3), dt), (wh, (G, H, H3), dt), (bh, (G, H3), dt),
-                (ys, (T, G, B, H), dt), (dy, (T, G, B, H), dt)])
+                (ys, (T, G, B, H), dt)] + ([] if dy is None else [(dy, (T, G, B, H), dt)]))
     if tmask.shape != (T, G, B):
-        raise ValueError(f"gru backward kernel: tmask must be [T, G, B], got "
-                         f"{tuple(tmask.shape)}")
+        raise ValueError(f"{what}: tmask must be [T, G, B], got {tuple(tmask.shape)}")
+
+
+def gru_bwd_coeffs_cuda(xproj, wh, bh, tmask, ys):
+    """Launch K5-bwd's coefficient kernel on CUDA tensors; same contract as
+    ``gru_bwd_coeffs_reference``."""
+    global LAUNCHES_GRU_COEFFS
+    _check_gru_bwd("gru backward coefficient kernel", xproj, wh, bh, tmask, ys)
+    T, G, B, H3 = xproj.shape
+    H = H3 // 3
     dev = xproj.device
     f32 = torch.float32
     mask = tmask.to(device=dev, dtype=f32).contiguous()
+    c4 = torch.empty(T, G, B, 4 * H, dtype=f32, device=dev)
+    ch = torch.empty(T, G, B, H, dtype=f32, device=dev)
+    lib = _lib_gru_bwd()
+    code = lib.uasr_gru_bwd_coeffs(
+        xproj.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(), ys.data_ptr(),
+        c4.data_ptr(), ch.data_ptr(), T, G, B, H, _DTYPES[xproj.dtype], *_launch_args(dev),
+    )
+    _build.check(lib, code, "gru_bwd coefficient kernel")
+    LAUNCHES_GRU_COEFFS += 1
+    return c4, ch
+
+
+def gru_scan_bwd_cuda(xproj, wh, bh, tmask, ys, dy):
+    """Launch K5-bwd on CUDA tensors (the coefficient kernel, then the
+    reverse chain); same contract as the plain version."""
+    global LAUNCHES_GRU_BWD, LAST_GRU_BWD_PLAN
+    _check_gru_bwd("gru backward kernel", xproj, wh, bh, tmask, ys, dy)
+    T, G, B, H3 = xproj.shape
+    H = H3 // 3
+    dt = xproj.dtype
+    dev = xproj.device
+    f32 = torch.float32
+    c4, ch = gru_bwd_coeffs_cuda(xproj, wh, bh, tmask, ys)
     dxp = torch.empty(T, G, B, H3, dtype=dt, device=dev)
     dhn = torch.empty(T, G, B, H, dtype=dt, device=dev)
-    c4 = torch.empty(T, G, B, 4 * H, dtype=f32, device=dev)  # phase-1 coefficients
-    ch = torch.empty(T, G, B, H, dtype=f32, device=dev)
     chd = torch.empty(G, B, H, dtype=f32, device=dev)  # ch * d carried to the next step
     xch = torch.empty(2, G, B, H3, dtype=dt, device=dev)  # per-step exchange rows
     bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
     units, splits = ctypes.c_int(0), ctypes.c_int(0)
     lib = _lib_gru_bwd()
     code = lib.uasr_gru_bwd(
-        xproj.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(), ys.data_ptr(),
-        dy.data_ptr(), dxp.data_ptr(), dhn.data_ptr(), c4.data_ptr(), ch.data_ptr(),
-        chd.data_ptr(), xch.data_ptr(), bar.data_ptr(), _GRU_BAR_GROUPS, T, G, B, H,
-        _DTYPES[dt], *_launch_args(dev), ctypes.byref(units), ctypes.byref(splits),
+        c4.data_ptr(), ch.data_ptr(), dy.data_ptr(), wh.data_ptr(), dxp.data_ptr(),
+        dhn.data_ptr(), chd.data_ptr(), xch.data_ptr(), bar.data_ptr(), _GRU_BAR_GROUPS, T, G,
+        B, H, _DTYPES[dt], *_launch_args(dev), ctypes.byref(units), ctypes.byref(splits),
     )
     _build.check(lib, code, "gru_bwd kernel")
     LAUNCHES_GRU_BWD += 1
