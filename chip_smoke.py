@@ -46,7 +46,8 @@ and prints no result line):
    beam decode;
 7. K5 grouped GRU at the recurrent encoders' shapes (H=384, f32: 12 s
    offline T=300 B=64, the lc_bigru backward windows T=24 B=1216, one
-   streaming step's windows T=24 B=64) and K6 fused attention at the
+   streaming step's windows T=24 B=64; ragged lengths, and offline and at
+   the windows every row live too, with K5's plan) and K6 fused attention at the
    attention encoders' (B=32, T=400, 8 heads of 64, bf16, with the
    conformer's bias and without, f32; and T=832, a 33 s utterance, bf16
    with the bias), against their plain versions;
@@ -1222,29 +1223,17 @@ def phase_k5_k6(torch, np, results: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
 
     # ---- K5: 12 s offline (T=300, B=64), the backward windows (T=24,
-    # B=64*19), one streaming step's windows (T=24, B=64); ragged lengths
+    # B=64*19), one streaming step's windows (T=24, B=64); ragged lengths,
+    # and offline and at the windows also every row live for all T steps
+    # (as cuDNN's yardstick runs, and as real lc_bigru windows nearly all are)
     H, B = K5_H, STREAM_B
     for what, T, rows in (("offline", K5_T, B), ("windows", K5_WINDOW, B * K5_WINDOWS),
                           ("step", K5_WINDOW, B)):
-        lengths = torch.randint(0, T + 1, (rows,), device=dev, generator=gen)
-        lengths[0] = T
-        tmask = (torch.arange(T, device=dev)[:, None] < lengths[None])[:, None]  # [T, 1, B]
+        ragged = torch.randint(0, T + 1, (rows,), device=dev, generator=gen)
+        ragged[0] = T
         xp = 0.5 * torch.randn(T, 1, rows, 3 * H, device=dev, generator=gen)
         wh = torch.randn(1, H, 3 * H, device=dev, generator=gen) / H ** 0.5
         bh = 0.1 * torch.randn(1, 3 * H, device=dev, generator=gen)
-        args = (xp, wh, bh, tmask)
-        got = k5.gru_scan_cuda(*args)
-        ref = k5.gru_scan_reference(*args)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        check(bool(torch.isfinite(got).all()), f"K5 {what}: non-finite output")
-        check(err <= 1e-4, f"K5 {what}: max|d| {err:.3e} > 1e-4")
-        check(not bool(got[:, 0, lengths == 0].any()), f"K5 {what}: a zero-length row moved")
-        ms = cuda_ms(torch, lambda: k5.gru_scan_cuda(*args), 20)
-        plain = cuda_ms(torch, lambda: k5.gru_scan_reference(*args), 2)
-        steps = int(lengths.sum())  # row-steps the masks keep active
-        nbytes = 4 * (T * rows * 3 * H + H * 3 * H + 3 * H + T * rows * H) + 4 * T * rows
-        bms, by = bound(nbytes, 2 * steps * H * 3 * H, "float32")
         # cuDNN's unidirectional GRU on the same unmasked shapes (its input
         # projection from D = H included)
         gru = torch.nn.GRU(H, H).to(dev)
@@ -1252,11 +1241,29 @@ def phase_k5_k6(torch, np, results: dict) -> None:
         x = torch.randn(T, rows, H, device=dev, generator=gen)
         with torch.inference_mode():
             lib = cuda_ms(torch, lambda: gru(x), 20)
-        print(f"K5 gru     {what:8s} T={T} B={rows} H={H} (units/CTA, splits)={k5.LAST_GRU_PLAN}: "
-              f"max|d| {err:.3e} (tol 1e-4) kernel {ms:.4f} ms plain {plain:.4f} ms cuDNN GRU "
-              f"{lib:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
-        results[f"K5:{what}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                                     bound_by=by, library_ms=lib)
+        for full in (False, True) if what != "step" else (False,):
+            lengths = torch.full_like(ragged, T) if full else ragged
+            tmask = (torch.arange(T, device=dev)[:, None] < lengths[None])[:, None]  # [T, 1, B]
+            args = (xp, wh, bh, tmask)
+            tag = f"{what}:full" if full else what
+            got = k5.gru_scan_cuda(*args)
+            plan = (k5.LAST_GRU_WH, *k5.LAST_GRU_PLAN)
+            ref = k5.gru_scan_reference(*args)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            check(bool(torch.isfinite(got).all()), f"K5 {tag}: non-finite output")
+            check(err <= 1e-4, f"K5 {tag}: max|d| {err:.3e} > 1e-4")
+            check(not bool(got[:, 0, lengths == 0].any()), f"K5 {tag}: a zero-length row moved")
+            ms = cuda_ms(torch, lambda: k5.gru_scan_cuda(*args), 20)
+            plain = cuda_ms(torch, lambda: k5.gru_scan_reference(*args), 2)
+            steps = int(lengths.sum())  # row-steps the masks keep active
+            nbytes = 4 * (T * rows * 3 * H + H * 3 * H + 3 * H + T * rows * H) + 4 * T * rows
+            bms, by = bound(nbytes, 2 * steps * H * 3 * H, "float32")
+            print(f"K5 gru     {tag:12s} T={T} B={rows} H={H} (wh, units/CTA, splits)={plan}: "
+                  f"max|d| {err:.3e} (tol 1e-4) kernel {ms:.4f} ms plain {plain:.4f} ms cuDNN "
+                  f"GRU {lib:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+            results[f"K5:{tag}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                                        bound_by=by, library_ms=lib)
 
     # ---- K6: B=32, T=400, 8 x 64, keys of a 12-16 s bucket, bf16 (and f32);
     # T=832 (a 33 s utterance), bf16 with the bias
@@ -1563,12 +1570,12 @@ def gru_bwd_case(torch, gen, what: str, T: int, rows: int, H: int, dtype: str,
     ys, c4, ch = k5.gru_scan_cuda(*args, tmask, save_coeffs=True)
     r_ys, r_c4, r_ch = k5.gru_scan_reference(*args, tmask, save_coeffs=True)
     got = k5.gru_scan_bwd_cuda(*args, tmask, ys, dy)
-    plan = k5.LAST_GRU_BWD_PLAN
+    plan = (k5.LAST_GRU_BWD_WH, *k5.LAST_GRU_BWD_PLAN)
     ref = k5.gru_scan_bwd_reference(*args, tmask, ys, dy)
     bc4, bch = k5.gru_bwd_coeffs_cuda(*args, tmask, ys)
     r_bc4, r_bch = k5.gru_bwd_coeffs_reference(*args, tmask, ys)
     lin = k5.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1])
-    plan_l = k5.LAST_GRU_BWD_PLAN
+    plan_l = (k5.LAST_GRU_BWD_WH, *k5.LAST_GRU_BWD_PLAN)
     r_lin = k5.gru_scan_bwd_lin_reference(c4, ch, dy, args[1])
     torch.cuda.synchronize()
     # K2-bwd's bars: f32 1e-4, bf16 one bf16 ulp (2^-7) of the largest
@@ -1586,7 +1593,7 @@ def gru_bwd_case(torch, gen, what: str, T: int, rows: int, H: int, dtype: str,
     l_err = float((lin.float() - r_lin.float()).abs().max())
     zero = lengths == 0
     tag = f"{what}:full" if full else what
-    print(f"K5-bwd/K8  {tag:13s} {dtype:8s} T={T} B={rows} H={H} (units/CTA, splits) K5-bwd "
+    print(f"K5-bwd/K8  {tag:13s} {dtype:8s} T={T} B={rows} H={H} (wh, units/CTA, splits) K5-bwd "
           f"{plan} K8 {plan_l}: K5 coefficients max|d|/max(1,|ref|) {c_err:.3e}; K5-bwd "
           f"coefficient kernel max|d| {bc_err:.3e} (tol {bc_tol:.3e}); K5-bwd max|d| "
           f"{err:.3e}, K8 {l_err:.3e}, largest |ref| {scale:.3e} / {l_scale:.3e} "

@@ -6,9 +6,11 @@ and full-warp beams, V above a warp and at 4233, a non-zero blank, zero
 lengths, and a decode fed in chunks from a carried state (K4),
 T = 1, odd T, one row and batch rows split over passes (K2-bwd), small and
 large S, a non-zero blank and zero-length rows (K3, K3-bwd), the edges of
-K5-bwd's tensor-core tiles and its coefficient kernel alone, input each
-kernel must refuse, and the encoder, one training step and the streaming
-recognizer on CUDA against the same weights on the CPU.
+K5-bwd's tensor-core tiles and its coefficient kernel alone, K5's skipped
+products of masked passes and warp tiles, wh streamed past shared memory
+(K5, K5-bwd, K8 at H = 1536 and 2304), input each kernel must refuse, and
+the encoder, one training step and the streaming recognizer on CUDA against
+the same weights on the CPU.
 
 Every test needs a CUDA card and skips without one. On the card, from the
 repository root (the package ``uasr`` and JAX are not needed there):
@@ -465,21 +467,29 @@ def _gru_group_problem(dev, T, G, B, H, seed, dead=0):
 
 # T = 1; B = 1; one group and two; the lc_bigru backward windows folded
 # into the batch (B = 1216, T = 24, H = 384) and one streaming step's
-# (B = 64); rows split over several tiles and batch splits
+# (B = 64); rows split over several tiles and batch splits; zero-length
+# trailing rows (GRU_DEAD_ROWS), so whole passes and, in f32, a 32-row
+# warp tile beside a live one (rows 472-503 of the split at 440) skip their
+# products; wh streamed past what shared memory holds (H = 1536, G = 3
+# and H = 2304, beyond the old bounds in f32 and bf16)
 GRU_CASES = [(1, 1, 1, 8), (1, 2, 3, 16), (9, 1, 1, 384), (7, 2, 5, 24), (24, 1, 1216, 384),
-             (24, 1, 64, 384), (6, 2, 300, 64), (13, 1, 40, 512)]
+             (24, 1, 64, 384), (6, 2, 300, 64), (13, 1, 40, 512), (6, 1, 1200, 384),
+             (3, 2, 20, 1536), (2, 1, 9, 2304)]
+GRU_DEAD_ROWS = {(6, 1, 1200, 384): 728}
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("T,G,B,H", GRU_CASES)
 def test_gru_kernel_matches_plain(dev, T, G, B, H, dtype, tol):
-    args, tmask, lengths = _gru_group_problem(dev, T, G, B, H, T * B + H + G)
+    args, tmask, lengths = _gru_group_problem(dev, T, G, B, H, T * B + H + G,
+                                              GRU_DEAD_ROWS.get((T, G, B, H), 0))
     args = tuple(x.to(dtype).contiguous() for x in args)
     before = cuda_gru.LAUNCHES_GRU
     got = cuda_gru.gru_scan_cuda(*args, tmask)
     ref = cuda_gru.gru_scan_reference(*args, tmask)
     torch.cuda.synchronize()
     assert cuda_gru.LAUNCHES_GRU == before + 1
+    assert cuda_gru.LAST_GRU_WH == ("streamed" if H >= 1536 else "resident")
     assert got.dtype == dtype and got.shape == (T, G, B, H)
     assert float((got.float() - ref.float()).abs().max()) <= tol
     zero = lengths == 0  # [G, B]: rows that never step keep h at zero
@@ -500,6 +510,11 @@ def test_gru_kernel_rejects_bad_input(dev):
         cuda_gru.gru_scan_cuda(x.double(), wh.contiguous().double(), bh.double(), tm)
     with pytest.raises(ValueError, match="CUDA tensors"):
         cuda_gru.gru_scan_cuda(x.cpu(), wh.contiguous().cpu(), bh.cpu(), tm.cpu())
+    G = torch.cuda.get_device_properties(dev).multi_processor_count + 1  # one CTA too many
+    with pytest.raises(ValueError, match="ceil"):
+        cuda_gru.gru_scan_cuda(torch.zeros(4, G, 2, 48, device=dev),
+                               torch.zeros(G, 16, 48, device=dev), torch.zeros(G, 48, device=dev),
+                               torch.ones(4, G, 2, device=dev))
     before = cuda_gru.LAUNCHES_GRU
     cuda_gru.gru_scan(x.cpu(), wh.contiguous().cpu(), bh.cpu(), tm.cpu())
     assert cuda_gru.LAUNCHES_GRU == before  # the plain version for CPU tensors
@@ -594,11 +609,14 @@ def _bar(ref, dtype):
 # edges of the tensor-core tiles (128 rows x 32 units in the coefficient
 # kernel, warp tiles of 16 x 16 or 32 x 32 in the chain): T B not a
 # multiple of 128 (B = 1217), H not a multiple of 16 or 32 (H = 40, 24),
-# G = 2 at H = 384, whole 128-row tiles masked (DEAD_ROWS), and K5's
-# widest H (1056), where 16 rows of wh just fit beside the chain's ring.
+# G = 2 at H = 384, whole 128-row tiles masked (DEAD_ROWS), H = 1056,
+# where 16 rows of wh just fit beside the chain's ring, and wh streamed
+# through the ring where no resident plan fits (H = 1536 at G = 3, and
+# H = 2304), in K5 and in the chain.
 GRU_BWD_CASES = [(1, 1, 1, 8), (1, 2, 3, 16), (9, 1, 1, 384), (7, 2, 5, 24),
                  (24, 1, 1216, 384), (6, 2, 300, 64), (13, 1, 40, 512), (24, 1, 1217, 384),
-                 (5, 2, 130, 40), (7, 2, 200, 384), (4, 1, 512, 64), (3, 1, 20, 1056)]
+                 (5, 2, 130, 40), (7, 2, 200, 384), (4, 1, 512, 64), (3, 1, 20, 1056),
+                 (3, 2, 20, 1536), (2, 1, 9, 2304)]
 DEAD_ROWS = {(4, 1, 512, 64): 256}  # zero-length rows at the end of every group
 
 
@@ -642,13 +660,16 @@ def test_gru_bwd_kernels_match_plain(dev, T, G, B, H, dtype):
     r_ys, r_c4, r_ch = cuda_gru.gru_scan_reference(*args, tmask, save_coeffs=True)
     before = (cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_COEFFS, cuda_gru.LAUNCHES_GRU_LIN)
     dxp, dhn = cuda_gru.gru_scan_bwd_cuda(*args, tmask, ys, dy)
+    wh_modes = [cuda_gru.LAST_GRU_BWD_WH]
     r_dxp, r_dhn = cuda_gru.gru_scan_bwd_reference(*args, tmask, ys, dy)
     out = cuda_gru.gru_scan_bwd_lin_cuda(c4, ch, dy, args[1])
+    wh_modes.append(cuda_gru.LAST_GRU_BWD_WH)
     r_out = cuda_gru.gru_scan_bwd_lin_reference(c4, ch, dy, args[1])
     torch.cuda.synchronize()
     assert (cuda_gru.LAUNCHES_GRU_BWD, cuda_gru.LAUNCHES_GRU_COEFFS,
             cuda_gru.LAUNCHES_GRU_LIN) == (before[0] + 1, before[1] + 1, before[2] + 1)
     assert c4.dtype == dtype and ch.dtype == torch.float32 and out.dtype == dtype
+    assert wh_modes == 2 * ["streamed" if H >= 1536 else "resident"]
     # the coefficients follow each side's own carry, which in bf16 may
     # round an ulp apart (K5's bf16 bar): one bf16 ulp of the largest
     for got, ref in ((c4, r_c4), (ch, r_ch)):

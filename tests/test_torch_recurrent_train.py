@@ -13,7 +13,8 @@ length-0 row, G in {1, 2}, T odd (not a multiple of the JAX BWD_TIME_TILE).
 
 Error budget of the card's f32 tensor-core products: K5-bwd's plain
 version with its products emulated as 3xTF32 against the f32 plain version
-at T = 24, H = 384 (the card's f32 bar, 1e-4 of the largest gradient).
+at T = 24, H = 384 (the card's f32 bar, 1e-4 of the largest gradient), and
+K5's plain version so at T = 300 and T = 24 (1e-4).
 
 Trainer level (f32, H = 16, 2 layers, B = 4, SpecAugment off): the JAX side
 runs gru_pallas with pallas_gru_scan rebound to interpret mode, the port
@@ -189,6 +190,37 @@ def test_3xtf32_products_hold_the_card_bar():
     err3, err1 = (max(float((a - x).abs().max()) for a, x in zip(bwd(mm), ref))
                   for mm in (_mm_3xtf32, lambda a, b: _tf32(a) @ _tf32(b)))
     assert 0 < err3 <= 1e-4 * scale
+    assert err1 > 100 * err3
+
+
+@pytest.mark.parametrize("T", [300, 24])
+def test_3xtf32_products_hold_the_forward_bar(T):
+    """The error budget of K5's f32 tensor-core products, set on the CPU:
+    the plain K5 (``gru_scan_reference``'s recurrence) with each step's
+    h_prev @ wh taken as 3xTF32 stays within the card's f32 bar (1e-4) of
+    the f32 plain version, offline (T = 300, where the carry's errors
+    compound) and at the lc_bigru windows (T = 24), H = 384, B = 8; single-
+    pass TF32 (operands rounded once) lands over a hundred times further
+    off."""
+    G, B, H = 1, 8, 384
+    arrays, m, _ = _problem(T, G, B, H, T + 1)
+    xp, wh, bh = (torch.tensor(a) for a in arrays)
+    mask = torch.tensor(m).to(torch.float32)[..., None]
+    ref = cuda_gru.gru_scan_reference(xp, wh, bh, torch.tensor(m))
+
+    def fwd(mm):
+        h = torch.zeros(G, B, H)
+        ys = []
+        for t in range(T):
+            r, z, n, _ = cuda_gru._gates(xp[t], mm(h, wh) + bh[:, None, :], h)
+            h = mask[t] * ((1.0 - z) * n + z * h) + (1.0 - mask[t]) * h
+            ys.append(h)
+        return torch.stack(ys)
+
+    assert float((fwd(torch.matmul) - ref).abs().max()) <= 1e-6  # the recurrence itself
+    err3, err1 = (float((fwd(mm) - ref).abs().max())
+                  for mm in (_mm_3xtf32, lambda a, b: _tf32(a) @ _tf32(b)))
+    assert 0 < err3 <= 1e-4
     assert err1 > 100 * err3
 
 

@@ -1,6 +1,6 @@
 // The reverse chain of the grouped GRU backward, shared by K5-bwd
 // (gru_bwd.cu, after its coefficient kernel) and K8 (gru_bwd_lin.cu), and
-// the launch plan of both.
+// the launch plan of both and of K5 (gru_fwd.cu), whose grid is the same.
 //
 // Per group g and step t = T-1 .. 0, dh = 0 first, dh carried in f32:
 //   d = dh + dy[t]
@@ -17,7 +17,10 @@
 // Grid: K5's persistent cooperative grid, one CTA per SM. CTA (g, s, c)
 // owns hidden units j0 .. j0+U-1 of group g and the batch rows
 // [s Bs, (s+1) Bs). It keeps the U rows of wh[g] (the columns of wh^T for
-// its units, 3H wide, zero past H and 3H) resident in shared memory in T.
+// its units, 3H wide, zero past H and 3H) resident in shared memory in T,
+// or, where they do not fit beside the ring (STREAM, chosen by the plan),
+// streams them: each K chunk of the U rows goes through the ring beside
+// the chunk of dhproj rows, every pass of every step.
 // dh[b, j] needs all 3H of the step before's dhproj, so each step every
 // CTA writes its units' dhproj (rounded to T, as the product wants it)
 // into a double-buffered exchange row in global memory and meets the
@@ -60,11 +63,12 @@ template <typename T>
 __host__ __device__ constexpr int row_pad() {
   return 64 / sizeof(T);  // 16 words: row pitches of 16 mod 32 words
 }
-// 3H rounded up to 128 bytes: the length of the resident wh rows
+// K rounded up to 128 bytes: the K extent of a product (the chain's 3H,
+// K5's H), and the length of resident wh rows
 template <typename T>
-__host__ __device__ inline int k_round(int H) {
+__host__ __device__ inline int k_round(int K) {
   constexpr int q = 128 / sizeof(T);
-  return (3 * H + q - 1) / q * q;
+  return (K + q - 1) / q * q;
 }
 
 // This CTA's place in the grid: group, batch split, first unit, its rows.
@@ -83,20 +87,6 @@ __device__ __forceinline__ Cta cta_place(int U, int nblk, int S, int Bs, int B) 
   return c;
 }
 
-// Shared memory: U resident rows of wh, and the ring of STAGES x R rows of
-// BK elements, in T; the partial tiles [WK][R][U + 8] f32 reuse the ring.
-template <typename T>
-__host__ __device__ inline size_t wh_smem(int U, int H) {
-  return (size_t)U * (k_round<T>(H) + row_pad<T>()) * sizeof(T);
-}
-template <typename T>
-__host__ __device__ inline size_t ring_smem(int R, int BK) {
-  return (size_t)STAGES * R * (BK + row_pad<T>()) * sizeof(T);
-}
-__host__ __device__ inline size_t partial_smem(int WK, int R, int U) {
-  return (size_t)WK * R * (U + 8) * sizeof(float);
-}
-
 // The epilogue's inputs of one row and unit pair, loaded ahead
 struct Pre {
   float2 dy, cr, cz, cn, cnh, ch, chd;
@@ -104,9 +94,9 @@ struct Pre {
 
 // The reverse chain with warp tiles of 16 MT rows x 8 NT units. LIN: out4
 // [T, G, B, 4H] gets all four blocks (K8); else dxp [T, G, B, 3H] and dhn
-// [T, G, B, H] (K5-bwd). WM warps along the rows, BK elements per K chunk
-// (from plan_grid).
-template <typename T, typename C, bool LIN, int MT, int NT>
+// [T, G, B, H] (K5-bwd). STREAM: wh through the ring. WM warps along the
+// rows, BK elements per K chunk (from plan_grid).
+template <typename T, typename C, bool LIN, int MT, int NT, bool STREAM>
 __device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict__ ch,
                               const T* __restrict__ dy, const T* __restrict__ wh,
                               T* __restrict__ out4, T* __restrict__ dxp, T* __restrict__ dhn,
@@ -115,23 +105,26 @@ __device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict_
   using Op = mma::Op<T>;
   constexpr int KP = 2 * Op::K_STEP, VEC = 16 / sizeof(T);  // K of a pair of product steps
   const Cta c = cta_place(U, nblk, S, Bs, B);
-  const int g = c.g, H3 = 3 * H, KW = k_round<T>(H), WLD = KW + row_pad<T>();
+  const int g = c.g, H3 = 3 * H, KW = k_round<T>(H3);
   const int ALD = BK + row_pad<T>(), PIECES = BK / VEC, RLD = U + 8;
+  const int WLD = STREAM ? ALD : KW + row_pad<T>();
   const int WN = U / (8 * NT), WK = WARPS / (WN * WM), R = 16 * MT * WM;
-  const int nk = (KW + BK - 1) / BK, items = R * U / 2;
+  const int nk = (KW + BK - 1) / BK, items = R * U / 2, stage = (R + (STREAM ? U : 0)) * ALD;
   const int warp = threadIdx.x >> 5, gq = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
   const int wn = warp % WN, wm = (warp / WN) % WM, wk = warp / (WN * WM);
-  T* w_s = smem;                                   // [U][WLD] wh rows j0 .. j0+U-1
-  T* a_s = smem + U * WLD;                         // STAGES x [R][ALD] K chunks of dhproj rows
-  float* part = reinterpret_cast<float*>(a_s);     // [WK][R][RLD] partial tiles
+  T* w_s = smem;                                    // [U][WLD] wh rows j0 .. j0+U-1 (resident)
+  T* a_s = STREAM ? smem : smem + U * WLD;          // STAGES x [R (+ U)][ALD] K chunks
+  float* part = reinterpret_cast<float*>(a_s);      // [WK][R][RLD] partial tiles
   const T* whg = wh + (size_t)g * H * H3;
-  for (int i = threadIdx.x; i < U * (KW / VEC); i += THREADS) {
-    const int u = i / (KW / VEC), k = (i - u * (KW / VEC)) * VEC;
-    const bool ok = c.j0 + u < H && k < H3;
-    cp_async16(w_s + u * WLD + k, ok ? whg + (size_t)(c.j0 + u) * H3 + k : whg, ok);
+  if (!STREAM) {
+    for (int i = threadIdx.x; i < U * (KW / VEC); i += THREADS) {
+      const int u = i / (KW / VEC), k = (i - u * (KW / VEC)) * VEC;
+      const bool ok = c.j0 + u < H && k < H3;
+      cp_async16(w_s + u * WLD + k, ok ? whg + (size_t)(c.j0 + u) * H3 + k : whg, ok);
+    }
+    cp_commit();
+    cp_wait<0>();
   }
-  cp_commit();
-  cp_wait<0>();
   __syncthreads();
   unsigned* gbar = bar + 2 * LINE * (g * S + c.s);
   for (int step = 0; step < Tn; ++step) {
@@ -162,11 +155,19 @@ __device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict_
         __syncthreads();  // the ring is free: every thread is past the last pass
         auto load = [&](int kc) {
           if (kc < nk) {
-            T* dst = a_s + (kc % STAGES) * R * ALD;
+            T* dst = a_s + (kc % STAGES) * stage;
             for (int i = threadIdx.x; i < R * PIECES; i += THREADS) {
               const int r = i / PIECES, kk = (i - r * PIECES) * VEC, k = kc * BK + kk;
               const bool ok = r0 + r < c.b_hi && k < H3;
               cp_async16(dst + r * ALD + kk, ok ? xin + (size_t)(r0 + r) * H3 + k : xin, ok);
+            }
+            if (STREAM) {
+              for (int i = threadIdx.x; i < U * PIECES; i += THREADS) {
+                const int u = i / PIECES, kk = (i - u * PIECES) * VEC, k = kc * BK + kk;
+                const bool ok = c.j0 + u < H && k < H3;
+                cp_async16(dst + (R + u) * ALD + kk,
+                           ok ? whg + (size_t)(c.j0 + u) * H3 + k : whg, ok);
+              }
             }
           }
           cp_commit();
@@ -176,8 +177,9 @@ __device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict_
           cp_wait<STAGES - 2>();
           __syncthreads();  // chunk kc is in; every warp is past chunk kc - 1
           load(kc + STAGES - 1);
-          const T* as = a_s + (kc % STAGES) * R * ALD + wm * 16 * MT * ALD;
-          const T* ws = w_s + wn * 8 * NT * WLD + kc * BK;
+          const T* as = a_s + (kc % STAGES) * stage + wm * 16 * MT * ALD;
+          const T* ws = STREAM ? a_s + (kc % STAGES) * stage + (R + wn * 8 * NT) * ALD
+                               : w_s + wn * 8 * NT * WLD + kc * BK;
           const int kend = min(BK, KW - kc * BK);
           for (int kk = wk * KP; kk < kend; kk += WK * KP) {
             Op a[MT][2][4];
@@ -253,69 +255,107 @@ __device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict_
   }
 }
 
-// The warp tiles: 16 x 16 (MT 1, NT 2) and 32 x 32 (MT 2, NT 4).
+// The chain's warp tiles: 16 x 16 (MT 1, NT 2) and 32 x 32 (MT 2, NT 4).
 constexpr int TILES = 2;
 constexpr int TILE_MT[TILES] = {1, 2}, TILE_NT[TILES] = {2, 4};
+constexpr int MAX_UNITS = 64;  // the widest CTA: G ceil(H / 64) CTAs must fit the SMs
+
+// A per-step product [R rows, K] x [K, cols U] of the persistent grids (the
+// chain: K = 3H, one column per unit, wh's rows n-major; K5: K = H, the r, z
+// and n columns of each unit, wh's columns k-major as stored), for the plan.
+struct Operands {
+  int K, cols;
+  bool kmajor;  // streamed wh chunks are [BK][cols U] (else [cols U][BK])
+};
+
+// Shared memory in T: cols U resident rows of wh (none when streamed), the
+// ring of STAGES x (R rows of BK, and the chunk of wh when streamed); the
+// partial tiles [WK][R][cols U + 8] f32 reuse the ring.
+template <typename T>
+inline size_t wh_smem(const Operands& o, int U) {
+  return (size_t)o.cols * U * (k_round<T>(o.K) + row_pad<T>()) * sizeof(T);
+}
+template <typename T>
+inline size_t ring_smem(const Operands& o, int R, int BK, int U, bool stream) {
+  const int n = o.cols * U;
+  const size_t w = !stream   ? 0
+                   : o.kmajor ? (size_t)BK * (n + 16 / sizeof(T))
+                              : (size_t)n * (BK + row_pad<T>());
+  return STAGES * ((size_t)R * (BK + row_pad<T>()) + w) * sizeof(T);
+}
+inline size_t partial_smem(const Operands& o, int WK, int R, int U) {
+  return (size_t)WK * R * (o.cols * U + 8) * sizeof(float);
+}
 
 struct Plan {
-  int tile, U, nblk, S, Bs, WM, BK;
+  int stream, tile, U, nblk, S, Bs, WM, BK;
   size_t smem;
   long work, bytes;
 };
 
 // The launch plan of a cooperative grid over G groups, `nblk` CTAs of U
 // units per batch split, one CTA per SM (the ring takes the shared memory
-// that wh leaves). For each warp tile and unit width: the most batch
-// splits the SMs hold (down to 16 rows a split), the fewest warps along
-// the rows that cover a split in one pass (at most 8 / WN, a pass of at
-// most 2048 row-units for the epilogue's items, and fewer where the ring
-// would not fit), and the largest K chunk (a multiple of GRAIN bytes)
-// that fits. Among them the least work per SM and step (row-units of its
-// passes, padded to whole warp tiles), then the fewest dhproj bytes
-// restaged per SM and step, then the fewest CTAs per split, then the
-// larger warp tile. kernels[tile] is the kernel of each warp tile. The 16
-// rows of wh at U = 16 bound H: f32 up to 1120, bf16 up to 2240, above
-// K5's own bound (H <= 1056 on 132 SMs).
+// that wh leaves). wh stays resident where some plan fits it; only where
+// none does (its rows too long for shared memory at every U whose grid the
+// SMs hold) is it streamed. For each warp tile (tile_mt x 16 rows, tile_nt
+// x 8 units) and unit width: the most batch splits the SMs hold (down to 16
+// rows a split), the fewest warps along the rows that cover a split in one
+// pass (at most 8 / WN, a pass of at most 2048 row-units for the
+// epilogue's items, and fewer where the ring would not fit), and the
+// largest K chunk (a multiple of GRAIN bytes) that fits. Among them the
+// least work per SM and step (row-units of its passes, padded to whole
+// warp tiles), then the fewest rows restaged per SM and step (A rows, and
+// wh's when streamed), then the fewest CTAs per split, then the larger
+// warp tile. kernels[stream][tile] is the kernel of each mode and warp
+// tile. No plan: G ceil(H / MAX_UNITS) CTAs exceed the SMs.
 template <typename T, typename K>
-cudaError_t plan_grid(const K (&kernels)[TILES], int max_groups, int G, int B, int H, Plan* best) {
+cudaError_t plan_grid(const K (&kernels)[2][TILES], const int (&tile_mt)[TILES],
+                      const int (&tile_nt)[TILES], const Operands& o, int max_groups, int G,
+                      int B, int H, Plan* best) {
   int sms = 0, smem_max = 0;
   cudaError_t e = uasr_coop_limits(&sms, &smem_max);
   if (e != cudaSuccess) return e;
-  const int KW = k_round<T>(H), grain = GRAIN / sizeof(T);
-  *best = Plan{-1, 0, 0, 0, 0, 0, 0, 0, 0, 0};
-  for (int tile = 0; tile < TILES; ++tile) {
-    const int MT = TILE_MT[tile], NT = TILE_NT[tile];
-    for (int U = 8 * NT; U <= 64; U *= 2) {
-      const int WN = U / (8 * NT), nblk = (H + U - 1) / U;
-      if (WN > WARPS || G * nblk > sms) continue;
-      int S = min(sms / (G * nblk), (B + 15) / 16);
-      S = max(1, min(S, max_groups / G));
-      const int Bs = (B + S - 1) / S;
-      S = (B + Bs - 1) / Bs;  // no empty split
-      const size_t w = wh_smem<T>(U, H);
-      int WM = 1;
-      while (2 * WM * WN <= WARPS && 16 * MT * WM < Bs && 32 * MT * WM * U <= 2 * ITEMS * THREADS)
-        WM *= 2;
-      while (WM > 1 && w + ring_smem<T>(16 * MT * WM, grain) > (size_t)smem_max) WM /= 2;
-      const int R = 16 * MT * WM, WK = WARPS / (WN * WM), passes = (Bs + R - 1) / R;
-      const size_t part = partial_smem(WK, R, U);
-      int BK = grain;
-      while (BK < KW && w + ring_smem<T>(R, BK + grain) <= (size_t)smem_max) BK += grain;
-      while (ring_smem<T>(R, BK) < part) BK += grain;  // room for the partial tiles
-      const size_t smem = w + ring_smem<T>(R, BK);
-      if (smem > (size_t)smem_max) continue;
-      const long per_sm = (G * S * nblk + sms - 1) / sms;
-      const long work = per_sm * passes * R * U, bytes = per_sm * Bs;
-      const bool better =
-          best->tile < 0 || work < best->work ||
-          (work == best->work &&
-           (bytes < best->bytes ||
-            (bytes == best->bytes && (nblk < best->nblk || (nblk == best->nblk && tile > best->tile)))));
-      if (better) *best = Plan{tile, U, nblk, S, Bs, WM, BK, smem, work, bytes};
+  const int KW = k_round<T>(o.K), grain = GRAIN / sizeof(T);
+  const size_t cap = smem_max;
+  *best = Plan{0, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  for (int stream = 0; stream < 2 && best->tile < 0; ++stream) {
+    for (int tile = 0; tile < TILES; ++tile) {
+      const int MT = tile_mt[tile], NT = tile_nt[tile];
+      for (int U = 8 * NT; U <= MAX_UNITS; U *= 2) {
+        const int WN = U / (8 * NT), nblk = (H + U - 1) / U;
+        if (WN > WARPS || G * nblk > sms) continue;
+        int S = min(sms / (G * nblk), (B + 15) / 16);
+        S = max(1, min(S, max_groups / G));
+        const int Bs = (B + S - 1) / S;
+        S = (B + Bs - 1) / Bs;  // no empty split
+        const size_t w = stream ? 0 : wh_smem<T>(o, U);
+        int WM = 1;
+        while (2 * WM * WN <= WARPS && 16 * MT * WM < Bs &&
+               32 * MT * WM * U <= 2 * ITEMS * THREADS)
+          WM *= 2;
+        while (WM > 1 && w + ring_smem<T>(o, 16 * MT * WM, grain, U, stream) > cap) WM /= 2;
+        const int R = 16 * MT * WM, WK = WARPS / (WN * WM), passes = (Bs + R - 1) / R;
+        const size_t part = partial_smem(o, WK, R, U);
+        int BK = grain;
+        while (BK < KW && w + ring_smem<T>(o, R, BK + grain, U, stream) <= cap) BK += grain;
+        while (ring_smem<T>(o, R, BK, U, stream) < part) BK += grain;  // room for the partials
+        const size_t smem = w + ring_smem<T>(o, R, BK, U, stream);
+        if (smem > cap) continue;
+        const long per_sm = (G * S * nblk + sms - 1) / sms;
+        const long work = per_sm * passes * R * U;
+        const long bytes = per_sm * (Bs + (stream ? (long)passes * o.cols * U : 0));
+        const bool better =
+            best->tile < 0 || work < best->work ||
+            (work == best->work &&
+             (bytes < best->bytes ||
+              (bytes == best->bytes &&
+               (nblk < best->nblk || (nblk == best->nblk && tile > best->tile)))));
+        if (better) *best = Plan{stream, tile, U, nblk, S, Bs, WM, BK, smem, work, bytes};
+      }
     }
   }
   if (best->tile < 0) return cudaErrorCooperativeLaunchTooLarge;
-  const K kernel = kernels[best->tile];
+  const K kernel = kernels[best->stream][best->tile];
   e = uasr_set_smem(kernel, best->smem);
   int occ = 0;
   if (e == cudaSuccess)

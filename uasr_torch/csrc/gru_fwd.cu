@@ -18,178 +18,292 @@
 //   in T, ch = (1-mf) + mf z in f32 (it scales the carried gradient, so its
 //   rounding would compound over T).
 //
-// Design: K2's persistent cooperative grid (bigru_fwd.cu) with G groups
-// and the batch split over CTA groups. CTA (g, s, c) owns U hidden units
-// of group g with all three gate columns, resident in shared memory as f32
-// for the whole sequence, and the rows [s * Bs, (s + 1) * Bs) of the batch.
-// Each step it stages h_{t-1} of its rows (16-byte loads of the output
-// rows the step before wrote, through L2) in tiles of THREADS / U rows;
-// thread (row, unit) runs the unit's three length-H dot products and the
-// gates and writes h_t. Then the CTAs of (g, s) meet at a barrier of their
-// own: rows are independent, so batch splits never wait for each other.
-// The unit width U and the split count S are chosen at launch: among the
-// widths whose CTAs are all resident, the fewest row tiles per step, then
-// the fewest CTAs per split (less of h restaged per step). Zero-length
-// rows (mask all 0) keep h at zero.
+// Design: the persistent cooperative grid of the reverse chain
+// (gru_bwd_chain.cuh), run forward, with its plan. CTA (g, s, c) owns U
+// hidden units of group g, that is the r, z and n columns of wh for them
+// (3U columns), and the batch rows [s Bs, (s+1) Bs); the CTAs of (g, s)
+// meet at a barrier of their own once a step, so batch splits never wait
+// for each other. Each step is one product [Bs, H] x [H, 3U] on the tensor
+// cores (mma_sync.cuh: bf16 as stored, f32 as 3xTF32), in passes of R
+// rows. A warp computes a tile of 16 MT rows x 8 NT units in each of the
+// three gates, so r, z and n of a unit meet in one thread's accumulators,
+// as in K5-bwd's coefficient kernel; the 8 warps stand WN along the units,
+// WM along the rows and WK along K (a small split, as offline, still keeps
+// every warp busy). wh's 3U columns stay resident in shared memory,
+// transposed into rows along K at launch (fragments loaded 16 bytes at a
+// time, K permuted inside each pair of product steps, from rows padded to
+// 16 mod 32 words); where they do not fit (STREAM, chosen by the plan)
+// each K chunk of them goes through the ring, as stored (k-major), beside
+// the chunk of h rows. The A operand h_{t-1} is ys[t-1]: the split's rows
+// stream from L2 (cp.async.cg: other CTAs wrote them before the barrier)
+// in K chunks of BK elements through a ring of STAGES stages; ys[t] is the
+// next step's A operand, so nothing else is exchanged. The warps' partial
+// tiles meet in shared memory (the ring's space) and every thread runs the
+// epilogue for a few (row, unit pair) items, adding the WK partials in
+// order (deterministic), with the gates of the plain version's
+// expressions; its inputs (xp, the mask and the rounded carry h_{t-1}[b,
+// j], through L2) are loaded before the product, so their latency hides
+// behind it. At t = 0 the carry is zero and the product is skipped (hproj
+// = bh). A pass whose rows are all masked at step t skips its loads and
+// product, a warp tile whose rows are all masked its product; a masked
+// row's epilogue writes h_{t-1} through unchanged (and c4 = 0, ch = 1),
+// which is what the mask gives. Zero-length rows keep h = 0.
 //
-// Bound: a chain of T dependent steps, each a [B, H] x [H, 3H] product
-// per group: latency (barrier plus one tile's 3H FMAs per thread on CUDA
-// cores), not bytes or FLOPs. Tensor-core products are later work.
+// Bound: a chain of T dependent steps, each 2 B H 3H FLOP per group (three
+// tensor-core passes in f32). At the lc_bigru backward windows (T = 24,
+// B = 1216, H = 384) the products and the restaging of h rows from L2 set
+// the time; offline (T = 300, B = 64) each step's latency does: a barrier,
+// one pass of 16 rows, the epilogue.
 
-#include "grid_sync.cuh"
+#include "gru_bwd_chain.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int PAD = 4;  // floats of row padding in shared memory
+using namespace gru_bwd;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// K5's warp tiles: 16 rows x 16 units (MT 1) and 32 x 16 (MT 2), each x 3
+// gates (48 accumulator columns)
+constexpr int TILE_MT_FWD[TILES] = {1, 2}, TILE_NT_FWD[TILES] = {2, 2};
+
+// The epilogue's inputs of one row and unit pair, loaded ahead
+struct FwdPre {
+  float2 xr, xz, xn, hp;
+  float mf;
+};
+
+template <typename T, int MT, int NT, bool STREAM>
+__global__ void __launch_bounds__(THREADS, 1)
 gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh, const T* __restrict__ bh,
                const float* __restrict__ tmask, T* ys, T* __restrict__ c4,
                float* __restrict__ ch, unsigned* bar, int Tn, int G, int B, int H, int U,
-               int nblk, int S, int Bs) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int VEC = 16 / sizeof(T);
-  const int g = blockIdx.x / (S * nblk);
-  const int rem = blockIdx.x - g * S * nblk;
-  const int s = rem / nblk;
-  const int j0 = (rem - s * nblk) * U;
-  const int b_lo = s * Bs, b_hi = min(B, b_lo + Bs);
-  const int H3 = 3 * H, HP = H + PAD;
-  const int BT = THREADS / U;
-  float* w_s = smem;               // [3][U][H + PAD] this CTA's wh columns, f32
-  float* h_s = smem + 3 * U * HP;  // [BT][H + PAD] staged h_{t-1}, f32
-
+               int nblk, int S, int Bs, int WM, int BK) {
+  using Op = mma::Op<T>;
+  constexpr int KP = 2 * Op::K_STEP, VEC = 16 / sizeof(T);  // K of a pair of product steps
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const Cta c = cta_place(U, nblk, S, Bs, B);
+  const int g = c.g, H3 = 3 * H, U3 = 3 * U, KW = k_round<T>(H);
+  const int ALD = BK + row_pad<T>(), WLD = KW + row_pad<T>(), BLD = U3 + VEC, PLD = U3 + 8;
+  const int PIECES = BK / VEC, NP = U3 / VEC;  // 16-byte pieces of an h chunk row, of 3U columns
+  const int WN = U / (8 * NT), WK = WARPS / (WN * WM), R = 16 * MT * WM;
+  const int nk = (KW + BK - 1) / BK, items = R * U / 2;
+  const int stage = R * ALD + (STREAM ? BK * BLD : 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, q = lane & 3;
+  const int wn = warp % WN, wm = (warp / WN) % WM, wk = warp / (WN * WM);
+  T* w_s = smem;                                // [3U][WLD] resident: column gate U + u along K
+  T* a_s = STREAM ? smem : smem + U3 * WLD;     // STAGES x [R][ALD] h rows (+ [BK][BLD] wh)
+  float* part = reinterpret_cast<float*>(a_s);  // [WK][R][PLD] partial tiles
   const T* whg = wh + (size_t)g * H * H3;
-  for (int i = threadIdx.x; i < 3 * U * H; i += THREADS) {
-    const int gu = i / H, k = i - gu * H, gate = gu / U, j = j0 + gu - gate * U;
-    w_s[gu * HP + k] = j < H ? to_f32(whg[(size_t)k * H3 + gate * H + j]) : 0.f;
+  const T* bhg = bh + (size_t)g * H3;
+  if (!STREAM) {
+    // column n = gate U + u is wh[g][:, gate H + j0 + u]: 16-byte loads along
+    // the columns, consecutive threads on consecutive k (conflict-free stores)
+    for (int i = threadIdx.x; i < NP * KW; i += THREADS) {
+      const int p = i / KW, k = i - p * KW, n = p * VEC, gate = n / U, j = c.j0 + n - gate * U;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (k < H && j < H)
+        v = *reinterpret_cast<const uint4*>(whg + (size_t)k * H3 + gate * H + j);
+      const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) w_s[(n + x) * WLD + k] = e[x];
+    }
   }
-  const int uu = threadIdx.x % U, bt = threadIdx.x / U;
-  const int j = j0 + uu;
-  float bias_r = 0.f, bias_z = 0.f, bias_n = 0.f;
-  if (j < H) {
-    bias_r = to_f32(bh[(size_t)g * H3 + j]);
-    bias_z = to_f32(bh[(size_t)g * H3 + H + j]);
-    bias_n = to_f32(bh[(size_t)g * H3 + 2 * H + j]);
-  }
-  const float4* wr = reinterpret_cast<const float4*>(w_s + (0 * U + uu) * HP);
-  const float4* wz = reinterpret_cast<const float4*>(w_s + (1 * U + uu) * HP);
-  const float4* wn = reinterpret_cast<const float4*>(w_s + (2 * U + uu) * HP);
-  const size_t group_rows = (size_t)B * H;  // ys elements of one (t, g)
-  unsigned* gbar = bar + 2 * LINE * (g * S + s);
   __syncthreads();
-
+  unsigned* gbar = bar + 2 * LINE * (g * S + c.s);
   for (int t = 0; t < Tn; ++t) {
-    const T* hsrc = ys + ((size_t)(t > 0 ? t - 1 : 0) * G + g) * group_rows;
-    T* hdst = ys + ((size_t)t * G + g) * group_rows;
-    const T* xpt = xp + ((size_t)t * G + g) * B * H3;
+    const T* hin = ys + ((size_t)(t > 0 ? t - 1 : 0) * G + g) * B * H;  // h_{t-1}
+    T* hout = ys + ((size_t)t * G + g) * B * H;
     const float* mt = tmask + ((size_t)t * G + g) * B;
-    for (int b0 = b_lo; b0 < b_hi; b0 += BT) {
-      const int nb = min(BT, b_hi - b0);
-      const int nvec = H / VEC;
-      for (int i = threadIdx.x; i < nb * nvec; i += THREADS) {
-        const int r = i / nvec, c = (i - r * nvec) * VEC;
-        float v[VEC];
-        if (t > 0) {
-          load16_l2(hsrc + (size_t)(b0 + r) * H + c, v);
-        } else {
+    for (int r0 = c.b_lo; r0 < c.b_hi; r0 += R) {
+      // the epilogue's inputs: item i is row i / (U/2), units 2 (i % (U/2)) + 0, 1
+      FwdPre pre[ITEMS];
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) v[e] = 0.f;
-        }
-#pragma unroll
-        for (int e = 0; e < VEC; e += 4)
-          *reinterpret_cast<float4*>(h_s + r * HP + c + e) =
-              make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
+      for (int it = 0; it < ITEMS; ++it) {
+        const int i = threadIdx.x + it * THREADS, r = i / (U / 2);
+        const int b = r0 + r, j = c.j0 + 2 * (i - r * (U / 2));
+        if (i >= items || b >= c.b_hi || j >= H) continue;  // H even: j + 1 < H too
+        const T* x = xp + (((size_t)t * G + g) * B + b) * H3 + j;
+        FwdPre& p = pre[it];
+        p.mf = mt[b];
+        p.xr = mma::ld2(x);
+        p.xz = mma::ld2(x + H);
+        p.xn = mma::ld2(x + 2 * H);
+        p.hp = t > 0 ? mma::ld2_cg(hin + (size_t)b * H + j) : make_float2(0.f, 0.f);
       }
-      __syncthreads();
-      if (bt < nb && j < H) {
-        const int b = b0 + bt;
-        const float4* h4 = reinterpret_cast<const float4*>(h_s + bt * HP);
-        float ar = 0.f, az = 0.f, an = 0.f;
-        for (int k = 0; k < H / 4; ++k) {
-          const float4 h = h4[k], a = wr[k], z = wz[k], n = wn[k];
-          ar = fmaf(h.x, a.x, ar), az = fmaf(h.x, z.x, az), an = fmaf(h.x, n.x, an);
-          ar = fmaf(h.y, a.y, ar), az = fmaf(h.y, z.y, az), an = fmaf(h.y, n.y, an);
-          ar = fmaf(h.z, a.z, ar), az = fmaf(h.z, z.z, az), an = fmaf(h.z, n.z, an);
-          ar = fmaf(h.w, a.w, ar), az = fmaf(h.w, z.w, az), an = fmaf(h.w, n.w, an);
+      // the product, where the carry is not zero and some row of the pass steps
+      bool live = false;
+      if (threadIdx.x < R && r0 + (int)threadIdx.x < c.b_hi) live = mt[r0 + threadIdx.x] != 0.f;
+      // (the barrier also frees the ring: every thread is past the last pass)
+      const bool run = t > 0 && __syncthreads_or(live);
+      if (run) {
+        bool wl = false;  // does this warp's tile hold a row that steps?
+        if (lane < 16 * MT) {
+          const int b = r0 + wm * 16 * MT + lane;
+          wl = b < c.b_hi && mt[b] != 0.f;
         }
-        const T* x = xpt + (size_t)b * H3;
-        const float xr = to_f32(x[j]), xz = to_f32(x[H + j]), xn = to_f32(x[2 * H + j]);
-        const float hr = ar + bias_r, hz = az + bias_z, hn = an + bias_n;
-        const float r = 1.f / (1.f + expf(-(xr + hr)));
-        const float z = 1.f / (1.f + expf(-(xz + hz)));
-        const float n = tanhf(xn + r * hn);
-        const float h_prev = h_s[bt * HP + j];
-        const float h_cand = (1.f - z) * n + z * h_prev;
-        const float mf = mt[b];
-        const float h_new = mf * h_cand + (1.f - mf) * h_prev;
-        hdst[(size_t)b * H + j] = from_f32<T>(h_new);
+        const bool wlive = __any_sync(0xffffffffu, wl);
+        float acc[MT][3][NT][4] = {}, lo[MT][3][NT][4] = {};
+        auto load = [&](int kc) {
+          if (kc < nk) {
+            T* dst = a_s + (kc % STAGES) * stage;
+            for (int i = threadIdx.x; i < R * PIECES; i += THREADS) {
+              const int r = i / PIECES, kk = (i - r * PIECES) * VEC, k = kc * BK + kk;
+              const bool ok = r0 + r < c.b_hi && k < H;
+              cp_async16(dst + r * ALD + kk, ok ? hin + (size_t)(r0 + r) * H + k : hin, ok);
+            }
+            if (STREAM) {
+              for (int i = threadIdx.x; i < BK * NP; i += THREADS) {
+                const int kr = i / NP, n = (i - kr * NP) * VEC, gate = n / U;
+                const int j = c.j0 + n - gate * U, k = kc * BK + kr;
+                const bool ok = k < H && j < H;
+                cp_async16(dst + R * ALD + kr * BLD + n,
+                           ok ? whg + (size_t)k * H3 + gate * H + j : whg, ok);
+              }
+            }
+          }
+          cp_commit();
+        };
+        for (int s = 0; s < STAGES - 1; ++s) load(s);
+        for (int kc = 0; kc < nk; ++kc) {
+          cp_wait<STAGES - 2>();
+          __syncthreads();  // chunk kc is in; every warp is past chunk kc - 1
+          load(kc + STAGES - 1);
+          if (!wlive) continue;
+          const T* as = a_s + (kc % STAGES) * stage + wm * 16 * MT * ALD;
+          const T* bs = a_s + (kc % STAGES) * stage + R * ALD;
+          const int kend = min(BK, KW - kc * BK);
+          for (int kk = wk * KP; kk < kend; kk += WK * KP) {
+            Op a[MT][2][4];
+#pragma unroll
+            for (int mt_ = 0; mt_ < MT; ++mt_) mma::load_a2(a[mt_], as + mt_ * 16 * ALD + kk, ALD);
+#pragma unroll
+            for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) {
+                const int n = gate * U + wn * 8 * NT + nt * 8;
+                Op b[2][2];
+                if (STREAM)
+                  mma::load_b2_kn(b, bs + kk * BLD + n, BLD);
+                else
+                  mma::load_b2(b, w_s + n * WLD + kc * BK + kk, WLD);
+#pragma unroll
+                for (int s = 0; s < 2; ++s)
+#pragma unroll
+                  for (int mt_ = 0; mt_ < MT; ++mt_)
+                    mma::mma(acc[mt_][gate][nt], lo[mt_][gate][nt], a[mt_][s], b[s]);
+              }
+          }
+        }
+        cp_wait<0>();
+        __syncthreads();  // the ring is free for the partial tiles
+        if (wlive) {
+          float* pw = part + ((size_t)wk * R + wm * 16 * MT) * PLD + wn * 8 * NT;
+#pragma unroll
+          for (int mt_ = 0; mt_ < MT; ++mt_)
+#pragma unroll
+            for (int gate = 0; gate < 3; ++gate)
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  mma::st2(pw + (mt_ * 16 + gq + 8 * h) * PLD + gate * U + nt * 8 + 2 * q,
+                           acc[mt_][gate][nt][2 * h] + lo[mt_][gate][nt][2 * h],
+                           acc[mt_][gate][nt][2 * h + 1] + lo[mt_][gate][nt][2 * h + 1]);
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int it = 0; it < ITEMS; ++it) {
+        const int i = threadIdx.x + it * THREADS, r = i / (U / 2), u = 2 * (i - r * (U / 2));
+        const int b = r0 + r, j = c.j0 + u;
+        if (i >= items || b >= c.b_hi || j >= H) continue;
+        const FwdPre& p = pre[it];
+        const size_t row = ((size_t)t * G + g) * B + b;
+        T* y = hout + (size_t)b * H + j;
+        if (p.mf == 0.f) {  // the mask holds the carry: h_prev through, c4 = 0, ch = 1
+          mma::st2(y, p.hp.x, p.hp.y);
+          if (c4) {
+#pragma unroll
+            for (int gate = 0; gate < 4; ++gate)
+              mma::st2(c4 + row * 4 * H + gate * H + j, 0.f, 0.f);
+            mma::st2(ch + row * H + j, 1.f, 1.f);
+          }
+          continue;
+        }
+        float2 hs[3];  // h_{t-1} @ wh for the r, z, n columns of units j, j + 1
+#pragma unroll
+        for (int gate = 0; gate < 3; ++gate) {
+          hs[gate] = make_float2(0.f, 0.f);
+          if (run)
+            for (int kw = 0; kw < WK; ++kw) {
+              const float2 v = mma::ld2(part + ((size_t)kw * R + r) * PLD + gate * U + u);
+              hs[gate].x += v.x, hs[gate].y += v.y;
+            }
+          const float2 bias = mma::ld2(bhg + gate * H + j);
+          hs[gate].x += bias.x, hs[gate].y += bias.y;
+        }
+        auto at = [](float2 v, int e) { return e ? v.y : v.x; };
+        float rg[2], zg[2], ng[2], hv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float hp = at(p.hp, e);
+          rg[e] = 1.f / (1.f + expf(-(at(p.xr, e) + at(hs[0], e))));
+          zg[e] = 1.f / (1.f + expf(-(at(p.xz, e) + at(hs[1], e))));
+          ng[e] = tanhf(at(p.xn, e) + rg[e] * at(hs[2], e));
+          const float h_cand = (1.f - zg[e]) * ng[e] + zg[e] * hp;
+          hv[e] = p.mf * h_cand + (1.f - p.mf) * hp;
+        }
+        mma::st2(y, hv[0], hv[1]);
         if (c4) {
-          const size_t row = ((size_t)t * G + g) * B + b;
-          const float c_n2 = mf * ((1.f - z) * (1.f - n * n));
-          T* c = c4 + row * 4 * H;
-          c[j] = from_f32<T>(c_n2 * (hn * (r * (1.f - r))));
-          c[H + j] = from_f32<T>(mf * ((h_prev - n) * (z * (1.f - z))));
-          c[2 * H + j] = from_f32<T>(c_n2);
-          c[3 * H + j] = from_f32<T>(c_n2 * r);
-          ch[row * H + j] = (1.f - mf) + mf * z;
+          float cv[4][2], chv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float mf = p.mf, c_n2 = mf * ((1.f - zg[e]) * (1.f - ng[e] * ng[e]));
+            cv[0][e] = c_n2 * (at(hs[2], e) * (rg[e] * (1.f - rg[e])));
+            cv[1][e] = mf * ((at(p.hp, e) - ng[e]) * (zg[e] * (1.f - zg[e])));
+            cv[2][e] = c_n2;
+            cv[3][e] = c_n2 * rg[e];
+            chv[e] = (1.f - mf) + mf * zg[e];
+          }
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate)
+            mma::st2(c4 + row * 4 * H + gate * H + j, cv[gate][0], cv[gate][1]);
+          mma::st2(ch + row * H + j, chv[0], chv[1]);
         }
       }
-      __syncthreads();
     }
     dir_barrier(gbar, (unsigned)nblk);
   }
 }
 
-struct Plan {
-  int U, nblk, S, Bs, tiles;
-  size_t smem;
-};
-
 template <typename T>
 cudaError_t launch(const void* xp, const void* wh, const void* bh, const float* tmask, void* ys,
                    void* c4, float* ch, unsigned* bar, int max_groups, int Tn, int G, int B,
-                   int H, cudaStream_t stream, int* units, int* splits) {
-  int sms = 0, smem_max = 0;
-  cudaError_t e = uasr_coop_limits(&sms, &smem_max);
-  if (e != cudaSuccess) return e;
-  auto kernel = gru_fwd_kernel<T>;
-  Plan best{0, 0, 0, 0, 0, 0};
-  for (int U = 1; U <= THREADS; U *= 2) {
-    const int BT = THREADS / U;
-    const size_t smem = (size_t)(3 * U + min(B, BT)) * (H + PAD) * sizeof(float);
-    if (smem > (size_t)smem_max) continue;
-    e = uasr_set_smem(kernel, smem);
-    int occ = 0;
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, smem);
-    if (e != cudaSuccess) return e;
-    const int nblk = (H + U - 1) / U;
-    const int cap = occ * sms;
-    if (G * nblk > cap) continue;
-    int S = min(cap / (G * nblk), (B + BT - 1) / BT);
-    S = max(1, min(S, max_groups / G));
-    const int Bs = (B + S - 1) / S;
-    S = (B + Bs - 1) / Bs;  // no empty split
-    const int tiles = (Bs + BT - 1) / BT;
-    if (best.U == 0 || tiles < best.tiles || (tiles == best.tiles && nblk < best.nblk))
-      best = Plan{U, nblk, S, Bs, tiles, smem};
-  }
-  if (best.U == 0) return cudaErrorCooperativeLaunchTooLarge;
-  e = uasr_set_smem(kernel, best.smem);
+                   int H, cudaStream_t stream, int* units, int* splits, int* streamed) {
+  using Kernel = decltype(&gru_fwd_kernel<T, 1, 2, false>);
+  const Kernel kernels[2][TILES] = {
+      {gru_fwd_kernel<T, TILE_MT_FWD[0], TILE_NT_FWD[0], false>,
+       gru_fwd_kernel<T, TILE_MT_FWD[1], TILE_NT_FWD[1], false>},
+      {gru_fwd_kernel<T, TILE_MT_FWD[0], TILE_NT_FWD[0], true>,
+       gru_fwd_kernel<T, TILE_MT_FWD[1], TILE_NT_FWD[1], true>}};
+  Plan best;
+  cudaError_t e = plan_grid<T>(kernels, TILE_MT_FWD, TILE_NT_FWD, Operands{H, 3, true},
+                               max_groups, G, B, H, &best);
   if (e != cudaSuccess) return e;
   *units = best.U;
   *splits = best.S;
+  *streamed = best.stream;
   const T* x = static_cast<const T*>(xp);
   const T* w = static_cast<const T*>(wh);
   const T* bb = static_cast<const T*>(bh);
   T* y = static_cast<T*>(ys);
   T* c = static_cast<T*>(c4);
-  int U = best.U, nblk = best.nblk, S = best.S, Bs = best.Bs;
-  void* args[] = {&x, &w, &bb, &tmask, &y, &c, &ch, &bar, &Tn, &G, &B, &H, &U, &nblk, &S, &Bs};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(G * S * nblk), dim3(THREADS), args,
-                                  best.smem, stream);
+  int U = best.U, nblk = best.nblk, S = best.S, Bs = best.Bs, WM = best.WM, BK = best.BK;
+  void* args[] = {&x, &w, &bb, &tmask, &y, &c, &ch, &bar, &Tn, &G,
+                  &B, &H, &U, &nblk, &S, &Bs, &WM, &BK};
+  e = cudaLaunchCooperativeKernel((const void*)kernels[best.stream][best.tile],
+                                  dim3(G * S * nblk), dim3(THREADS), args, best.smem, stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -201,11 +315,12 @@ cudaError_t launch(const void* xp, const void* wh, const void* bh, const float* 
 // of `dtype` and ch [T, G, B, H] f32, both null or both given (save_coeffs);
 // bar 2 * 32 * max_groups zeroed uint32 (one barrier per group and split).
 // *units and *splits receive the hidden units per CTA and the batch splits
-// per group. H must be a multiple of 8 (16-byte rows).
+// per group, *streamed 1 where wh streams through the ring (0: resident).
+// H must be a multiple of 8; G ceil(H / 64) CTAs must fit the SMs.
 UASR_EXPORT int uasr_gru_fwd(const void* xp, const void* wh, const void* bh, const float* tmask,
                              void* ys, void* c4, float* ch, unsigned* bar, int max_groups, int T,
                              int G, int B, int H, int dtype, void* stream, int device, int* units,
-                             int* splits) {
+                             int* splits, int* streamed) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (T < 1 || G < 1 || B < 1 || H < 8 || H % 8 || max_groups < G || (!c4) != (!ch))
@@ -213,9 +328,9 @@ UASR_EXPORT int uasr_gru_fwd(const void* xp, const void* wh, const void* bh, con
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == UASR_F32)
     return launch<float>(xp, wh, bh, tmask, ys, c4, ch, bar, max_groups, T, G, B, H, st, units,
-                         splits);
+                         splits, streamed);
   if (dtype == UASR_BF16)
     return launch<__nv_bfloat16>(xp, wh, bh, tmask, ys, c4, ch, bar, max_groups, T, G, B, H, st,
-                                 units, splits);
+                                 units, splits, streamed);
   return cudaErrorInvalidValue;
 }

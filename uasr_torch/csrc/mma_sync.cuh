@@ -1,6 +1,7 @@
-// Warp-level tensor-core products (mma.sync) of the grouped GRU backward
-// (gru_bwd.cu's coefficient kernel and the reverse chain of
-// gru_bwd_chain.cuh), in f32 as 3xTF32 and in bf16 directly.
+// Warp-level tensor-core products (mma.sync) of the grouped GRU kernels
+// (K5's per-step product in gru_fwd.cu, gru_bwd.cu's coefficient kernel and
+// the reverse chain of gru_bwd_chain.cuh), in f32 as 3xTF32 and in bf16
+// directly.
 //
 // One product step is d[16 x 8] += a[16 x K_STEP] b[K_STEP x 8] (f32
 // accumulation), K_STEP = 8 (tf32) or 16 (bf16). Lane l of the warp (g =
@@ -131,6 +132,22 @@ __device__ __forceinline__ void load_b2(Op<__nv_bfloat16> (&b)[2][2], const __nv
   const uint4 w = *reinterpret_cast<const uint4*>(p + g * ld + 8 * q);
   b[0][0].v = w.x, b[0][1].v = w.y, b[1][0].v = w.z, b[1][1].v = w.w;
 }
+// B stored k-major (b[k][n] at p[k * ld + n]), K permuted as load_b2 does
+// (4 or 8 elements of one column, each 4-byte or 2-byte loads)
+__device__ __forceinline__ void load_b2_kn(Op<float> (&b)[2][2], const float* p, int ld) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const float* c = p + 4 * q * ld + g;
+  b[0][0].set(c[0]), b[0][1].set(c[ld]), b[1][0].set(c[2 * ld]), b[1][1].set(c[3 * ld]);
+}
+__device__ __forceinline__ void load_b2_kn(Op<__nv_bfloat16> (&b)[2][2], const __nv_bfloat16* p,
+                                           int ld) {
+  const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+  const unsigned short* c = reinterpret_cast<const unsigned short*>(p) + 8 * q * ld + g;
+  b[0][0].v = c[0] | (uint32_t)c[ld] << 16;
+  b[0][1].v = c[2 * ld] | (uint32_t)c[3 * ld] << 16;
+  b[1][0].v = c[4 * ld] | (uint32_t)c[5 * ld] << 16;
+  b[1][1].v = c[6 * ld] | (uint32_t)c[7 * ld] << 16;
+}
 
 // d + lo += a b. In f32 the two small TF32 products go into `lo` and the
 // large one into `d` (two accumulators, so two chains of dependent mmas
@@ -153,6 +170,14 @@ __device__ __forceinline__ float2 ld2(const float* p) {
 }
 __device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// the same through L2 only (a value written earlier in the same launch)
+__device__ __forceinline__ float2 ld2_cg(const float* p) {
+  return __ldcg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ld2_cg(const __nv_bfloat16* p) {
+  const unsigned w = __ldcg(reinterpret_cast<const unsigned*>(p));
+  return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
 }
 __device__ __forceinline__ void st2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);

@@ -42,6 +42,8 @@ LAST_UNITS = None  # hidden units per CTA of the last K2 launch
 LAST_UNITS_BWD = None  # hidden units per CTA of the last K2-bwd launch
 LAST_GRU_PLAN = None  # (hidden units per CTA, batch splits) of the last K5 launch
 LAST_GRU_BWD_PLAN = None  # the same of the last K5-bwd or K8 launch
+LAST_GRU_WH = None  # "resident" or "streamed": wh in shared memory in the last K5 launch
+LAST_GRU_BWD_WH = None  # the same of the last K5-bwd or K8 launch
 
 # backward of gru_scan: "linear" = K5 with save_coeffs + K8, else K5-bwd
 # (pallas_gru.py::BWD_IMPL, the same variable)
@@ -49,6 +51,8 @@ BWD_IMPL = os.environ.get("UASR_GRU_BWD_IMPL", "fused")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _GRU_BAR_GROUPS = 256  # barriers K5 may use: one per group and batch split
+_GRU_MAX_UNITS = 64  # hidden units of the widest CTA of K5, K5-bwd, K8 (MAX_UNITS)
+_WH = ("resident", "streamed")
 
 
 def bigru_scan_reference(p0, p1, wh, bh, tmask):
@@ -415,17 +419,27 @@ def _check_gru(what, dt, H, G, tensors):
         raise ValueError(f"{what} takes at most {_GRU_BAR_GROUPS} groups, got {G}")
 
 
+def _check_grid(what, G, H, dev):
+    """The persistent grids of K5, K5-bwd and K8 hold one CTA of at most
+    64 hidden units per SM: G ceil(H / 64) CTAs must fit the card's SMs
+    (wh streams through shared memory where it does not stay there)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if G * -(-H // _GRU_MAX_UNITS) > sms:
+        raise ValueError(f"{what} takes G * ceil(H / {_GRU_MAX_UNITS}) <= {sms} (one CTA per "
+                         f"SM), got G = {G}, H = {H}")
+
+
 def _lib_gru() -> ctypes.CDLL:
     lib = _build.load("gru_fwd")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.uasr_gru_fwd.argtypes = [P] * 8 + [I] * 6 + [P, I, P, P]
+    lib.uasr_gru_fwd.argtypes = [P] * 8 + [I] * 6 + [P, I, P, P, P]
     lib.uasr_gru_fwd.restype = I
     return lib
 
 
 def gru_scan_cuda(xproj, wh, bh, tmask, save_coeffs: bool = False):
     """Launch K5 on CUDA tensors; same contract as the plain version."""
-    global LAUNCHES_GRU, LAST_GRU_PLAN
+    global LAUNCHES_GRU, LAST_GRU_PLAN, LAST_GRU_WH
     T, G, B, H3 = xproj.shape
     H = H3 // 3
     dt = xproj.dtype
@@ -437,22 +451,24 @@ def gru_scan_cuda(xproj, wh, bh, tmask, save_coeffs: bool = False):
     if tmask.shape != (T, G, B):
         raise ValueError(f"gru kernel: tmask must be [T, G, B], got {tuple(tmask.shape)}")
     dev = xproj.device
+    _check_grid("gru kernel", G, H, dev)
     mask = tmask.to(device=dev, dtype=torch.float32).contiguous()
     ys = torch.empty(T, G, B, H, dtype=dt, device=dev)
     c4 = torch.empty(T, G, B, 4 * H, dtype=dt, device=dev) if save_coeffs else None
     ch = torch.empty(T, G, B, H, dtype=torch.float32, device=dev) if save_coeffs else None
     bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
-    units, splits = ctypes.c_int(0), ctypes.c_int(0)
+    units, splits, streamed = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     lib = _lib_gru()
     code = lib.uasr_gru_fwd(
         xproj.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(), ys.data_ptr(),
         None if c4 is None else c4.data_ptr(), None if ch is None else ch.data_ptr(),
         bar.data_ptr(), _GRU_BAR_GROUPS, T, G, B, H, _DTYPES[dt], *_launch_args(dev),
-        ctypes.byref(units), ctypes.byref(splits),
+        ctypes.byref(units), ctypes.byref(splits), ctypes.byref(streamed),
     )
     _build.check(lib, code, "gru_fwd kernel")
     LAUNCHES_GRU += 1
     LAST_GRU_PLAN = (units.value, splits.value)
+    LAST_GRU_WH = _WH[streamed.value]
     return (ys, c4, ch) if save_coeffs else ys
 
 
@@ -461,7 +477,7 @@ def _lib_gru_bwd() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.uasr_gru_bwd_coeffs.argtypes = [P] * 7 + [I] * 5 + [P, I]
     lib.uasr_gru_bwd_coeffs.restype = I
-    lib.uasr_gru_bwd.argtypes = [P] * 9 + [I] * 6 + [P, I, P, P]
+    lib.uasr_gru_bwd.argtypes = [P] * 9 + [I] * 6 + [P, I, P, P, P]
     lib.uasr_gru_bwd.restype = I
     return lib
 
@@ -504,12 +520,13 @@ def gru_bwd_coeffs_cuda(xproj, wh, bh, tmask, ys):
 def gru_scan_bwd_cuda(xproj, wh, bh, tmask, ys, dy):
     """Launch K5-bwd on CUDA tensors (the coefficient kernel, then the
     reverse chain); same contract as the plain version."""
-    global LAUNCHES_GRU_BWD, LAST_GRU_BWD_PLAN
+    global LAUNCHES_GRU_BWD, LAST_GRU_BWD_PLAN, LAST_GRU_BWD_WH
     _check_gru_bwd("gru backward kernel", xproj, wh, bh, tmask, ys, dy)
     T, G, B, H3 = xproj.shape
     H = H3 // 3
     dt = xproj.dtype
     dev = xproj.device
+    _check_grid("gru backward kernel", G, H, dev)
     f32 = torch.float32
     c4, ch = gru_bwd_coeffs_cuda(xproj, wh, bh, tmask, ys)
     dxp = torch.empty(T, G, B, H3, dtype=dt, device=dev)
@@ -517,30 +534,32 @@ def gru_scan_bwd_cuda(xproj, wh, bh, tmask, ys, dy):
     chd = torch.empty(G, B, H, dtype=f32, device=dev)  # ch * d carried to the next step
     xch = torch.empty(2, G, B, H3, dtype=dt, device=dev)  # per-step exchange rows
     bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
-    units, splits = ctypes.c_int(0), ctypes.c_int(0)
+    units, splits, streamed = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     lib = _lib_gru_bwd()
     code = lib.uasr_gru_bwd(
         c4.data_ptr(), ch.data_ptr(), dy.data_ptr(), wh.data_ptr(), dxp.data_ptr(),
         dhn.data_ptr(), chd.data_ptr(), xch.data_ptr(), bar.data_ptr(), _GRU_BAR_GROUPS, T, G,
         B, H, _DTYPES[dt], *_launch_args(dev), ctypes.byref(units), ctypes.byref(splits),
+        ctypes.byref(streamed),
     )
     _build.check(lib, code, "gru_bwd kernel")
     LAUNCHES_GRU_BWD += 1
     LAST_GRU_BWD_PLAN = (units.value, splits.value)
+    LAST_GRU_BWD_WH = _WH[streamed.value]
     return dxp, dhn
 
 
 def _lib_gru_lin() -> ctypes.CDLL:
     lib = _build.load("gru_bwd_lin")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.uasr_gru_bwd_lin.argtypes = [P] * 8 + [I] * 6 + [P, I, P, P]
+    lib.uasr_gru_bwd_lin.argtypes = [P] * 8 + [I] * 6 + [P, I, P, P, P]
     lib.uasr_gru_bwd_lin.restype = I
     return lib
 
 
 def gru_scan_bwd_lin_cuda(c4, ch, dy, wh):
     """Launch K8 on CUDA tensors; same contract as the plain version."""
-    global LAUNCHES_GRU_LIN, LAST_GRU_BWD_PLAN
+    global LAUNCHES_GRU_LIN, LAST_GRU_BWD_PLAN, LAST_GRU_BWD_WH
     T, G, B, H = dy.shape
     dt = dy.dtype
     if not dy.is_cuda:
@@ -550,20 +569,23 @@ def gru_scan_bwd_lin_cuda(c4, ch, dy, wh):
                [(dy, (T, G, B, H), dt), (c4, (T, G, B, 4 * H), dt),
                 (ch, (T, G, B, H), torch.float32), (wh, (G, H, 3 * H), dt)])
     dev = dy.device
+    _check_grid("gru linear backward kernel", G, H, dev)
     out = torch.empty(T, G, B, 4 * H, dtype=dt, device=dev)
     chd = torch.empty(G, B, H, dtype=torch.float32, device=dev)
     xch = torch.empty(2, G, B, 3 * H, dtype=dt, device=dev)
     bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
-    units, splits = ctypes.c_int(0), ctypes.c_int(0)
+    units, splits, streamed = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     lib = _lib_gru_lin()
     code = lib.uasr_gru_bwd_lin(
         c4.data_ptr(), ch.data_ptr(), dy.data_ptr(), wh.data_ptr(), out.data_ptr(),
         chd.data_ptr(), xch.data_ptr(), bar.data_ptr(), _GRU_BAR_GROUPS, T, G, B, H,
         _DTYPES[dt], *_launch_args(dev), ctypes.byref(units), ctypes.byref(splits),
+        ctypes.byref(streamed),
     )
     _build.check(lib, code, "gru_bwd_lin kernel")
     LAUNCHES_GRU_LIN += 1
     LAST_GRU_BWD_PLAN = (units.value, splits.value)
+    LAST_GRU_BWD_WH = _WH[streamed.value]
     return out
 
 
