@@ -16,7 +16,8 @@ and prints no result line):
    log-mel at B=32 x 16 s in each GEMM tier, K2 BiGRU forward at T=400,
    B=32, H=512 in f32 and bf16, K4 CTC prefix beam at T=400, B=32, W=16,
    V=32 without an LM and with bigram and trigram tables; K2-bwd BiGRU
-   backward at T=400, B=32, H=512 in f32 and bf16, K3 CTC alpha and
+   backward at T=400, B=32, H=512 in f32 and bf16 (its coefficient kernel
+   also alone, and timed apart from its reverse chain), K3 CTC alpha and
    K3-bwd CTC beta at T=400, B=32, U=256 (S=513), V=32; K7 unfused
    log-mel on one streaming chunk of 64 streams (240 + 64 x 160 samples)
    in each tier, K4 at V=4233, W=8 over one chunk's 32 logits frames from
@@ -30,8 +31,8 @@ and prints no result line):
    kernel path's logits against the plain path's, in bf16 and f32;
 4. the training path: ``CTCTrainer.train_step`` at the same full width
    with the recipe's SpecAugment, clip and schedule, a set-up step and
-   one step per bucket, each with its launch counts (1 K1, 3 K2, 3 K2-bwd,
-   1 K3, 1 K3-bwd), a profile of one 16 s step, and the first step's loss
+   one step per bucket, each with its launch counts (1 K1, 3 K2, 3 K2-bwd
+   chains and 3 of their coefficient kernels, 1 K3, 1 K3-bwd), a profile of one 16 s step, and the first step's loss
    and gradients on the kernel path against the plain path, bf16 and f32;
 5. the streaming path of configs/aishell_streaming.yaml at full width
    (random cnn weights, the blank bias raised so ~4 characters per second
@@ -351,8 +352,9 @@ def beam_bound(lengths, T: int, B: int, W: int, V: int, lm_size: int, order: int
 
 
 def phase_train_kernels(torch, np, results: dict) -> None:
-    """K2-bwd, K3 and K3-bwd against their plain versions at the shapes
-    the training step gives them, with their times and bounds."""
+    """K2-bwd (and its coefficient kernel alone), K3 and K3-bwd against
+    their plain versions at the shapes the training step gives them, with
+    their times and bounds."""
     from uasr_torch.models import cuda_gru as k2
     from uasr_torch.ops import cuda_ctc as k3
 
@@ -374,27 +376,41 @@ def phase_train_kernels(torch, np, results: dict) -> None:
     # version only in summation order; bf16 rounds dxp, dhn and dhproj at
     # every step, and a product next to a rounding boundary may round the
     # other way on one side: one bf16 ulp (2^-7) of the largest value
+    steps = int(tmask.sum())  # row-steps the masks keep active, both directions
     for dtype, tol in (("float32", 1e-4), ("bfloat16", 2 ** -7)):
         dt = getattr(torch, dtype)
         args = tuple(x.to(dt).contiguous() for x in (p0f, p1f, whf, bhf)) + (tmask,)
         out = k2.bigru_scan_cuda(*args)
         dout = doutf.to(dt)
         got = k2.bigru_scan_bwd_cuda(*args, out, dout)
+        plan = (k2.LAST_BIGRU_BWD_WH, *k2.LAST_BIGRU_BWD_PLAN)
         ref = k2.bigru_scan_bwd_reference(*args, out, dout)
+        c4, ch = k2.bigru_bwd_coeffs_cuda(*args, out)
+        r_c4, r_ch = k2.bigru_bwd_coeffs_reference(*args, out)
         torch.cuda.synchronize()
         scale = max(float(r.float().abs().max()) for r in ref)
         err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
-        print(f"K2-bwd     {dtype:8s} T={T} B={B} H={H} units/CTA={k2.LAST_UNITS_BWD}: "
-              f"max|d| {err:.3e}, largest |ref| {scale:.3e}", flush=True)
-        check(all(bool(torch.isfinite(a.float()).all()) for a in got),
+        # the coefficient kernel alone reads the same out as its plain
+        # version: f32 1e-5, bf16 one bf16 ulp of the largest
+        c_err = max(float((a - r).abs().max()) for a, r in ((c4, r_c4), (ch, r_ch)))
+        c_tol = 1e-5 if dtype == "float32" else 2 ** -7 * float(r_c4.abs().max())
+        print(f"K2-bwd     {dtype:8s} T={T} B={B} H={H} (wh, units/CTA, splits) {plan}: "
+              f"max|d| {err:.3e}, largest |ref| {scale:.3e}; coefficient kernel max|d| "
+              f"{c_err:.3e} (tol {c_tol:.3e})", flush=True)
+        check(all(bool(torch.isfinite(a.float()).all()) for a in (*got, c4, ch)),
               f"K2-bwd {dtype}: non-finite output")
         check(err <= tol * scale, f"K2-bwd {dtype}: max|d| {err:.3e} > {tol} x {scale:.3e}")
+        check(c_err <= c_tol, f"K2-bwd coefficient kernel {dtype}: max|d| {c_err:.3e}")
         ms = cuda_ms(torch, lambda: k2.bigru_scan_bwd_cuda(*args, out, dout), 5)
+        ms_c = cuda_ms(torch, lambda: k2.bigru_bwd_coeffs_cuda(*args, out), 5)
+        ms_ch = cuda_ms(torch, lambda: k2.bigru_bwd_chain_cuda(c4, ch, args[2], dout), 5)
         plain = cuda_ms(torch, lambda: k2.bigru_scan_bwd_reference(*args, out, dout), 1)
         esize = 4 if dtype == "float32" else 2
         nbytes = (esize * (2 * T * B * 3 * H + 2 * H * 3 * H + 2 * 3 * H + 2 * T * B * 2 * H
                            + 2 * T * B * 3 * H + 2 * T * B * H) + 4 * T * 2 * B)
-        bms, by = bound(nbytes, 2 * 2 * T * 2 * B * H * 3 * H, dtype)
+        # the gate product over every row-step (the masks do not skip it)
+        # and the chain's product over the live ones
+        bms, by = bound(nbytes, 2 * (T * 2 * B + steps) * H * 3 * H, dtype)
         # cuDNN bidirectional GRU, forward + backward minus forward, on the
         # same unmasked shapes (input D = 2H): the one PyTorch call pair
         # that computes this function
@@ -405,9 +421,10 @@ def phase_train_kernels(torch, np, results: dict) -> None:
         fwd = cuda_ms(torch, lambda: gru(x)[0], 5)
         both = cuda_ms(torch, lambda: gru(x)[0].backward(gy), 5)
         lib = both - fwd
-        print(f"  tol {tol} x largest |ref|; kernel {ms:.4f} ms plain {plain:.4f} ms cuDNN GRU "
-              f"bwd {lib:.4f} ms (fwd+bwd {both:.4f} - fwd {fwd:.4f}) bound {bms:.4f} ms ({by})",
-              flush=True)
+        print(f"  tol {tol} x largest |ref|; kernel {ms:.4f} ms (coefficient kernel alone "
+              f"{ms_c:.4f}, reverse chain alone {ms_ch:.4f}) plain {plain:.4f} ms cuDNN GRU "
+              f"bwd {lib:.4f} ms (fwd+bwd {both:.4f} - fwd {fwd:.4f}) bound {bms:.4f} ms ({by}); "
+              f"live row-steps {steps} of {2 * T * B}", flush=True)
         results[f"K2-bwd:{dtype}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                                           bound_by=by, library_ms=lib)
 
@@ -583,7 +600,8 @@ def _counters():
 
     return {"K1": (cuda_frontend, "LAUNCHES"), "K7": (cuda_frontend, "LAUNCHES_UNFUSED"),
             "K2": (cuda_gru, "LAUNCHES"),
-            "K2-bwd": (cuda_gru, "LAUNCHES_BWD"), "K3": (cuda_ctc, "LAUNCHES"),
+            "K2-bwd": (cuda_gru, "LAUNCHES_BWD"),
+            "K2-bwd:coeffs": (cuda_gru, "LAUNCHES_BWD_COEFFS"), "K3": (cuda_ctc, "LAUNCHES"),
             "K3-bwd": (cuda_ctc, "LAUNCHES_BWD"), "K4": (cuda_beam, "LAUNCHES"),
             "K5": (cuda_gru, "LAUNCHES_GRU"), "K6": (cuda_attention, "LAUNCHES_ATTN"),
             "K5-bwd": (cuda_gru, "LAUNCHES_GRU_BWD"),
@@ -669,8 +687,8 @@ def phase_slice(torch, np, launches: dict) -> None:
         if use_beam:
             check(infer.LAST_BEAM_IMPL == "cuda", f"beam ran {infer.LAST_BEAM_IMPL}")
             check(counts["K4"] > 0, f"beam: K4 not launched {counts}")
-            check(counts["K2-bwd"] == counts["K3"] == counts["K3-bwd"] == counts["K7"] == 0,
-                  f"decode launched a training kernel {counts}")
+            check(counts["K2-bwd"] == counts["K2-bwd:coeffs"] == counts["K3"] == counts["K3-bwd"]
+                  == counts["K7"] == 0, f"decode launched a training kernel {counts}")
             launches.update({k: counts[k] for k in ("K1", "K2", "K4")})
             profile_call(torch, lambda: infer.run_inference(run_cfg, model, fstate,
                                                             requests[-1:], vocab=vocab,
@@ -744,8 +762,8 @@ def phase_train(torch, np, launches: dict) -> None:
     torch.cuda.synchronize()
     print(f"  set-up step (16 s bucket): wall {(time.perf_counter() - t0) * 1e3:.2f} ms, "
           f"loss {loss:.4f}, grad_norm {gnorm:.4f}", flush=True)
-    want = {"K1": 1, "K7": 0, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1, "K4": 0, "K5": 0,
-            "K6": 0, "K5-bwd": 0, "K5-bwd:coeffs": 0, "K8": 0, "K6-bwd": 0}
+    want = {"K1": 1, "K7": 0, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3, "K3": 1, "K3-bwd": 1,
+            "K4": 0, "K5": 0, "K6": 0, "K5-bwd": 0, "K5-bwd:coeffs": 0, "K8": 0, "K6-bwd": 0}
     total = dict.fromkeys(want, 0)
     for b in batches:
         reset_launches()
@@ -947,9 +965,9 @@ def phase_stream(torch, np, launches: dict) -> None:
     greedy = StreamingRecognizer(
         dataclasses.replace(cfg, ctc=dataclasses.replace(cfg.ctc, use_beam=False)), model,
         device=dev)
-    want_greedy = {"K1": 0, "K7": 1, "K2": 0, "K2-bwd": 0, "K3": 0, "K3-bwd": 0, "K4": 0,
-                   "K5": 0, "K6": 0, "K5-bwd": 0, "K5-bwd:coeffs": 0, "K8": 0,
-                   "K6-bwd": 0}
+    want_greedy = {"K1": 0, "K7": 1, "K2": 0, "K2-bwd": 0, "K2-bwd:coeffs": 0, "K3": 0,
+                   "K3-bwd": 0, "K4": 0, "K5": 0, "K6": 0, "K5-bwd": 0, "K5-bwd:coeffs": 0,
+                   "K8": 0, "K6-bwd": 0}
 
     def greedy_step(d):
         check(d == want_greedy, f"greedy step launches {d}, expected {want_greedy}")
@@ -1896,7 +1914,8 @@ def main() -> int:
          "uasr/models/pallas_gru.py:537", "K2", "K2:bfloat16"),
         ("K4 CTC prefix beam", "uasr_torch/csrc/ctc_beam.cu",
          "uasr/ops/pallas_beam.py:70", "K4", "K4:none"),
-        ("K2-bwd BiGRU backward", "uasr_torch/csrc/bigru_bwd.cu",
+        ("K2-bwd BiGRU backward (coefficient kernel gru_bwd_coeffs.cuh, then the reverse "
+         "chain gru_bwd_chain.cuh)", "uasr_torch/csrc/bigru_bwd.cu",
          "uasr/models/pallas_gru.py:567", "K2-bwd", "K2-bwd:bfloat16"),
         ("K3 CTC alpha", "uasr_torch/csrc/ctc_alpha.cu",
          "uasr/ops/pallas_ctc.py:64", "K3", "K3"),

@@ -4,7 +4,8 @@ reach: audio shorter than one frame and the log-energy column (K1, K7),
 batch rows split over several passes and idle hidden units (K2), one-beam
 and full-warp beams, V above a warp and at 4233, a non-zero blank, zero
 lengths, and a decode fed in chunks from a carried state (K4),
-T = 1, odd T, one row and batch rows split over passes (K2-bwd), small and
+T = 1, odd T, one row, batch rows split over passes and wh streamed
+(K2-bwd and its coefficient kernel alone), small and
 large S, a non-zero blank and zero-length rows (K3, K3-bwd), the edges of
 K5-bwd's tensor-core tiles and its coefficient kernel alone, K5's skipped
 products of masked passes and warp tiles, wh streamed past shared memory
@@ -286,25 +287,74 @@ def _gru_problem(dev, T, B, H, seed):
     return (p0, p1, wh, bh), tmask, dout
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -7)])
-@pytest.mark.parametrize("T,B,H", [(1, 3, 8), (9, 1, 8), (7, 5, 24), (6, 300, 16),
-                                   (11, 40, 64)])
-def test_bigru_bwd_kernel_matches_plain(dev, T, B, H, dtype, tol):
-    """K2-bwd against its plain version; tolerance relative to the largest
-    reference value (bf16: one bf16 ulp, for a product that another
-    summation order rounds the other way)."""
+# T = 1, one row, batch rows over several splits (B = 300), and wh streamed
+# through the chain's ring where no resident plan fits (H = 1536, 2304; K2
+# forward does not take those widths, so its plain version gives out).
+BIGRU_BWD_CASES = [(1, 3, 8), (9, 1, 8), (7, 5, 24), (6, 300, 16), (11, 40, 64), (3, 4, 1536),
+                   (2, 3, 2304)]
+
+
+def _bigru_bwd_problem(dev, T, B, H, dtype):
     arrays, tmask, dout = _gru_problem(dev, T, B, H, T * B + H)
     args = tuple(x.to(dtype).contiguous() for x in arrays) + (tmask,)
-    out = cuda_gru.bigru_scan_cuda(*args)
-    before = cuda_gru.LAUNCHES_BWD
-    got = cuda_gru.bigru_scan_bwd_cuda(*args, out, dout.to(dtype))
-    ref = cuda_gru.bigru_scan_bwd_reference(*args, out, dout.to(dtype))
+    fwd = cuda_gru.bigru_scan_cuda if H <= 512 else cuda_gru.bigru_scan_reference
+    return args, fwd(*args), dout.to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -7)])
+@pytest.mark.parametrize("T,B,H", BIGRU_BWD_CASES)
+def test_bigru_bwd_kernel_matches_plain(dev, T, B, H, dtype, tol):
+    """K2-bwd (its coefficient kernel, then the reverse chain) against its
+    plain version; tolerance relative to the largest reference value (bf16:
+    one bf16 ulp, for a product that another summation order rounds the
+    other way); wh resident in shared memory, or streamed where it does not
+    fit."""
+    args, out, dout = _bigru_bwd_problem(dev, T, B, H, dtype)
+    before = (cuda_gru.LAUNCHES_BWD, cuda_gru.LAUNCHES_BWD_COEFFS)
+    got = cuda_gru.bigru_scan_bwd_cuda(*args, out, dout)
+    wh_mode = cuda_gru.LAST_BIGRU_BWD_WH
+    ref = cuda_gru.bigru_scan_bwd_reference(*args, out, dout)
     torch.cuda.synchronize()
-    assert cuda_gru.LAUNCHES_BWD == before + 1
+    assert (cuda_gru.LAUNCHES_BWD, cuda_gru.LAUNCHES_BWD_COEFFS) == (before[0] + 1,
+                                                                     before[1] + 1)
+    assert wh_mode == ("streamed" if H >= 1536 else "resident")
     scale = max(float(r.float().abs().max()) for r in ref)
     for a, r in zip(got, ref):
         assert a.dtype == dtype and a.shape == r.shape
         assert float((a.float() - r.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", BIGRU_BWD_CASES)
+def test_bigru_bwd_coeffs_kernel_matches_plain(dev, T, B, H, dtype):
+    """K2-bwd's coefficient kernel alone (K2's tensors read in place, group
+    1 in reversed frames) against its plain version on the same out: f32
+    1e-5, bf16 one bf16 ulp (2^-7) of the largest; a masked row-step gets
+    c4 = 0 and ch = 1."""
+    args, out, _ = _bigru_bwd_problem(dev, T, B, H, dtype)
+    c4, ch = cuda_gru.bigru_bwd_coeffs_cuda(*args, out)
+    r_c4, r_ch = cuda_gru.bigru_bwd_coeffs_reference(*args, out)
+    torch.cuda.synchronize()
+    for got, ref in ((c4, r_c4), (ch, r_ch)):
+        assert got.dtype == torch.float32 and got.shape == ref.shape == (T, 2, B, got.shape[-1])
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -7 * float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol
+    off = ~args[-1]  # [T, 2, B]
+    assert not c4[off].any()
+    assert bool((ch[off] == 1).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(11, 40, 64), (3, 4, 1536)])
+def test_bigru_bwd_kernel_is_deterministic(dev, T, B, H, dtype):
+    """Two K2-bwd launches on the same inputs give bit-identical gradients:
+    the warps' partial products are added in a fixed order, with no
+    atomics (resident and streamed wh)."""
+    args, out, dout = _bigru_bwd_problem(dev, T, B, H, dtype)
+    first = cuda_gru.bigru_scan_bwd_cuda(*args, out, dout)
+    second = cuda_gru.bigru_scan_bwd_cuda(*args, out, dout)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_bigru_autograd_on_card_matches_cpu(dev):
@@ -329,6 +379,16 @@ def test_bigru_bwd_kernel_rejects_bad_input(dev):
         cuda_gru.bigru_scan_bwd_cuda(*args, out, dout.transpose(0, 1).contiguous().transpose(0, 1))
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         cuda_gru.bigru_scan_bwd_cuda(*(x.half() for x in arrays), tmask, out.half(), dout.half())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_gru.bigru_scan_bwd_cuda(*(x.cpu() for x in args), out.cpu(), dout.cpu())
+    # the H bound: 2 ceil(H / 64) CTAs, one per SM (H > 4224 on 132 SMs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    H = 64 * (sms // 2) + 8
+    big = [torch.zeros(s, dtype=torch.bfloat16, device=dev)
+           for s in ((1, 1, 3 * H), (2, H, 3 * H), (2, 3 * H), (1, 1, 2 * H))]
+    with pytest.raises(ValueError, match="ceil"):
+        cuda_gru.bigru_scan_bwd_cuda(big[0], big[0], big[1], big[2], tmask[:1, :, :1], big[3],
+                                     big[3])
 
 
 def _ctc_problem(dev, B, T, U, V, blank, seed):

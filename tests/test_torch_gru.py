@@ -132,3 +132,40 @@ def test_backward_plain_matches_autograd_of_forward(T):
         grads.append([x.grad for x in leaves])
     for a, b in zip(*grads):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T", [1, 7])
+def test_bigru_bwd_is_the_grouped_backward_reversed(dtype, T):
+    """K2-bwd is K5-bwd with two groups, group 1 in reversed frames: the
+    grouped backward's plain pipeline (coefficients, then the reverse chain)
+    fed K2's tensors in the kernel-time order that K2-bwd's layout addresses
+    (stream 1's step u is frame T-1-u; its h_prev is out's frame T-u, the
+    shift of _bwd2_rule) gives K2-bwd's plain version: within 1e-6 of the
+    largest gradient in f32 (summation order), one bf16 ulp of it in bf16.
+    Ragged T = 7 with rows of length 1 and T, and T = 1."""
+    tdt = DTYPES[dtype][1]
+    rng = np.random.RandomState(40 + T)
+    B, H = 3, 16
+    p0, p1 = (torch.tensor(rng.randn(T, B, 3 * H).astype(np.float32) * 0.5).to(tdt)
+              for _ in range(2))
+    wh = torch.tensor(rng.randn(2, H, 3 * H).astype(np.float32) * 0.3).to(tdt)
+    bh = torch.tensor(rng.randn(2, 3 * H).astype(np.float32) * 0.1).to(tdt)
+    tmask = torch.tensor(_tmask(T, np.array([1, T, (T + 1) // 2])))
+    dout = torch.tensor(rng.randn(T, B, 2 * H).astype(np.float32)).to(tdt)
+    out = cuda_gru.bigru_scan_reference(p0, p1, wh, bh, tmask)
+    ref = cuda_gru.bigru_scan_bwd_reference(p0, p1, wh, bh, tmask, out, dout)
+
+    kernel_time = cuda_gru._kernel_time
+    ys = kernel_time(out[..., :H], out[..., H:])
+    h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+    assert torch.equal(h_prev[1:, 1], out[1:, :, H:].flip(0))  # frame T-u at step u
+    c4, ch = cuda_gru.gru_bwd_coeffs_reference(kernel_time(p0, p1), wh, bh, tmask, ys)
+    e = cuda_gru._reverse_chain(c4, ch, kernel_time(dout[..., :H], dout[..., H:]), wh, tdt)
+    got = (e[:, 0, ..., :3 * H], e[:, 1, ..., :3 * H].flip(0), e[:, 0, ..., 3 * H:],
+           e[:, 1, ..., 3 * H:].flip(0))
+    scale = max(float(r.float().abs().max()) for r in ref)
+    tol = 1e-6 * scale if dtype == "float32" else 2.0 ** (np.floor(np.log2(scale)) - 7)
+    for a, r in zip(got, ref):
+        assert a.dtype == tdt and a.shape == r.shape
+        assert float((a.float() - r.float()).abs().max()) <= tol

@@ -13,8 +13,9 @@ length-0 row, G in {1, 2}, T odd (not a multiple of the JAX BWD_TIME_TILE).
 
 Error budget of the card's f32 tensor-core products: K5-bwd's plain
 version with its products emulated as 3xTF32 against the f32 plain version
-at T = 24, H = 384 (the card's f32 bar, 1e-4 of the largest gradient), and
-K5's plain version so at T = 300 and T = 24 (1e-4).
+at T = 24, H = 384 (the card's f32 bar, 1e-4 of the largest gradient), the
+same for K2-bwd at H = 512 (K = 3H = 1536), and K5's plain version so at
+T = 300 and T = 24 (1e-4).
 
 Trainer level (f32, H = 16, 2 layers, B = 4, SpecAugment off): the JAX side
 runs gru_pallas with pallas_gru_scan rebound to interpret mode, the port
@@ -154,6 +155,26 @@ def _mm_3xtf32(a, b):
     return a_hi @ b_hi + (a_lo @ b_hi + a_hi @ b_lo)
 
 
+def _grouped_bwd(mm, xp, wh, bh, tmask, ys, dy):
+    """The plain grouped backward (K5-bwd's, and K2-bwd's at G = 2) in f32
+    with its two products, the coefficient kernel's h_prev @ wh and the
+    chain's per-step dhproj @ wh^T, taken by ``mm``. Returns (dxp, dhn)."""
+    T, G, B, H = ys.shape
+    h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+    hp = mm(h_prev, wh) + bh[:, None, :]
+    r, z, n, hn = cuda_gru._gates(xp, hp, h_prev)
+    c4, ch = cuda_gru._coeffs(r, z, n, hn, h_prev, tmask.to(torch.float32)[..., None])
+    w_t = wh.transpose(1, 2)
+    dh = torch.zeros(G, B, H)
+    out = torch.empty(T, G, B, 4 * H)
+    for t in reversed(range(T)):
+        d = dh + dy[t]
+        e = c4[t] * d.repeat(1, 1, 4)
+        out[t] = e
+        dh = ch[t] * d + mm(torch.cat([e[..., :2 * H], e[..., 3 * H:]], -1), w_t)
+    return out[..., :3 * H], out[..., 3 * H:]
+
+
 def test_3xtf32_products_hold_the_card_bar():
     """The error budget of K5-bwd's f32 tensor-core products, set on the
     CPU: the plain K5-bwd with its coefficient product h_prev @ wh and its
@@ -163,7 +184,6 @@ def test_3xtf32_products_hold_the_card_bar():
     times closer than single-pass TF32 (operands rounded once), which lands
     at about the bar itself."""
     T, G, B, H = 24, 1, 8, 384
-    f32 = torch.float32
     arrays, m, _ = _problem(T, G, B, H, 24)
     xp, wh, bh = (torch.tensor(a) for a in arrays)
     tmask = torch.tensor(m)
@@ -171,24 +191,44 @@ def test_3xtf32_products_hold_the_card_bar():
     ys = cuda_gru.gru_scan_reference(xp, wh, bh, tmask)
     ref = cuda_gru.gru_scan_bwd_reference(xp, wh, bh, tmask, ys, dy)
 
-    def bwd(mm):
-        h_prev = torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
-        hp = mm(h_prev, wh) + bh[:, None, :]
-        r, z, n, hn = cuda_gru._gates(xp, hp, h_prev)
-        c4, ch = cuda_gru._coeffs(r, z, n, hn, h_prev, tmask.to(f32)[..., None])
-        w_t = wh.transpose(1, 2)
-        dh = torch.zeros(G, B, H)
-        out = torch.empty(T, G, B, 4 * H)
-        for t in reversed(range(T)):
-            d = dh + dy[t]
-            e = c4[t] * d.repeat(1, 1, 4)
-            out[t] = e
-            dh = ch[t] * d + mm(torch.cat([e[..., :2 * H], e[..., 3 * H:]], -1), w_t)
-        return out[..., :3 * H], out[..., 3 * H:]
+    scale = max(1.0, max(float(x.abs().max()) for x in ref))
+    err3, err1 = (max(float((a - x).abs().max())
+                      for a, x in zip(_grouped_bwd(mm, xp, wh, bh, tmask, ys, dy), ref))
+                  for mm in (_mm_3xtf32, lambda a, b: _tf32(a) @ _tf32(b)))
+    assert 0 < err3 <= 1e-4 * scale
+    assert err1 > 100 * err3
+
+
+def test_3xtf32_products_hold_the_bigru_bar():
+    """The same budget for K2-bwd, which runs K5-bwd's two products at
+    G = 2: at the BiGRU's widths (H = 512, so the chain's K = 3H = 1536;
+    T = 40, B = 4, lengths T, 1 and between), K2's tensors in kernel time
+    (stream 1's frames reversed) through the grouped backward with both
+    products as 3xTF32 stay within 1e-4 of the largest gradient of K2-bwd's
+    f32 plain version; single-pass TF32 lands over a hundred times further off."""
+    T, B, H = 40, 4, 512
+    rng = np.random.RandomState(26)
+    p0, p1 = (torch.tensor((0.5 * rng.randn(T, B, 3 * H)).astype(np.float32)) for _ in range(2))
+    wh = torch.tensor((rng.randn(2, H, 3 * H) / np.sqrt(H)).astype(np.float32))
+    bh = torch.tensor((0.1 * rng.randn(2, 3 * H)).astype(np.float32))
+    lengths = np.array([T, 1, 25, 33])
+    tpos = np.arange(T)[:, None]
+    tmask = torch.tensor(np.stack([tpos < lengths[None], tpos >= (T - lengths)[None]], 1))
+    dout = torch.tensor(rng.randn(T, B, 2 * H).astype(np.float32))
+    out = cuda_gru.bigru_scan_reference(p0, p1, wh, bh, tmask)
+    ref = cuda_gru.bigru_scan_bwd_reference(p0, p1, wh, bh, tmask, out, dout)
+    kt = cuda_gru._kernel_time
+    args = (kt(p0, p1), wh, bh, tmask, kt(out[..., :H], out[..., H:]),
+            kt(dout[..., :H], dout[..., H:]))
+
+    def err(mm):
+        dxp, dhn = _grouped_bwd(mm, *args)
+        got = (dxp[:, 0], dxp[:, 1].flip(0), dhn[:, 0], dhn[:, 1].flip(0))
+        return max(float((a - x).abs().max()) for a, x in zip(got, ref))
 
     scale = max(1.0, max(float(x.abs().max()) for x in ref))
-    err3, err1 = (max(float((a - x).abs().max()) for a, x in zip(bwd(mm), ref))
-                  for mm in (_mm_3xtf32, lambda a, b: _tf32(a) @ _tf32(b)))
+    assert err(torch.matmul) <= 1e-6 * scale  # the kernel-time order itself
+    err3, err1 = err(_mm_3xtf32), err(lambda a, b: _tf32(a) @ _tf32(b))
     assert 0 < err3 <= 1e-4 * scale
     assert err1 > 100 * err3
 

@@ -1,18 +1,23 @@
 // The reverse chain of the grouped GRU backward, shared by K5-bwd
-// (gru_bwd.cu, after its coefficient kernel) and K8 (gru_bwd_lin.cu), and
-// the launch plan of both and of K5 (gru_fwd.cu), whose grid is the same.
+// (gru_bwd.cu), K2-bwd (bigru_bwd.cu), both after the coefficient kernel
+// of gru_bwd_coeffs.cuh, and K8 (gru_bwd_lin.cu); the row layout all of
+// them address; and the launch plan of these and of K5 (gru_fwd.cu),
+// whose grid is the same.
 //
 // Per group g and step t = T-1 .. 0, dh = 0 first, dh carried in f32:
 //   d = dh + dy[t]
 //   (e_r, e_z, e_n, e_nh) = (c_r, c_z, c_n2, c_nh)[t] * d
-//   stored rounded to T: (e_r, e_z, e_n) and e_nh (K5-bwd: dxp and dhn;
-//   K8: one [.., 4H] row)
+//   stored rounded to T: dxp[t] = (e_r, e_z, e_n), dhn[t] = e_nh (K8:
+//   one [.., 4H] row, addressed as dxp = its first 3H, dhn = its last H)
 //   dh = ch[t] * d + round_T(e_r, e_z, e_nh) @ wh[g]^T    (f32 accumulation)
-// These are the TPU kernels' rounding points (pallas_gru.py:221-231 and
-// :156-169). The coefficients c4 [T, G, B, 4H] are f32 (K5-bwd's
+// These are the TPU kernels' rounding points (pallas_gru.py:221-231,
+// :614-636 and :156-169). The coefficients c4 [T, G, B, 4H] are f32 (the
 // coefficient kernel) or T (the forward's save_coeffs output, K8); ch
 // [T, G, B, H] is f32. Both were written by an earlier launch, so they are
-// read through the read-only path.
+// read through the read-only path. c4, ch, the mask and the scratch rows
+// are in kernel time [T, G, B, .]; dy, dxp and dhn are found through a
+// Layout (below), so K2-bwd reads and writes K2's frame-ordered tensors in
+// place, group 1 reversed by addressing.
 //
 // Grid: K5's persistent cooperative grid, one CTA per SM. CTA (g, s, c)
 // owns hidden units j0 .. j0+U-1 of group g and the batch rows
@@ -87,21 +92,57 @@ __device__ __forceinline__ Cta cta_place(int U, int nblk, int S, int Bs, int B) 
   return c;
 }
 
+// Where a row of a tensor family lies. Row (kernel step t, group g, batch
+// row b) starts at element
+//   base + g gs + frame_g(t) st + b sb,  frame_g(t) = T-1-t for g >= rev_from, else t.
+// K5-bwd and K8 address [T, G, B, W] rows (grouped_rows; no group
+// reversed). K2-bwd addresses K2's tensors as they are: p0 and p1 [T, B,
+// 3H] (gs the distance between them), out and dout [T, B, 2H] with the
+// directions side by side (gs = H, sb = 2H), group 1 reading its frames
+// reversed, as the TPU kernel's flipped index maps do (pallas_gru.py:513).
+template <typename P>
+struct Rows {
+  P* base;
+  long long gs, st;
+  int sb;
+  __device__ __forceinline__ P* at(int f, int g, int b) const {
+    return base + g * gs + f * st + (long long)b * sb;
+  }
+};
+
+template <typename P>
+inline Rows<P> grouped_rows(P* p, int G, int B, int W) {
+  return Rows<P>{p, (long long)B * W, (long long)G * B * W, W};
+}
+
+// The families: the coefficient kernel reads xp and the forward's output
+// ys (h_prev of step t is ys's row of step t-1); the chain reads dy and
+// writes dxp (3H wide) and dhn (H wide).
+template <typename T>
+struct Layout {
+  Rows<const T> xp, ys, dy;
+  Rows<T> dxp, dhn;
+  int rev_from;  // the first group that reads its frames reversed (G: none)
+  __device__ __forceinline__ int frame(int t, int g, int Tn) const {
+    return g >= rev_from ? Tn - 1 - t : t;
+  }
+};
+
 // The epilogue's inputs of one row and unit pair, loaded ahead
 struct Pre {
   float2 dy, cr, cz, cn, cnh, ch, chd;
 };
 
-// The reverse chain with warp tiles of 16 MT rows x 8 NT units. LIN: out4
-// [T, G, B, 4H] gets all four blocks (K8); else dxp [T, G, B, 3H] and dhn
-// [T, G, B, H] (K5-bwd). STREAM: wh through the ring. WM warps along the
-// rows, BK elements per K chunk (from plan_grid).
-template <typename T, typename C, bool LIN, int MT, int NT, bool STREAM>
-__device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict__ ch,
-                              const T* __restrict__ dy, const T* __restrict__ wh,
-                              T* __restrict__ out4, T* __restrict__ dxp, T* __restrict__ dhn,
-                              float* chd, T* xch, unsigned* bar, int Tn, int G, int B, int H, int U,
-                              int nblk, int S, int Bs, int WM, int BK, T* smem) {
+// The reverse chain with warp tiles of 16 MT rows x 8 NT units, dy, dxp
+// and dhn addressed through L. STREAM: wh through the ring. WM warps along
+// the rows, BK elements per K chunk (from plan_grid).
+template <typename T, typename C, int MT, int NT, bool STREAM>
+__global__ void __launch_bounds__(THREADS, 1)
+chain_kernel(const C* __restrict__ c4, const float* __restrict__ ch, const Layout<T> L,
+             const T* __restrict__ wh, float* chd, T* xch, unsigned* bar, int Tn, int G, int B,
+             int H, int U, int nblk, int S, int Bs, int WM, int BK) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   using Op = mma::Op<T>;
   constexpr int KP = 2 * Op::K_STEP, VEC = 16 / sizeof(T);  // K of a pair of product steps
   const Cta c = cta_place(U, nblk, S, Bs, B);
@@ -127,8 +168,15 @@ __device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict_
   }
   __syncthreads();
   unsigned* gbar = bar + 2 * LINE * (g * S + c.s);
+  // this group's rows of frame 0 (dxp and dhn may be blocks of one row: K8)
+  const T* __restrict__ dy_g = L.dy.base + g * L.dy.gs;
+  T* __restrict__ dxp_g = L.dxp.base + g * L.dxp.gs;
+  T* __restrict__ dhn_g = L.dhn.base + g * L.dhn.gs;
   for (int step = 0; step < Tn; ++step) {
-    const int t = Tn - 1 - step;
+    const int t = Tn - 1 - step, f = L.frame(t, g, Tn);
+    const T* dy_t = dy_g + f * L.dy.st;
+    T* dxp_t = dxp_g + f * L.dxp.st;
+    T* dhn_t = dhn_g + f * L.dhn.st;
     const T* xin = xch + ((size_t)((t + 1) & 1) * G + g) * B * H3;  // dhproj of step t + 1
     T* xout = xch + ((size_t)(t & 1) * G + g) * B * H3;
     for (int r0 = c.b_lo; r0 < c.b_hi; r0 += R) {
@@ -142,7 +190,7 @@ __device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict_
         const size_t row = ((size_t)t * G + g) * B + b;
         const C* cc = c4 + row * 4 * H + j;
         Pre& p = pre[it];
-        p.dy = mma::ld2(dy + row * H + j);
+        p.dy = mma::ld2(dy_t + (size_t)b * L.dy.sb + j);
         p.cr = mma::ld2(cc);
         p.cz = mma::ld2(cc + H);
         p.cn = mma::ld2(cc + 2 * H);
@@ -216,7 +264,6 @@ __device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict_
         const int b = r0 + r, j = c.j0 + u;
         if (i >= items || b >= c.b_hi || j >= H) continue;
         const Pre& p = pre[it];
-        const size_t row = ((size_t)t * G + g) * B + b;
         float dh0 = 0.f, dh1 = 0.f;
         if (step > 0) {
           float s0 = 0.f, s1 = 0.f;
@@ -231,19 +278,11 @@ __device__ void reverse_chain(const C* __restrict__ c4, const float* __restrict_
         const float er0 = p.cr.x * d0, er1 = p.cr.y * d1, ez0 = p.cz.x * d0, ez1 = p.cz.y * d1;
         const float en0 = p.cn.x * d0, en1 = p.cn.y * d1;
         const float eh0 = p.cnh.x * d0, eh1 = p.cnh.y * d1;
-        if (LIN) {
-          T* o = out4 + row * 4 * H + j;
-          mma::st2(o, er0, er1);
-          mma::st2(o + H, ez0, ez1);
-          mma::st2(o + 2 * H, en0, en1);
-          mma::st2(o + 3 * H, eh0, eh1);
-        } else {
-          T* dx = dxp + row * H3 + j;
-          mma::st2(dx, er0, er1);
-          mma::st2(dx + H, ez0, ez1);
-          mma::st2(dx + 2 * H, en0, en1);
-          mma::st2(dhn + row * H + j, eh0, eh1);
-        }
+        T* dx = dxp_t + (size_t)b * L.dxp.sb + j;
+        mma::st2(dx, er0, er1);
+        mma::st2(dx + H, ez0, ez1);
+        mma::st2(dx + 2 * H, en0, en1);
+        mma::st2(dhn_t + (size_t)b * L.dhn.sb + j, eh0, eh1);
         T* xo = xout + (size_t)b * H3 + j;
         mma::st2(xo, er0, er1);
         mma::st2(xo + H, ez0, ez1);
@@ -362,6 +401,36 @@ cudaError_t plan_grid(const K (&kernels)[2][TILES], const int (&tile_mt)[TILES],
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, THREADS, best->smem);
   if (e != cudaSuccess) return e;
   return occ >= 1 ? cudaSuccess : cudaErrorCooperativeLaunchTooLarge;
+}
+
+// Plan and launch the reverse chain (one cooperative launch). Scratch:
+// chd [G, B, H] f32, xch [2, G, B, 3H] of T, bar 2 * LINE * max_groups
+// zeroed words. *units, *splits: the plan's hidden units per CTA and batch
+// splits per group; *streamed: 1 where wh streams through the ring.
+template <typename T, typename C>
+cudaError_t launch_chain(const C* c4, const float* ch, const Layout<T>& L, const T* wh,
+                         float* chd, T* xch, unsigned* bar, int max_groups, int Tn, int G, int B,
+                         int H, cudaStream_t stream, int* units, int* splits, int* streamed) {
+  using Kernel = decltype(&chain_kernel<T, C, 1, 2, false>);
+  const Kernel kernels[2][TILES] = {
+      {chain_kernel<T, C, TILE_MT[0], TILE_NT[0], false>,
+       chain_kernel<T, C, TILE_MT[1], TILE_NT[1], false>},
+      {chain_kernel<T, C, TILE_MT[0], TILE_NT[0], true>,
+       chain_kernel<T, C, TILE_MT[1], TILE_NT[1], true>}};
+  Plan best;
+  cudaError_t e = plan_grid<T>(kernels, TILE_MT, TILE_NT, Operands{3 * H, 1, false},
+                                max_groups, G, B, H, &best);
+  if (e != cudaSuccess) return e;
+  *units = best.U;
+  *splits = best.S;
+  *streamed = best.stream;
+  int U = best.U, nblk = best.nblk, S = best.S, Bs = best.Bs, WM = best.WM, BK = best.BK;
+  void* args[] = {&c4, &ch, const_cast<Layout<T>*>(&L), &wh, &chd, &xch, &bar, &Tn, &G, &B, &H,
+                  &U, &nblk, &S, &Bs, &WM, &BK};
+  e = cudaLaunchCooperativeKernel((const void*)kernels[best.stream][best.tile],
+                                  dim3(G * S * nblk), dim3(THREADS), args, best.smem, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 }  // namespace gru_bwd

@@ -30,45 +30,18 @@ namespace {
 
 using namespace gru_bwd;
 
-template <typename T, int MT, int NT, bool STREAM>
-__global__ void __launch_bounds__(THREADS, 1)
-gru_bwd_lin_kernel(const T* __restrict__ c4, const float* __restrict__ ch,
-                   const T* __restrict__ dy, const T* __restrict__ wh, T* __restrict__ out,
-                   float* chd, T* xch, unsigned* bar, int Tn, int G, int B, int H, int U,
-                   int nblk, int S, int Bs, int WM, int BK) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  reverse_chain<T, T, true, MT, NT, STREAM>(c4, ch, dy, wh, out, nullptr, nullptr, chd, xch, bar,
-                                            Tn, G, B, H, U, nblk, S, Bs, WM, BK,
-                                            reinterpret_cast<T*>(smem_raw));
-}
-
+// dy in [T, G, B, H] rows; out's [T, G, B, 4H] rows taken as dxp (its
+// first 3H) and dhn (its last H)
 template <typename T>
 cudaError_t launch(const void* c4, const float* ch, const void* dy, const void* wh, void* out,
                    float* chd, void* xch, unsigned* bar, int max_groups, int Tn, int G, int B,
                    int H, cudaStream_t stream, int* units, int* splits, int* streamed) {
-  using Kernel = decltype(&gru_bwd_lin_kernel<T, 1, 2, false>);
-  const Kernel kernels[2][TILES] = {
-      {gru_bwd_lin_kernel<T, TILE_MT[0], TILE_NT[0], false>,
-       gru_bwd_lin_kernel<T, TILE_MT[1], TILE_NT[1], false>},
-      {gru_bwd_lin_kernel<T, TILE_MT[0], TILE_NT[0], true>,
-       gru_bwd_lin_kernel<T, TILE_MT[1], TILE_NT[1], true>}};
-  Plan best;
-  cudaError_t e = plan_grid<T>(kernels, TILE_MT, TILE_NT, Operands{3 * H, 1, false},
-                                max_groups, G, B, H, &best);
-  if (e != cudaSuccess) return e;
-  *units = best.U;
-  *splits = best.S;
-  *streamed = best.stream;
-  const T *c = static_cast<const T*>(c4), *dyp = static_cast<const T*>(dy);
-  const T* w = static_cast<const T*>(wh);
-  T *o = static_cast<T*>(out), *xc = static_cast<T*>(xch);
-  int U = best.U, nblk = best.nblk, S = best.S, Bs = best.Bs, WM = best.WM, BK = best.BK;
-  void* args[] = {&c,  &ch, &dyp, &w, &o,    &chd, &xc, &bar, &Tn, &G,
-                  &B,  &H,  &U,   &nblk, &S, &Bs,  &WM, &BK};
-  e = cudaLaunchCooperativeKernel((const void*)kernels[best.stream][best.tile],
-                                  dim3(G * S * nblk), dim3(THREADS), args, best.smem, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  T* o = static_cast<T*>(out);
+  const Layout<T> L{{}, {}, grouped_rows(static_cast<const T*>(dy), G, B, H),
+                    grouped_rows(o, G, B, 4 * H), grouped_rows(o + 3 * H, G, B, 4 * H), G};
+  return launch_chain<T, T>(static_cast<const T*>(c4), ch, L, static_cast<const T*>(wh), chd,
+                            static_cast<T*>(xch), bar, max_groups, Tn, G, B, H, stream, units,
+                            splits, streamed);
 }
 
 }  // namespace

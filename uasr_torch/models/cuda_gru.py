@@ -9,7 +9,10 @@ Counterpart of ``uasr/models/pallas_gru.py::pallas_bigru_scan`` (TPU
 kernels ``_fwd2_kernel`` and ``_bwd2_kernel`` with the custom VJP
 ``_fwd2_rule`` / ``_bwd2_rule``). ``bigru_scan`` is differentiable: its
 forward launches K2 and its backward K2-bwd for CUDA tensors, and both
-run their plain versions for CPU tensors. The weight gradients dwh and
+run their plain versions for CPU tensors. K2-bwd is K5-bwd's backward
+with two groups, group 1 in reversed frames: the same coefficient kernel
+(``bigru_bwd_coeffs_cuda``) and reverse chain (``bigru_bwd_chain_cuda``),
+reading and writing K2's tensors in place. The weight gradients dwh and
 dbh are whole-trajectory products outside the kernel, as in the JAX
 package.
 
@@ -33,13 +36,15 @@ import torch
 from uasr_torch import _build
 
 LAUNCHES = 0  # K2 launches by bigru_scan_cuda (read by chip_smoke.py)
-LAUNCHES_BWD = 0  # K2-bwd launches by bigru_scan_bwd_cuda
+LAUNCHES_BWD = 0  # K2-bwd (reverse chain) launches by bigru_bwd_chain_cuda
+LAUNCHES_BWD_COEFFS = 0  # K2-bwd coefficient-kernel launches by bigru_bwd_coeffs_cuda
 LAUNCHES_GRU = 0  # K5 launches by gru_scan_cuda
 LAUNCHES_GRU_BWD = 0  # K5-bwd (reverse chain) launches by gru_scan_bwd_cuda
 LAUNCHES_GRU_COEFFS = 0  # K5-bwd coefficient-kernel launches by gru_bwd_coeffs_cuda
 LAUNCHES_GRU_LIN = 0  # K8 launches by gru_scan_bwd_lin_cuda
 LAST_UNITS = None  # hidden units per CTA of the last K2 launch
-LAST_UNITS_BWD = None  # hidden units per CTA of the last K2-bwd launch
+LAST_BIGRU_BWD_PLAN = None  # (hidden units per CTA, batch splits) of the last K2-bwd chain
+LAST_BIGRU_BWD_WH = None  # "resident" or "streamed": wh in shared memory in that launch
 LAST_GRU_PLAN = None  # (hidden units per CTA, batch splits) of the last K5 launch
 LAST_GRU_BWD_PLAN = None  # the same of the last K5-bwd or K8 launch
 LAST_GRU_WH = None  # "resident" or "streamed": wh in shared memory in the last K5 launch
@@ -191,54 +196,118 @@ def bigru_scan_bwd_reference(p0, p1, wh, bh, tmask, out, dout):
     return dxp0, dxp1, dhn0, dhn1
 
 
+def _kernel_time(a0, a1):
+    """Two frame-ordered [T, B, W] tensors of the two streams as one
+    [T, 2, B, W] in kernel time (stream 1's step u is frame T-1-u): the
+    rows K2-bwd's layout addresses in place, for the plain versions."""
+    return torch.stack([a0, a1.flip(0)], 1)
+
+
+def bigru_bwd_coeffs_reference(p0, p1, wh, bh, tmask, out):
+    """Plain version of K2-bwd's coefficient kernel: K5-bwd's
+    (``gru_bwd_coeffs_reference``) on K2's inputs in kernel time, so stream
+    1's h_prev at step u is ``out``'s frame T-u. Returns c4 [T, 2, B, 4H]
+    and ch [T, 2, B, H], f32, in kernel time."""
+    H = out.shape[-1] // 2
+    return gru_bwd_coeffs_reference(_kernel_time(p0, p1), wh, bh, tmask,
+                                    _kernel_time(out[..., :H], out[..., H:]))
+
+
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("bigru_bwd")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.uasr_bigru_bwd.argtypes = [P] * 14 + [I, I, I, I, P, I, P]
+    lib.uasr_bigru_bwd_coeffs.argtypes = [P] * 8 + [I] * 4 + [P, I]
+    lib.uasr_bigru_bwd_coeffs.restype = I
+    lib.uasr_bigru_bwd.argtypes = [P] * 11 + [I] * 5 + [P, I, P, P, P]
     lib.uasr_bigru_bwd.restype = I
     return lib
 
 
-def bigru_scan_bwd_cuda(p0, p1, wh, bh, tmask, out, dout):
-    """Launch K2-bwd on CUDA tensors; same contract as the plain version."""
-    global LAUNCHES_BWD, LAST_UNITS_BWD
+def _check_bigru_bwd(what, H, tensors):
+    """K2-bwd's wrappers take CUDA tensors of K2's dtypes and shapes, on a
+    16-byte boundary, at a hidden size whose two directions' grids fit."""
+    t0 = tensors[0][0]
+    if not t0.is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors; BiGRUScan runs the plain version on the "
+                         f"CPU")
+    _check_gru(what, t0.dtype, H, 2, tensors)
+    if any(t.data_ptr() % 16 for t, _, _ in tensors):
+        raise ValueError(f"{what}: tensors must start on a 16-byte boundary")
+    _check_grid(what, 2, H, t0.device)
+
+
+def bigru_bwd_coeffs_cuda(p0, p1, wh, bh, tmask, out):
+    """Launch K2-bwd's coefficient kernel on CUDA tensors; same contract as
+    ``bigru_bwd_coeffs_reference``."""
+    global LAUNCHES_BWD_COEFFS
     T, B, H3 = p0.shape
     H = H3 // 3
     dt = p0.dtype
-    if dt not in _DTYPES:
-        raise ValueError(f"bigru backward kernel takes float32 or bfloat16, got {dt}")
-    for t, shape in ((p0, (T, B, H3)), (p1, (T, B, H3)), (wh, (2, H, H3)), (bh, (2, H3)),
-                     (out, (T, B, 2 * H)), (dout, (T, B, 2 * H))):
-        if t.shape != shape or t.dtype != dt or t.device != p0.device or not t.is_contiguous():
-            raise ValueError(f"bigru backward kernel: expected contiguous {dt} {shape} "
-                             f"on {p0.device}")
-    if H % 8:
-        raise ValueError(f"bigru backward kernel takes a hidden size that is a multiple of 8, "
-                         f"got {H}")
+    _check_bigru_bwd("bigru backward coefficient kernel", H,
+                     [(p0, (T, B, H3), dt), (p1, (T, B, H3), dt), (wh, (2, H, H3), dt),
+                      (bh, (2, H3), dt), (out, (T, B, 2 * H), dt)])
     if tmask.shape != (T, 2, B):
-        raise ValueError(f"bigru backward kernel: tmask must be [T, 2, B], got "
+        raise ValueError(f"bigru backward coefficient kernel: tmask must be [T, 2, B], got "
                          f"{tuple(tmask.shape)}")
     dev = p0.device
-    mask = tmask.to(device=dev, dtype=torch.float32).contiguous()
-    dxp0, dxp1 = (torch.empty(T, B, H3, dtype=dt, device=dev) for _ in range(2))
+    f32 = torch.float32
+    mask = tmask.to(device=dev, dtype=f32).contiguous()
+    c4 = torch.empty(T, 2, B, 4 * H, dtype=f32, device=dev)
+    ch = torch.empty(T, 2, B, H, dtype=f32, device=dev)
+    lib = _lib_bwd()
+    code = lib.uasr_bigru_bwd_coeffs(
+        p0.data_ptr(), p1.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), c4.data_ptr(), ch.data_ptr(), T, B, H, _DTYPES[dt], *_launch_args(dev),
+    )
+    _build.check(lib, code, "bigru_bwd coefficient kernel")
+    LAUNCHES_BWD_COEFFS += 1
+    return c4, ch
+
+
+def bigru_bwd_chain_cuda(c4, ch, wh, dout):
+    """Launch K2-bwd's reverse chain on CUDA tensors from the coefficient
+    kernel's c4 [T, 2, B, 4H] and ch [T, 2, B, H] (f32, kernel time).
+    Returns (dxp0, dxp1, dhn0, dhn1) in frame order and dout's dtype."""
+    global LAUNCHES_BWD, LAST_BIGRU_BWD_PLAN, LAST_BIGRU_BWD_WH
+    T, B, H2 = dout.shape
+    H = H2 // 2
+    dt = dout.dtype
+    f32 = torch.float32
+    _check_bigru_bwd("bigru backward kernel", H,
+                     [(wh, (2, H, 3 * H), dt), (dout, (T, B, 2 * H), dt),
+                      (c4, (T, 2, B, 4 * H), f32), (ch, (T, 2, B, H), f32)])
+    dev = dout.device
+    dxp0, dxp1 = (torch.empty(T, B, 3 * H, dtype=dt, device=dev) for _ in range(2))
     dhn0, dhn1 = (torch.empty(T, B, H, dtype=dt, device=dev) for _ in range(2))
-    coef = torch.empty(2, T, 5, B, H, dtype=torch.float32, device=dev)  # phase-1 scratch
-    xch = torch.empty(2, 2, B, H3, dtype=dt, device=dev)  # per-step exchange rows
-    bar = torch.zeros(4 * 32, dtype=torch.int32, device=dev)  # barrier words
-    units = ctypes.c_int(0)
+    chd = torch.empty(2, B, H, dtype=f32, device=dev)  # ch * d carried to the next step
+    xch = torch.empty(2, 2, B, 3 * H, dtype=dt, device=dev)  # per-step exchange rows
+    bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
+    units, splits, streamed = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     lib = _lib_bwd()
     code = lib.uasr_bigru_bwd(
-        p0.data_ptr(), p1.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), dout.data_ptr(), dxp0.data_ptr(), dxp1.data_ptr(), dhn0.data_ptr(),
-        dhn1.data_ptr(), coef.data_ptr(), xch.data_ptr(), bar.data_ptr(), T, B, H, _DTYPES[dt],
-        torch.cuda.current_stream(dev).cuda_stream,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        ctypes.byref(units),
+        c4.data_ptr(), ch.data_ptr(), dout.data_ptr(), wh.data_ptr(), dxp0.data_ptr(),
+        dxp1.data_ptr(), dhn0.data_ptr(), dhn1.data_ptr(), chd.data_ptr(), xch.data_ptr(),
+        bar.data_ptr(), _GRU_BAR_GROUPS, T, B, H, _DTYPES[dt], *_launch_args(dev),
+        ctypes.byref(units), ctypes.byref(splits), ctypes.byref(streamed),
     )
     _build.check(lib, code, "bigru_bwd kernel")
     LAUNCHES_BWD += 1
-    LAST_UNITS_BWD = units.value
+    LAST_BIGRU_BWD_PLAN = (units.value, splits.value)
+    LAST_BIGRU_BWD_WH = _WH[streamed.value]
     return dxp0, dxp1, dhn0, dhn1
+
+
+def bigru_scan_bwd_cuda(p0, p1, wh, bh, tmask, out, dout):
+    """Launch K2-bwd on CUDA tensors (the coefficient kernel, then the
+    reverse chain); same contract as the plain version."""
+    T, B, H3 = p0.shape
+    H = H3 // 3
+    dt = p0.dtype
+    _check_bigru_bwd("bigru backward kernel", H,
+                     [(p0, (T, B, H3), dt), (p1, (T, B, H3), dt), (wh, (2, H, H3), dt),
+                      (bh, (2, H3), dt), (out, (T, B, 2 * H), dt), (dout, (T, B, 2 * H), dt)])
+    c4, ch = bigru_bwd_coeffs_cuda(p0, p1, wh, bh, tmask, out)
+    return bigru_bwd_chain_cuda(c4, ch, wh, dout)
 
 
 def _weight_grads(out, dxp0, dxp1, dhn0, dhn1, wh_dtype, bh_dtype):
