@@ -14,8 +14,9 @@ and prints no result line):
 2. kernels against their plain PyTorch versions on the card, at the
    shapes the decode and training paths give them (TF32 off): K1 fused
    log-mel at B=32 x 16 s in each GEMM tier, K2 BiGRU forward at T=400,
-   B=32, H=512 in f32 and bf16, K4 CTC prefix beam at T=400, B=32, W=16,
-   V=32 without an LM and with bigram and trigram tables; K2-bwd BiGRU
+   H=512 in f32 and bf16 at B=32 (timed, with its plan) and at B=7 and 1,
+   K4 CTC prefix beam at T=400, B=32, W=16, V=32 without an LM and with
+   bigram and trigram tables; K2-bwd BiGRU
    backward at T=400, B=32, H=512 in f32 and bf16 (its coefficient kernel
    also alone, and timed apart from its reverse chain), K3 CTC alpha and
    K3-bwd CTC beta at T=400, B=32, U=256 (S=513), V=32; K7 unfused
@@ -27,7 +28,9 @@ and prints no result line):
    configs/librispeech_ctc_bigru.yaml on four requests of 32 seeded
    random utterances (4, 8, 12 and 16 s buckets), beam 16 and greedy,
    after one set-up request timed apart, with every kernel's launch
-   count set to 0 before and read after each run; then the
+   count set to 0 before and read after each run; two more beam-16
+   requests of 1 and 7 of the 16 s utterances (a bucket's last partial
+   batch), each with 3 K2 launches and a finite PER; then the
    kernel path's logits against the plain path's, in bf16 and f32;
 4. the training path: ``CTCTrainer.train_step`` at the same full width
    with the recipe's SpecAugment, clip and schedule, a set-up step and
@@ -253,44 +256,58 @@ def phase_kernels(torch, np, results: dict) -> None:
         results[f"K1:{tier}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                                      bound_by=by, library_ms=None)
 
-    # ---- K2 at T=400, B=32, H=512, ragged lengths incl. 1 and T
-    T, B, H = K2_T, K2_B, K2_H
-    lengths = torch.randint(1, T + 1, (B,), device=dev, generator=gen)
-    lengths[0], lengths[1] = T, 1
-    tpos = torch.arange(T, device=dev)[:, None]
-    tmask = torch.stack([tpos < lengths[None], tpos >= (T - lengths)[None]], 1)
-    p0f = 0.5 * torch.randn(T, B, 3 * H, device=dev, generator=gen)
-    p1f = 0.5 * torch.randn(T, B, 3 * H, device=dev, generator=gen)
-    whf = torch.randn(2, H, 3 * H, device=dev, generator=gen) / H ** 0.5
-    bhf = 0.1 * torch.randn(2, 3 * H, device=dev, generator=gen)
-    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
-        dt = getattr(torch, dtype)
-        args = tuple(x.to(dt).contiguous() for x in (p0f, p1f, whf, bhf)) + (tmask,)
-        got = k2.bigru_scan_cuda(*args)
-        ref = k2.bigru_scan_reference(*args)
-        torch.cuda.synchronize()
-        err = float((got.float() - ref.float()).abs().max())
-        check(bool(torch.isfinite(got.float()).all()), f"K2 {dtype}: non-finite output")
-        check(err <= tol, f"K2 {dtype}: max|d| {err:.3e} > {tol}")
-        ms = cuda_ms(torch, lambda: k2.bigru_scan_cuda(*args), 10)
-        plain = cuda_ms(torch, lambda: k2.bigru_scan_reference(*args), 2)
-        esize = 4 if dtype == "float32" else 2
-        nbytes = esize * (2 * T * B * 3 * H + 2 * H * 3 * H + 2 * 3 * H + T * B * 2 * H) + 4 * T * 2 * B
-        bms, by = bound(nbytes, 2 * T * 2 * B * H * 3 * H, dtype)
-        # cuDNN GRU on the same unmasked shapes (its input projection from
-        # D = 2H included): the one PyTorch call computing this function
-        gru = torch.nn.GRU(2 * H, H, bidirectional=True).to(device=dev, dtype=dt)
-        # one f32 weight buffer; PyTorch does not flatten bf16 RNN weights, so
-        # the bf16 time includes cuDNN's re-pack of them on every call
-        gru.flatten_parameters()
-        x =torch.randn(T, B, 2 * H, device=dev, generator=gen).to(dt)
-        with torch.inference_mode():
-            lib = cuda_ms(torch, lambda: gru(x), 10)
-        print(f"K2 bigru   {dtype:8s} T={T} B={B} H={H} units/CTA={k2.LAST_UNITS}: "
-              f"max|d| {err:.3e} (tol {tol}) kernel {ms:.4f} ms plain {plain:.4f} ms "
-              f"cuDNN GRU {lib:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
-        results[f"K2:{dtype}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
-                                      bound_by=by, library_ms=lib)
+    # ---- K2 at T=400, H=512, ragged lengths incl. 1 and T: B=32, timed, then
+    # B=7 and B=1 (a bucket's last partial batch; refused before K2 ran K5's plan)
+    T, H = K2_T, K2_H
+    for B in (K2_B, 7, 1):
+        lengths = torch.randint(1, T + 1, (B,), device=dev, generator=gen)
+        lengths[0] = T
+        if B > 1:
+            lengths[1] = 1
+        tpos = torch.arange(T, device=dev)[:, None]
+        tmask = torch.stack([tpos < lengths[None], tpos >= (T - lengths)[None]], 1)
+        p0f = 0.5 * torch.randn(T, B, 3 * H, device=dev, generator=gen)
+        p1f = 0.5 * torch.randn(T, B, 3 * H, device=dev, generator=gen)
+        whf = torch.randn(2, H, 3 * H, device=dev, generator=gen) / H ** 0.5
+        bhf = 0.1 * torch.randn(2, 3 * H, device=dev, generator=gen)
+        for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+            dt = getattr(torch, dtype)
+            args = tuple(x.to(dt).contiguous() for x in (p0f, p1f, whf, bhf)) + (tmask,)
+            got = k2.bigru_scan_cuda(*args)
+            plan = f"plan {k2.LAST_BIGRU_PLAN} (units/CTA, splits) wh {k2.LAST_BIGRU_WH}"
+            ref = k2.bigru_scan_reference(*args)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            check(bool(torch.isfinite(got.float()).all()), f"K2 {dtype} B={B}: non-finite output")
+            check(err <= tol, f"K2 {dtype} B={B}: max|d| {err:.3e} > {tol}")
+            if B != K2_B:
+                print(f"K2 bigru   {dtype:8s} T={T} B={B} H={H} {plan}: max|d| {err:.3e} "
+                      f"(tol {tol})", flush=True)
+                continue
+            ms = cuda_ms(torch, lambda: k2.bigru_scan_cuda(*args), 10)
+            plain = cuda_ms(torch, lambda: k2.bigru_scan_reference(*args), 2)
+            # the work of the row-steps the masks keep live, both directions: a
+            # masked row-step only carries h forward, so it needs neither its
+            # xp row nor the product; out is written at every row-step
+            steps = int(tmask.sum())
+            esize = 4 if dtype == "float32" else 2
+            nbytes = (esize * (steps * 3 * H + 2 * H * 3 * H + 2 * 3 * H + T * B * 2 * H)
+                      + 4 * T * 2 * B)
+            bms, by = bound(nbytes, 2 * steps * H * 3 * H, dtype)
+            # cuDNN GRU on the same unmasked shapes (its input projection from
+            # D = 2H included): the one PyTorch call computing this function
+            gru = torch.nn.GRU(2 * H, H, bidirectional=True).to(device=dev, dtype=dt)
+            # one f32 weight buffer; PyTorch does not flatten bf16 RNN weights, so
+            # the bf16 time includes cuDNN's re-pack of them on every call
+            gru.flatten_parameters()
+            x = torch.randn(T, B, 2 * H, device=dev, generator=gen).to(dt)
+            with torch.inference_mode():
+                lib = cuda_ms(torch, lambda: gru(x), 10)
+            print(f"K2 bigru   {dtype:8s} T={T} B={B} H={H} {plan}: max|d| {err:.3e} (tol "
+                  f"{tol}) kernel {ms:.4f} ms plain {plain:.4f} ms cuDNN GRU {lib:.4f} ms bound "
+                  f"{bms:.4f} ms ({by}); live row-steps {steps} of {2 * T * B}", flush=True)
+            results[f"K2:{dtype}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                                          bound_by=by, library_ms=lib)
 
     # ---- K4 at T=400, B=32, W=16, V=32
     T, B, W, V = K4_T, K4_B, K4_W, K4_V
@@ -647,6 +664,7 @@ def profile_call(torch, fn, what: str) -> None:
 
 def phase_slice(torch, np, launches: dict) -> None:
     from uasr_torch import infer
+    from uasr_torch.data.dataset import Batch
     from uasr_torch.frontend.features import (
         compute_features, make_frontend_state, num_frames_static,
     )
@@ -694,6 +712,22 @@ def phase_slice(torch, np, launches: dict) -> None:
                                                             requests[-1:], vocab=vocab,
                                                             device=dev),
                          f"one {requests[-1].audio.shape[1] / 16000:.1f} s request")
+
+    # a bucket's last partial batch: 1 and 7 utterances of the 16 s request,
+    # beam 16 (K2 refused both at H = 512 before it ran K5's plan)
+    beam_cfg = dataclasses.replace(cfg, ctc=dataclasses.replace(cfg.ctc, use_beam=True))
+    for n in (1, 7):
+        part = Batch(*(x[:n] for x in requests[-1]))
+        reset_launches()
+        r = infer.run_inference(beam_cfg, model, fstate, [part], vocab=vocab, device=dev)
+        counts = read_launches()
+        wall = r["rtf"] * r["audio_seconds"]
+        print(f"  beam16 request of {n} utterance(s), {part.audio.shape[1] / 16000:.1f} s "
+              f"bucket: wall {wall * 1e3:.2f} ms, PER {r['per']:.3f}, launches K1 "
+              f"{counts['K1']} K2 {counts['K2']} K4 {counts['K4']}", flush=True)
+        check(np.isfinite(r["per"]) and r["ref_tokens"] > 0, f"{n} utterances: bad score {r}")
+        check(counts["K2"] == cfg.model.num_gru_layers and counts["K4"] > 0,
+              f"{n} utterances: launches {counts}")
 
     # kernel path vs plain path: the same entry points with every kernel
     # swapped for its plain version, same weights, 16 s request
@@ -1910,7 +1944,8 @@ def main() -> int:
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",
          "uasr/frontend/pallas_frontend.py:125", "K1", "K1:highest"),
-        ("K2 BiGRU forward", "uasr_torch/csrc/bigru_fwd.cu",
+        ("K2 BiGRU forward (K5's kernel gru_fwd_kernel.cuh with two groups)",
+         "uasr_torch/csrc/bigru_fwd.cu",
          "uasr/models/pallas_gru.py:537", "K2", "K2:bfloat16"),
         ("K4 CTC prefix beam", "uasr_torch/csrc/ctc_beam.cu",
          "uasr/ops/pallas_beam.py:70", "K4", "K4:none"),

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and options that chip_smoke.py's full-width run does not
 reach: audio shorter than one frame and the log-energy column (K1, K7),
-batch rows split over several passes and idle hidden units (K2), one-beam
-and full-warp beams, V above a warp and at 4233, a non-zero blank, zero
-lengths, and a decode fed in chunks from a carried state (K4),
+batch rows split over several passes and idle hidden units, B = 1, 4 and
+7 at H = 512 and wh streamed at H = 1536 and 2304 (K2, also against K5),
+one-beam and full-warp beams, V above a warp and at 4233, a non-zero
+blank, zero lengths, and a decode fed in chunks from a carried state (K4),
 T = 1, odd T, one row, batch rows split over passes and wh streamed
 (K2-bwd and its coefficient kernel alone), small and
 large S, a non-zero blank and zero-length rows (K3, K3-bwd), the edges of
@@ -65,8 +66,15 @@ def test_log_mel_kernel_matches_plain(dev, precision, want_energy, L):
     assert float((got - ref).abs().max()) <= K1_TOL[precision]
 
 
+# one row, batch rows over several splits (B = 300), small batches at the
+# recipe's H = 512 (B = 1, 4, 7: once refused), and wh streamed through the
+# ring where it does not fit shared memory (H = 1536, 2304: once refused)
+BIGRU_CASES = [(9, 1, 8), (7, 5, 24), (6, 300, 16), (11, 40, 64), (5, 1, 512), (4, 4, 512),
+               (3, 7, 512), (3, 4, 1536), (2, 3, 2304)]
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("T,B,H", [(9, 1, 8), (7, 5, 24), (6, 300, 16), (11, 40, 64)])
+@pytest.mark.parametrize("T,B,H", BIGRU_CASES)
 def test_bigru_kernel_matches_plain(dev, T, B, H, dtype, tol):
     gen = torch.Generator(device=dev).manual_seed(T * B + H)
     lengths = torch.randint(1, T + 1, (B,), device=dev, generator=gen)
@@ -77,16 +85,47 @@ def test_bigru_kernel_matches_plain(dev, T, B, H, dtype, tol):
     wh = torch.randn(2, H, 3 * H, device=dev, generator=gen) / H ** 0.5
     bh = 0.1 * torch.randn(2, 3 * H, device=dev, generator=gen)
     args = tuple(x.to(dtype).contiguous() for x in (p0, p1, wh, bh)) + (tmask,)
+    before = cuda_gru.LAUNCHES
     got = cuda_gru.bigru_scan_cuda(*args)
     ref = cuda_gru.bigru_scan_reference(*args)
     torch.cuda.synchronize()
+    assert cuda_gru.LAUNCHES == before + 1
+    assert cuda_gru.LAST_BIGRU_WH == ("streamed" if H >= 1536 else "resident")
     assert got.dtype == dtype and got.shape == (T, B, 2 * H)
     assert float((got.float() - ref.float()).abs().max()) <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(9, 1, 8), (11, 40, 64), (3, 7, 512), (3, 4, 1536)])
+def test_bigru_kernel_is_the_grouped_kernel_reversed(dev, T, B, H, dtype):
+    """K2 is K5's kernel with two groups, group 1's frames reversed by
+    addressing: its output is bit-equal to K5's on the stacked inputs in
+    kernel time (p1 flipped), group 1 flipped back, with the same plan."""
+    arrays, tmask, _ = _gru_problem(dev, T, B, H, T * B + H)
+    p0, p1, wh, bh = (x.to(dtype).contiguous() for x in arrays)
+    got = cuda_gru.bigru_scan_cuda(p0, p1, wh, bh, tmask)
+    plan = cuda_gru.LAST_BIGRU_PLAN, cuda_gru.LAST_BIGRU_WH
+    ys = cuda_gru.gru_scan_cuda(torch.stack([p0, p1.flip(0)], 1).contiguous(), wh, bh, tmask)
+    torch.cuda.synchronize()
+    assert (cuda_gru.LAST_GRU_PLAN, cuda_gru.LAST_GRU_WH) == plan
+    assert torch.equal(got, torch.cat([ys[:, 0], ys[:, 1].flip(0)], -1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H", [(11, 40, 64), (3, 4, 1536)])
+def test_bigru_kernel_is_deterministic(dev, T, B, H, dtype):
+    """Two K2 launches on the same inputs give bit-identical states: the
+    warps' partial products are added in a fixed order, with no atomics
+    (resident and streamed wh)."""
+    arrays, tmask, _ = _gru_problem(dev, T, B, H, T * B + H)
+    args = tuple(x.to(dtype).contiguous() for x in arrays) + (tmask,)
+    assert torch.equal(cuda_gru.bigru_scan_cuda(*args), cuda_gru.bigru_scan_cuda(*args))
+
+
 @pytest.mark.parametrize("H", [12, 16])
 def test_bigru_kernel_rejects_bad_input(dev, H):
-    """H = 12 is not a multiple of 8; at H = 16 wh is not contiguous."""
+    """H = 12 is not a multiple of 8; at H = 16 wh is not contiguous. Both:
+    CPU tensors, and an H whose two directions' grids exceed the SMs."""
     x = torch.zeros(4, 2, 3 * H, device=dev)
     wh = torch.zeros(2, 3 * H, H, device=dev).transpose(1, 2)
     if H % 8:
@@ -94,6 +133,15 @@ def test_bigru_kernel_rejects_bad_input(dev, H):
     bh, tm = torch.zeros(2, 3 * H, device=dev), torch.ones(4, 2, 2, device=dev)
     with pytest.raises(ValueError, match="multiple of 8" if H % 8 else "contiguous"):
         cuda_gru.bigru_scan_cuda(x, x, wh, bh, tm)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cuda_gru.bigru_scan_cuda(x.cpu(), x.cpu(), wh.contiguous().cpu(), bh.cpu(), tm.cpu())
+    # the H bound: 2 ceil(H / 64) CTAs, one per SM (H > 4224 on 132 SMs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    Hb = 64 * (sms // 2) + 8
+    big = [torch.zeros(s, dtype=torch.bfloat16, device=dev)
+           for s in ((1, 1, 3 * Hb), (2, Hb, 3 * Hb), (2, 3 * Hb))]
+    with pytest.raises(ValueError, match="ceil"):
+        cuda_gru.bigru_scan_cuda(big[0], big[0], big[1], big[2], tm[:1, :, :1])
 
 
 # small vocabularies (a one-warp CTA) with every LM order; V = 300 and
@@ -288,8 +336,7 @@ def _gru_problem(dev, T, B, H, seed):
 
 
 # T = 1, one row, batch rows over several splits (B = 300), and wh streamed
-# through the chain's ring where no resident plan fits (H = 1536, 2304; K2
-# forward does not take those widths, so its plain version gives out).
+# through the chain's ring where no resident plan fits (H = 1536, 2304).
 BIGRU_BWD_CASES = [(1, 3, 8), (9, 1, 8), (7, 5, 24), (6, 300, 16), (11, 40, 64), (3, 4, 1536),
                    (2, 3, 2304)]
 
@@ -297,8 +344,7 @@ BIGRU_BWD_CASES = [(1, 3, 8), (9, 1, 8), (7, 5, 24), (6, 300, 16), (11, 40, 64),
 def _bigru_bwd_problem(dev, T, B, H, dtype):
     arrays, tmask, dout = _gru_problem(dev, T, B, H, T * B + H)
     args = tuple(x.to(dtype).contiguous() for x in arrays) + (tmask,)
-    fwd = cuda_gru.bigru_scan_cuda if H <= 512 else cuda_gru.bigru_scan_reference
-    return args, fwd(*args), dout.to(dtype)
+    return args, cuda_gru.bigru_scan_cuda(*args), dout.to(dtype)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2 ** -7)])

@@ -169,3 +169,27 @@ def test_bigru_bwd_is_the_grouped_backward_reversed(dtype, T):
     for a, r in zip(got, ref):
         assert a.dtype == tdt and a.shape == r.shape
         assert float((a.float() - r.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("T", [1, 7])
+def test_bigru_fwd_is_the_grouped_forward_reversed(dtype, T):
+    """K2 is K5 with two groups, group 1 in reversed frames: the grouped
+    forward's plain version fed K2's inputs in the kernel-time order that
+    K2's layout addresses (stream 1's step u is frame T-1-u), with group
+    1's states flipped back to frame order beside group 0's, is K2's plain
+    version bit for bit (both run the same ops on the same rows). Ragged
+    T = 7 with rows of length 1 and T, and T = 1."""
+    tdt = DTYPES[dtype][1]
+    rng = np.random.RandomState(60 + T)
+    B, H = 3, 16
+    p0, p1 = (torch.tensor(rng.randn(T, B, 3 * H).astype(np.float32) * 0.5).to(tdt)
+              for _ in range(2))
+    wh = torch.tensor(rng.randn(2, H, 3 * H).astype(np.float32) * 0.3).to(tdt)
+    bh = torch.tensor(rng.randn(2, 3 * H).astype(np.float32) * 0.1).to(tdt)
+    tmask = torch.tensor(_tmask(T, np.array([1, T, (T + 1) // 2])))
+    ref = cuda_gru.bigru_scan_reference(p0, p1, wh, bh, tmask)
+    ys = cuda_gru.gru_scan_reference(torch.stack([p0, p1.flip(0)], 1), wh, bh, tmask)
+    got = torch.cat([ys[:, 0], ys[:, 1].flip(0)], -1)
+    assert got.dtype == tdt and got.shape == (T, B, 2 * H)
+    assert torch.equal(got, ref)

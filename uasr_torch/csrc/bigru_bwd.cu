@@ -20,10 +20,11 @@
 // ch [T, 2, B, H] in f32 and kernel time, then the cooperative reverse
 // chain of gru_bwd_chain.cuh (uasr_bigru_bwd) runs from them, both products
 // on the tensor cores (bf16 as stored, f32 as 3xTF32). Neither copies,
-// stacks or flips anything: their Layout reads and writes K2's tensors in
-// place, p0 / p1 and dxp0 / dxp1 and dhn0 / dhn1 as the two groups' bases,
-// out and dout with the directions side by side (sb = 2H), and group 1's
-// frames reversed by addressing.
+// stacks or flips anything: their Layout (K2's rows, bigru_rows.cuh, shared
+// with K2) reads and writes K2's tensors in place, p0 / p1 and dxp0 / dxp1
+// and dhn0 / dhn1 as the two groups' bases, out and dout with the
+// directions side by side (sb = 2H), and group 1's frames reversed by
+// addressing.
 //
 // Bound: the coefficient product and the chain's per-step products are
 // 2 * T * 2 * B * H * 3H FLOP each (~80 GFLOP in all at T = 400, B = 32,
@@ -32,32 +33,12 @@
 // chain's 400 dependent steps, each a barrier and an epilogue, set the
 // time.
 
+#include "bigru_rows.cuh"
 #include "gru_bwd_coeffs.cuh"
 
 namespace {
 
 using namespace gru_bwd;
-
-// Elements from group 0's tensor a to group 1's b (both aligned to T)
-template <typename T>
-long long distance(const void* a, const void* b) {
-  return ((intptr_t)b - (intptr_t)a) / (intptr_t)sizeof(T);
-}
-
-// K2's tensors as the two groups' rows: kernel step t of group 1 is frame
-// T-1-t
-template <typename T>
-Layout<T> bigru_layout(const void* p0, const void* p1, const void* out, const void* dout,
-                       void* dxp0, void* dxp1, void* dhn0, void* dhn1, int B, int H) {
-  const long long H3 = 3 * H, H2 = 2 * H;
-  return Layout<T>{
-      {static_cast<const T*>(p0), distance<T>(p0, p1), B * H3, (int)H3},
-      {static_cast<const T*>(out), H, B * H2, (int)H2},
-      {static_cast<const T*>(dout), H, B * H2, (int)H2},
-      {static_cast<T*>(dxp0), distance<T>(dxp0, dxp1), B * H3, (int)H3},
-      {static_cast<T*>(dhn0), distance<T>(dhn0, dhn1), (long long)B * H, H},
-      1};
-}
 
 template <typename T>
 cudaError_t coeffs(const void* p0, const void* p1, const void* wh, const void* bh,

@@ -1,27 +1,11 @@
-// Helpers of the persistent cooperative GRU kernels (bigru_fwd.cu,
-// bigru_bwd.cu): L2 loads of rows other CTAs wrote, and the barrier of
-// the CTAs of one direction.
+// Helpers of the persistent cooperative GRU kernels (gru_fwd_kernel.cuh,
+// gru_bwd_chain.cuh): the barrier of the CTAs of one group and batch split,
+// and the co-residency limits of a cooperative launch.
 #pragma once
 
 #include "common.cuh"
 
 constexpr int LINE = 32;  // uint32 per 128-byte line of the barrier words
-
-// 16-byte L2 load (past L1, which other SMs' writes do not update) of
-// 16 / sizeof(T) consecutive elements, widened to f32
-__device__ __forceinline__ void load16_l2(const float* p, float* out) {
-  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x, out[1] = v.y, out[2] = v.z, out[3] = v.w;
-}
-__device__ __forceinline__ void load16_l2(const __nv_bfloat16* p, float* out) {
-  const uint4 v = __ldcg(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;

@@ -1,8 +1,8 @@
 // The reverse chain of the grouped GRU backward, shared by K5-bwd
 // (gru_bwd.cu), K2-bwd (bigru_bwd.cu), both after the coefficient kernel
-// of gru_bwd_coeffs.cuh, and K8 (gru_bwd_lin.cu); the row layout all of
-// them address; and the launch plan of these and of K5 (gru_fwd.cu),
-// whose grid is the same.
+// of gru_bwd_coeffs.cuh, and K8 (gru_bwd_lin.cu); the row layouts all of
+// them and the forward address; and the launch plan of these and of the
+// forward (gru_fwd_kernel.cuh: K5 and K2), whose grid is the same.
 //
 // Per group g and step t = T-1 .. 0, dh = 0 first, dh carried in f32:
 //   d = dh + dy[t]
@@ -95,11 +95,12 @@ __device__ __forceinline__ Cta cta_place(int U, int nblk, int S, int Bs, int B) 
 // Where a row of a tensor family lies. Row (kernel step t, group g, batch
 // row b) starts at element
 //   base + g gs + frame_g(t) st + b sb,  frame_g(t) = T-1-t for g >= rev_from, else t.
-// K5-bwd and K8 address [T, G, B, W] rows (grouped_rows; no group
-// reversed). K2-bwd addresses K2's tensors as they are: p0 and p1 [T, B,
-// 3H] (gs the distance between them), out and dout [T, B, 2H] with the
-// directions side by side (gs = H, sb = 2H), group 1 reading its frames
-// reversed, as the TPU kernel's flipped index maps do (pallas_gru.py:513).
+// K5, K5-bwd and K8 address [T, G, B, W] rows (grouped_rows; no group
+// reversed). K2 and K2-bwd address K2's tensors as they are (bigru_rows.cuh):
+// p0 and p1 [T, B, 3H] (gs the distance between them), out and dout [T, B,
+// 2H] with the directions side by side (gs = H, sb = 2H), group 1 reading
+// its frames reversed, as the TPU kernel's flipped index maps do
+// (pallas_gru.py:513).
 template <typename P>
 struct Rows {
   P* base;
@@ -122,6 +123,18 @@ template <typename T>
 struct Layout {
   Rows<const T> xp, ys, dy;
   Rows<T> dxp, dhn;
+  int rev_from;  // the first group that reads its frames reversed (G: none)
+  __device__ __forceinline__ int frame(int t, int g, int Tn) const {
+    return g >= rev_from ? Tn - 1 - t : t;
+  }
+};
+
+// The forward's families (gru_fwd_kernel.cuh): it reads xp and writes ys,
+// whose row of step t-1 is step t's h_prev.
+template <typename T>
+struct FwdLayout {
+  Rows<const T> xp;
+  Rows<T> ys;
   int rev_from;  // the first group that reads its frames reversed (G: none)
   __device__ __forceinline__ int frame(int t, int g, int Tn) const {
     return g >= rev_from ? Tn - 1 - t : t;

@@ -9,12 +9,12 @@ Counterpart of ``uasr/models/pallas_gru.py::pallas_bigru_scan`` (TPU
 kernels ``_fwd2_kernel`` and ``_bwd2_kernel`` with the custom VJP
 ``_fwd2_rule`` / ``_bwd2_rule``). ``bigru_scan`` is differentiable: its
 forward launches K2 and its backward K2-bwd for CUDA tensors, and both
-run their plain versions for CPU tensors. K2-bwd is K5-bwd's backward
-with two groups, group 1 in reversed frames: the same coefficient kernel
-(``bigru_bwd_coeffs_cuda``) and reverse chain (``bigru_bwd_chain_cuda``),
-reading and writing K2's tensors in place. The weight gradients dwh and
-dbh are whole-trajectory products outside the kernel, as in the JAX
-package.
+run their plain versions for CPU tensors. K2 is K5 with two groups, group
+1 in reversed frames: K5's kernel, reading p0 / p1 and writing its output
+in place. K2-bwd is K5-bwd's backward with two groups in the same way:
+the same coefficient kernel (``bigru_bwd_coeffs_cuda``) and reverse chain
+(``bigru_bwd_chain_cuda``). The weight gradients dwh and dbh are
+whole-trajectory products outside the kernel, as in the JAX package.
 
 ``gru_scan`` is the counterpart of ``pallas_gru_scan`` (TPU kernels
 ``_fwd_kernel``, ``_bwd_kernel`` and ``_bwd_lin_kernel`` with the custom
@@ -42,7 +42,8 @@ LAUNCHES_GRU = 0  # K5 launches by gru_scan_cuda
 LAUNCHES_GRU_BWD = 0  # K5-bwd (reverse chain) launches by gru_scan_bwd_cuda
 LAUNCHES_GRU_COEFFS = 0  # K5-bwd coefficient-kernel launches by gru_bwd_coeffs_cuda
 LAUNCHES_GRU_LIN = 0  # K8 launches by gru_scan_bwd_lin_cuda
-LAST_UNITS = None  # hidden units per CTA of the last K2 launch
+LAST_BIGRU_PLAN = None  # (hidden units per CTA, batch splits) of the last K2 launch
+LAST_BIGRU_WH = None  # "resident" or "streamed": wh in shared memory in that launch
 LAST_BIGRU_BWD_PLAN = None  # (hidden units per CTA, batch splits) of the last K2-bwd chain
 LAST_BIGRU_BWD_WH = None  # "resident" or "streamed": wh in shared memory in that launch
 LAST_GRU_PLAN = None  # (hidden units per CTA, batch splits) of the last K5 launch
@@ -55,8 +56,8 @@ LAST_GRU_BWD_WH = None  # the same of the last K5-bwd or K8 launch
 BWD_IMPL = os.environ.get("UASR_GRU_BWD_IMPL", "fused")
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_GRU_BAR_GROUPS = 256  # barriers K5 may use: one per group and batch split
-_GRU_MAX_UNITS = 64  # hidden units of the widest CTA of K5, K5-bwd, K8 (MAX_UNITS)
+_GRU_BAR_GROUPS = 256  # barriers a persistent grid may use: one per group and batch split
+_GRU_MAX_UNITS = 64  # hidden units of the widest CTA of K2, K2-bwd, K5, K5-bwd, K8 (MAX_UNITS)
 _WH = ("resident", "streamed")
 
 
@@ -98,41 +99,50 @@ def bigru_scan_reference(p0, p1, wh, bh, tmask):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("bigru_fwd")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.uasr_bigru_fwd.argtypes = [P, P, P, P, P, P, P, I, I, I, I, P, I, P]
+    lib.uasr_bigru_fwd.argtypes = [P] * 7 + [I] * 5 + [P, I, P, P, P]
     lib.uasr_bigru_fwd.restype = I
     return lib
 
 
+def _check_bigru(what, H, tensors):
+    """K2's and K2-bwd's wrappers take CUDA tensors of K2's dtypes and
+    shapes, on a 16-byte boundary, at a hidden size whose two directions'
+    grids fit."""
+    t0 = tensors[0][0]
+    if not t0.is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors; BiGRUScan runs the plain version on the "
+                         f"CPU")
+    _check_gru(what, t0.dtype, H, 2, tensors)
+    if any(t.data_ptr() % 16 for t, _, _ in tensors):
+        raise ValueError(f"{what}: tensors must start on a 16-byte boundary")
+    _check_grid(what, 2, H, t0.device)
+
+
 def bigru_scan_cuda(p0, p1, wh, bh, tmask):
     """Launch K2 on CUDA tensors; same contract as the plain version."""
-    global LAUNCHES, LAST_UNITS
+    global LAUNCHES, LAST_BIGRU_PLAN, LAST_BIGRU_WH
     T, B, H3 = p0.shape
     H = H3 // 3
     dt = p0.dtype
-    if dt not in _DTYPES:
-        raise ValueError(f"bigru kernel takes float32 or bfloat16, got {dt}")
-    for t, shape in ((p0, (T, B, H3)), (p1, (T, B, H3)), (wh, (2, H, H3)), (bh, (2, H3))):
-        if t.shape != shape or t.dtype != dt or t.device != p0.device or not t.is_contiguous():
-            raise ValueError(f"bigru kernel: expected contiguous {dt} {shape} on {p0.device}")
-    if H % 8:
-        raise ValueError(f"bigru kernel takes a hidden size that is a multiple of 8, got {H}")
+    _check_bigru("bigru kernel", H, [(p0, (T, B, H3), dt), (p1, (T, B, H3), dt),
+                                     (wh, (2, H, H3), dt), (bh, (2, H3), dt)])
     if tmask.shape != (T, 2, B):
         raise ValueError(f"bigru kernel: tmask must be [T, 2, B], got {tuple(tmask.shape)}")
-    mask = tmask.to(device=p0.device, dtype=torch.float32).contiguous()
-    out = torch.empty(T, B, 2 * H, dtype=dt, device=p0.device)
-    bar = torch.zeros(4 * 32, dtype=torch.int32, device=p0.device)  # barrier words
-    units = ctypes.c_int(0)
+    dev = p0.device
+    mask = tmask.to(device=dev, dtype=torch.float32).contiguous()
+    out = torch.empty(T, B, 2 * H, dtype=dt, device=dev)
+    bar = torch.zeros(2 * 32 * _GRU_BAR_GROUPS, dtype=torch.int32, device=dev)
+    units, splits, streamed = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
     lib = _lib()
     code = lib.uasr_bigru_fwd(
         p0.data_ptr(), p1.data_ptr(), wh.data_ptr(), bh.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), bar.data_ptr(), T, B, H, _DTYPES[dt],
-        torch.cuda.current_stream(p0.device).cuda_stream,
-        p0.device.index if p0.device.index is not None else torch.cuda.current_device(),
-        ctypes.byref(units),
+        out.data_ptr(), bar.data_ptr(), _GRU_BAR_GROUPS, T, B, H, _DTYPES[dt],
+        *_launch_args(dev), ctypes.byref(units), ctypes.byref(splits), ctypes.byref(streamed),
     )
     _build.check(lib, code, "bigru_fwd kernel")
     LAUNCHES += 1
-    LAST_UNITS = units.value
+    LAST_BIGRU_PLAN = (units.value, splits.value)
+    LAST_BIGRU_WH = _WH[streamed.value]
     return out
 
 
@@ -223,19 +233,6 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
-def _check_bigru_bwd(what, H, tensors):
-    """K2-bwd's wrappers take CUDA tensors of K2's dtypes and shapes, on a
-    16-byte boundary, at a hidden size whose two directions' grids fit."""
-    t0 = tensors[0][0]
-    if not t0.is_cuda:
-        raise ValueError(f"{what} takes CUDA tensors; BiGRUScan runs the plain version on the "
-                         f"CPU")
-    _check_gru(what, t0.dtype, H, 2, tensors)
-    if any(t.data_ptr() % 16 for t, _, _ in tensors):
-        raise ValueError(f"{what}: tensors must start on a 16-byte boundary")
-    _check_grid(what, 2, H, t0.device)
-
-
 def bigru_bwd_coeffs_cuda(p0, p1, wh, bh, tmask, out):
     """Launch K2-bwd's coefficient kernel on CUDA tensors; same contract as
     ``bigru_bwd_coeffs_reference``."""
@@ -243,9 +240,9 @@ def bigru_bwd_coeffs_cuda(p0, p1, wh, bh, tmask, out):
     T, B, H3 = p0.shape
     H = H3 // 3
     dt = p0.dtype
-    _check_bigru_bwd("bigru backward coefficient kernel", H,
-                     [(p0, (T, B, H3), dt), (p1, (T, B, H3), dt), (wh, (2, H, H3), dt),
-                      (bh, (2, H3), dt), (out, (T, B, 2 * H), dt)])
+    _check_bigru("bigru backward coefficient kernel", H,
+                 [(p0, (T, B, H3), dt), (p1, (T, B, H3), dt), (wh, (2, H, H3), dt),
+                  (bh, (2, H3), dt), (out, (T, B, 2 * H), dt)])
     if tmask.shape != (T, 2, B):
         raise ValueError(f"bigru backward coefficient kernel: tmask must be [T, 2, B], got "
                          f"{tuple(tmask.shape)}")
@@ -273,9 +270,9 @@ def bigru_bwd_chain_cuda(c4, ch, wh, dout):
     H = H2 // 2
     dt = dout.dtype
     f32 = torch.float32
-    _check_bigru_bwd("bigru backward kernel", H,
-                     [(wh, (2, H, 3 * H), dt), (dout, (T, B, 2 * H), dt),
-                      (c4, (T, 2, B, 4 * H), f32), (ch, (T, 2, B, H), f32)])
+    _check_bigru("bigru backward kernel", H,
+                 [(wh, (2, H, 3 * H), dt), (dout, (T, B, 2 * H), dt),
+                  (c4, (T, 2, B, 4 * H), f32), (ch, (T, 2, B, H), f32)])
     dev = dout.device
     dxp0, dxp1 = (torch.empty(T, B, 3 * H, dtype=dt, device=dev) for _ in range(2))
     dhn0, dhn1 = (torch.empty(T, B, H, dtype=dt, device=dev) for _ in range(2))
@@ -303,9 +300,9 @@ def bigru_scan_bwd_cuda(p0, p1, wh, bh, tmask, out, dout):
     T, B, H3 = p0.shape
     H = H3 // 3
     dt = p0.dtype
-    _check_bigru_bwd("bigru backward kernel", H,
-                     [(p0, (T, B, H3), dt), (p1, (T, B, H3), dt), (wh, (2, H, H3), dt),
-                      (bh, (2, H3), dt), (out, (T, B, 2 * H), dt), (dout, (T, B, 2 * H), dt)])
+    _check_bigru("bigru backward kernel", H,
+                 [(p0, (T, B, H3), dt), (p1, (T, B, H3), dt), (wh, (2, H, H3), dt),
+                  (bh, (2, H3), dt), (out, (T, B, 2 * H), dt), (dout, (T, B, 2 * H), dt)])
     c4, ch = bigru_bwd_coeffs_cuda(p0, p1, wh, bh, tmask, out)
     return bigru_bwd_chain_cuda(c4, ch, wh, dout)
 
@@ -489,9 +486,10 @@ def _check_gru(what, dt, H, G, tensors):
 
 
 def _check_grid(what, G, H, dev):
-    """The persistent grids of K5, K5-bwd and K8 hold one CTA of at most
-    64 hidden units per SM: G ceil(H / 64) CTAs must fit the card's SMs
-    (wh streams through shared memory where it does not stay there)."""
+    """The persistent grids of K2, K2-bwd, K5, K5-bwd and K8 hold one CTA
+    of at most 64 hidden units per SM: G ceil(H / 64) CTAs must fit the
+    card's SMs (wh streams through shared memory where it does not stay
+    there)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if G * -(-H // _GRU_MAX_UNITS) > sms:
         raise ValueError(f"{what} takes G * ceil(H / {_GRU_MAX_UNITS}) <= {sms} (one CTA per "

@@ -11,7 +11,8 @@ against the plain version relative to the largest reference value, its
 plan, and cuDNN's nn.GRU(bidirectional) forward + backward minus forward.
 It uses only bigru_scan_cuda and bigru_scan_bwd_cuda otherwise, so the same
 file run from an older checkout times that checkout's kernel (the way two
-trees are compared within one call on one card).
+trees are compared within one call on one card; copy ``time_bigru_fwd``,
+whose inputs and timer it uses, beside it).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ def main(argv=None) -> int:
     import torch
 
     from uasr_torch.models import cuda_gru as k2
+    from uasr_torch.tools.time_bigru_fwd import B, CASES, H, T, bigru_problem, timer
 
     if not torch.cuda.is_available():
         print("time_bigru_bwd: no CUDA device", file=sys.stderr)
@@ -35,39 +37,17 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-
-    def ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(args.reps):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        return a.elapsed_time(b) / args.reps
+    ms = timer(torch, args.reps)
 
     def rel(got, ref):
         return max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref)) / max(
             1.0, max(float(r.float().abs().max()) for r in ref))
 
-    T, B, H = 400, 32, 512
-    for dtype, full in (("bfloat16", False), ("bfloat16", True), ("float32", False),
-                        ("float32", True)):
+    for dtype, full in CASES:
         gen = torch.Generator(device=dev).manual_seed(11)
         dt = getattr(torch, dtype)
-        lengths = torch.randint(1, T + 1, (B,), device=dev, generator=gen)
-        lengths[0], lengths[1] = T, 1
-        if full:
-            lengths.fill_(T)
-        tpos = torch.arange(T, device=dev)[:, None]
-        tmask = torch.stack([tpos < lengths[None], tpos >= (T - lengths)[None]], 1)
-        p0 = 0.5 * torch.randn(T, B, 3 * H, device=dev, generator=gen)
-        p1 = 0.5 * torch.randn(T, B, 3 * H, device=dev, generator=gen)
-        wh = torch.randn(2, H, 3 * H, device=dev, generator=gen) / H ** 0.5
-        bh = 0.1 * torch.randn(2, 3 * H, device=dev, generator=gen)
+        a = bigru_problem(torch, dev, gen, dtype, full)
         dout = (torch.randn(T, B, 2 * H, device=dev, generator=gen) / B).to(dt)
-        a = tuple(x.to(dt).contiguous() for x in (p0, p1, wh, bh)) + (tmask,)
         out = k2.bigru_scan_cuda(*a)
         rec = dict(dtype=dtype, full=full, T=T, B=B, H=H)
         rec["err"] = rel(k2.bigru_scan_bwd_cuda(*a, out, dout),
