@@ -16,14 +16,14 @@ and prints no result line):
    log-mel at B=32 x 16 s in each GEMM tier, K2 BiGRU forward at T=400,
    H=512 in f32 and bf16 at B=32 (timed, with its plan) and at B=7 and 1,
    K4 CTC prefix beam at T=400, B=32, W=16, V=32 without an LM and with
-   bigram and trigram tables; K2-bwd BiGRU
+   bigram and trigram tables (timed, with its plan and us a step); K2-bwd BiGRU
    backward at T=400, B=32, H=512 in f32 and bf16 (its coefficient kernel
    also alone, and timed apart from its reverse chain), K3 CTC alpha and
    K3-bwd CTC beta at T=400, B=32, U=256 (S=513), V=32; K7 unfused
    log-mel on one streaming chunk of 64 streams (240 + 64 x 160 samples)
    in each tier, K4 at V=4233, W=8 over one chunk's 32 logits frames from
    a carried state and over a 12 s utterance's 600 (backpointers and
-   state bit-equal);
+   state bit-equal; plan and us a step);
 3. the decode path: ``run_inference`` at the full width of
    configs/librispeech_ctc_bigru.yaml on four requests of 32 seeded
    random utterances (4, 8, 12 and 16 s buckets), beam 16 and greedy,
@@ -329,8 +329,9 @@ def phase_kernels(torch, np, results: dict) -> None:
         plain = cuda_ms(torch, lambda: k4.ctc_beam_reference(*args), 1, warmup=0)
         bms, by = beam_bound(lengths, T, B, W, V, 0 if tab is None else tab.size, order)
         print(f"K4 beam    {name:8s} T={T} B={B} W={W} V={V}: backpointers, state and ids "
-              f"equal, score max|d| {res['max_abs_err']:.3e} kernel {ms:.4f} ms plain "
-              f"{plain:.4f} ms bound {bms:.6f} ms ({by})", flush=True)
+              f"equal, score max|d| {res['max_abs_err']:.3e} kernel {ms:.4f} ms "
+              f"({beam_plan(k4, ms, lengths)}) plain {plain:.4f} ms bound {bms:.6f} ms ({by})",
+              flush=True)
         results[f"K4:{name}"] = dict(res, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                                      library_ms=None)
 
@@ -353,6 +354,13 @@ def check_beam(torch, k4, args, what: str, state=None) -> dict:
     err = float((score - r_score).abs().max())
     check(err <= 1e-4, f"{what}: score max|d| {err:.3e} > 1e-4")
     return dict(max_abs_err=err)
+
+
+def beam_plan(k4, ms: float, lengths) -> str:
+    """K4's launch plan and its µs per step of the longest utterance."""
+    warps, ctas = k4.LAST_BEAM_PLAN
+    return (f"{warps} warps x {ctas} CTA(s) per utterance, "
+            f"{ms * 1e3 / max(int(lengths.max()), 1):.3f} us/step")
 
 
 def beam_bound(lengths, T: int, B: int, W: int, V: int, lm_size: int, order: int):
@@ -572,8 +580,9 @@ def phase_stream_kernels(torch, np, results: dict) -> None:
         bms, by = beam_bound(lengths, T4, B, W, V, 0, 0)
         print(f"K4 beam    {what:8s} T={T4} B={B} W={W} V={V} "
               f"{'carried' if carried else 'fresh'} state: backpointers, state and ids equal, "
-              f"score max|d| {res['max_abs_err']:.3e} kernel {ms:.4f} ms plain {plain:.4f} ms "
-              f"bound {bms:.4f} ms ({by})", flush=True)
+              f"score max|d| {res['max_abs_err']:.3e} kernel {ms:.4f} ms "
+              f"({beam_plan(k4, ms, lengths)}) plain {plain:.4f} ms bound {bms:.4f} ms ({by})",
+              flush=True)
         results[f"K4:V{V}:{what}"] = dict(res, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                                           library_ms=None)
 

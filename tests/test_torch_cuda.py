@@ -4,7 +4,10 @@ reach: audio shorter than one frame and the log-energy column (K1, K7),
 batch rows split over several passes and idle hidden units, B = 1, 4 and
 7 at H = 512 and wh streamed at H = 1536 and 2304 (K2, also against K5),
 one-beam and full-warp beams, V above a warp and at 4233, a non-zero
-blank, zero lengths, and a decode fed in chunks from a carried state (K4),
+blank, zero lengths, and a decode fed in chunks from a carried state (K4;
+also its main-path shapes, both sides of the cluster threshold, W = 32 at
+the largest vocabulary, fewer live candidates than beams, determinism and
+the phase-stamped build),
 T = 1, odd T, one row, batch rows split over passes and wh streamed
 (K2-bwd and its coefficient kernel alone), small and
 large S, a non-zero blank and zero-length rows (K3, K3-bwd), the edges of
@@ -223,6 +226,117 @@ def test_beam_kernel_rejects_beyond_limits(dev):
     with pytest.raises(ValueError, match="blank_id"):
         cuda_beam.ctc_beam_cuda(logp, torch.tensor([2], device=dev), 4, 5)
     assert cuda_beam.LAUNCHES == before
+
+
+def _beam_problem(dev, seed, B, T, V, lengths, lm_order=0):
+    rng = np.random.RandomState(seed)
+    logp = torch.log_softmax(torch.tensor(rng.randn(B, T, V) * 4.0, dtype=torch.float32,
+                                          device=dev), -1).contiguous()
+    lm = None
+    if lm_order:
+        lm = torch.tensor(np.log(rng.dirichlet(np.ones(V), (V + 1) ** (lm_order - 1))),
+                          dtype=torch.float32, device=dev)
+    return logp, torch.tensor(lengths, device=dev), lm
+
+
+def _beam_launch_checked(dev, args, state=None, plan=None):
+    """One K4 launch against the plain version: bit-equal, one launch
+    counted, and the launch plan when given."""
+    before = cuda_beam.LAUNCHES
+    got = cuda_beam.ctc_beam_cuda(*args, state=state)
+    ref = cuda_beam.ctc_beam_reference(*args, state=state)
+    torch.cuda.synchronize()
+    assert cuda_beam.LAUNCHES == before + 1
+    if plan is not None:
+        assert cuda_beam.LAST_BEAM_PLAN == plan
+    _assert_beam_equal(got, ref, args[3])
+    return got
+
+
+@pytest.mark.parametrize("lm_order", [0, 2, 3])
+def test_beam_kernel_decode_shape(dev, lm_order):
+    """The beam-16 decode of librispeech_ctc_bigru: T = 400, B = 32, V = 32,
+    lengths 1 to T, four warps per utterance."""
+    T, B = 400, 32
+    lengths = np.random.RandomState(5).randint(1, T + 1, B)
+    lengths[0], lengths[1] = T, 1
+    logp, lens, lm = _beam_problem(dev, 7 + lm_order, B, T, 32, lengths, lm_order)
+    _beam_launch_checked(dev, (logp, lens, 16, 0, lm, lm_order, 0.5, 0.3), plan=(4, 1))
+
+
+def test_beam_kernel_streaming_chunk_shape(dev):
+    """One aishell_streaming chunk: T = 32, B = 64, W = 8, V = 4233 from the
+    state a first chunk left, a cluster of two CTAs per utterance."""
+    T, B, V, W = 32, 64, 4233, 8
+    lengths = np.random.RandomState(6).randint(0, T + 1, B)
+    lengths[0], lengths[1] = T, 0
+    first, _, _ = _beam_problem(dev, 8, B, T, V, [T] * B)
+    logp, lens, _ = _beam_problem(dev, 9, B, T, V, lengths)
+    state = cuda_beam.ctc_beam_reference(first, torch.full((B,), T, device=dev), W)[2]
+    _beam_launch_checked(dev, (logp, lens, W, 0), state=state, plan=(8, 2))
+
+
+# W = 8 puts the cluster threshold (W * V = 8192) between V = 1023 and 1024
+@pytest.mark.parametrize("V,plan", [(1023, (8, 1)), (1024, (8, 2))])
+@pytest.mark.parametrize("B", [1, 3])
+def test_beam_kernel_cluster_threshold(dev, B, V, plan):
+    lengths = [19, 0, 7][:B]
+    logp, lens, _ = _beam_problem(dev, V + B, B, 19, V, lengths)
+    _beam_launch_checked(dev, (logp, lens, 8, 0), plan=plan)
+    # and from a carried state
+    state = cuda_beam.ctc_beam_reference(logp, torch.full((B,), 19, device=dev), 8)[2]
+    _beam_launch_checked(dev, (logp, lens, 8, 0), state=state, plan=plan)
+
+
+def test_beam_kernel_at_its_limits(dev):
+    """W = 32 over the largest vocabulary, 16384 symbols."""
+    logp, lens, _ = _beam_problem(dev, 3, 2, 6, cuda_beam.MAX_VOCAB, [6, 4])
+    _beam_launch_checked(dev, (logp, lens, 32, 0), plan=(8, 2))
+
+
+def test_beam_kernel_fewer_live_candidates_than_beams(dev):
+    """W = 16 over V = 2 with blank 1: one live extend a beam, so the
+    rounds' re-pick of a taken column decides most of the beams."""
+    logp, lens, _ = _beam_problem(dev, 4, 3, 12, 2, [12, 5, 1])
+    _beam_launch_checked(dev, (logp, lens, 16, 1), plan=(4, 1))
+
+
+@pytest.mark.parametrize("V", [32, 4233])
+def test_beam_kernel_all_lengths_zero(dev, V):
+    """Every utterance finished: identity backpointers, the state as given."""
+    logp, lens, _ = _beam_problem(dev, 2, 3, 5, V, [0, 0, 0])
+    state = cuda_beam.ctc_beam_reference(logp, torch.full((3,), 5, device=dev), 8)[2]
+    p, c, out = _beam_launch_checked(dev, (logp, lens, 8, 0), state=state)
+    assert torch.equal(p, torch.arange(8, device=dev).expand(5, 3, 8).to(torch.int32))
+    assert bool((c == -1).all())
+    for name, a, b in zip(out._fields, out, state):
+        assert torch.equal(a, b.to(a.dtype)), name
+
+
+@pytest.mark.parametrize("W,V", [(16, 32), (8, 4233)])
+def test_beam_kernel_deterministic(dev, W, V):
+    logp, lens, _ = _beam_problem(dev, 12, 5, 30, V, [30, 29, 11, 1, 0])
+    a = cuda_beam.ctc_beam_cuda(logp, lens, W)
+    b = cuda_beam.ctc_beam_cuda(logp, lens, W)
+    for x, y in zip((*a[:2], *a[2]), (*b[:2], *b[2])):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("W,V,lm_order", [(16, 32, 3), (8, 4233, 0), (16, 300, 2)])
+def test_beam_phases_build_matches_kernel(dev, W, V, lm_order):
+    """The stamped build gives ctc_beam_cuda's backpointers and state, and a
+    non-negative cycle count per phase of every utterance."""
+    logp, lens, lm = _beam_problem(dev, 13, 4, 25, V, [25, 3, 0, 17], lm_order)
+    args = (logp, lens, W, 0, lm, lm_order, 0.5, 0.3)
+    want = cuda_beam.ctc_beam_cuda(*args)
+    before = (cuda_beam.LAUNCHES, cuda_beam.LAUNCHES_PHASES)
+    *got, phases = cuda_beam.ctc_beam_phases(*args)
+    torch.cuda.synchronize()
+    assert (cuda_beam.LAUNCHES, cuda_beam.LAUNCHES_PHASES) == (before[0], before[1] + 1)
+    for x, y in zip((*got[:2], *got[2]), (*want[:2], *want[2])):
+        assert torch.equal(x, y)
+    assert phases.shape == (4, len(cuda_beam.PHASE_NAMES)) and bool((phases >= 0).all())
+    assert bool((phases[0] > 0).any()) and bool((phases[2] == 0).all())
 
 
 @pytest.mark.parametrize("want_energy", [False, True])

@@ -92,6 +92,39 @@ def test_beam_on_cpu_runs_plain_version():
                                lm_logp=torch.zeros(3, 3))
 
 
+def test_logaddexp_with_neg_is_identity():
+    """logaddexp(x, NEG) and logaddexp(NEG, x) are x bit for bit, and NEG
+    for x = NEG: K4 drops the NEG terms of its folds and the lae of a
+    beam's new total on that identity."""
+    rng = np.random.RandomState(0)
+    x = torch.tensor(np.concatenate([rng.uniform(-1e4, 1.0, 4096), [cuda_beam.NEG]]),
+                     dtype=torch.float32)
+    neg = torch.full_like(x, cuda_beam.NEG)
+    for got in (cuda_beam._logaddexp(x, neg), cuda_beam._logaddexp(neg, x)):
+        assert torch.equal(got.view(torch.int32), x.view(torch.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_left_fold_skips_neg_terms(seed):
+    """A left fold of logaddexp over contributions that are mostly NEG
+    equals the fold over only the others, in the same order (NEG if none):
+    the sparse fold of K4's stays."""
+    rng = np.random.RandomState(seed)
+    N, W = 2048, 16
+    vals = rng.uniform(-60.0, 0.0, (N, W)).astype(np.float32)
+    vals[rng.rand(N, W) < 0.8] = cuda_beam.NEG
+    c = torch.tensor(vals)
+    dense = c[:, 0]
+    for w in range(1, W):
+        dense = cuda_beam._logaddexp(dense, c[:, w])
+    for n in range(N):
+        terms = [c[n, w] for w in range(W) if vals[n, w] != cuda_beam.NEG]
+        sparse = terms[0] if terms else torch.tensor(cuda_beam.NEG, dtype=torch.float32)
+        for t in terms[1:]:
+            sparse = cuda_beam._logaddexp(sparse, t)
+        assert sparse.view(torch.int32) == dense[n].view(torch.int32), n
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_edit_distance_matches_jax(seed):
     rng = np.random.RandomState(seed)

@@ -52,6 +52,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4-byte global -> shared copy (cp.async.ca: 16-byte copies need 16-byte
+// aligned rows, which a row of odd length is not)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -8,7 +8,9 @@ the traceback and compaction of ``ctc_beam_search_decode_pallas``).
 semantics exactly: W*V extends then W stays per step, hash-fold of the
 one possible duplicate, top-W by W rounds of (max, lowest-index argmax),
 hashes wrapping mod 2^32, per-slot sentinels for dead beams, frozen
-finished utterances.
+finished utterances. ``ctc_beam_phases`` runs the kernel's build with
+phase stamps (``uasr_torch.tools.time_beam`` reads them); ``LAST_BEAM_PLAN``
+is the last launch's plan (warps per CTA, CTAs per utterance).
 
 Both take the beam state to start from and return the state after the
 last step (``BeamState``; a fresh one is ``beam_init``), so a decode fed
@@ -26,7 +28,11 @@ import torch
 
 from uasr_torch import _build
 
-LAUNCHES = 0  # kernel launches by ctc_beam_steps (read by chip_smoke.py)
+LAUNCHES = 0  # kernel launches by ctc_beam_cuda (read by chip_smoke.py)
+LAUNCHES_PHASES = 0  # launches of the stamped build by ctc_beam_phases
+LAST_BEAM_PLAN = None  # (warps per CTA, CTAs per utterance) of the last launch
+# the phases ctc_beam_phases stamps, in the order of its columns
+PHASE_NAMES = ("row", "stays", "candidates", "merge", "rebuild", "barriers")
 
 NEG = -1e30
 _HASH_MULT = 2654435761  # Knuth multiplicative hash
@@ -35,7 +41,7 @@ _SENT1 = 0xC0000000  # dead-slot sentinel bases (-0x40000000, -0x20000000
 _SENT2 = 0xE0000000  # as 32-bit patterns)
 _M32 = 0xFFFFFFFF
 # the kernel's limits: one register list of up to 32 beams per thread, and
-# 8 V bytes of shared memory (the log-prob row and a fold mark per symbol)
+# 12 V bytes of shared memory (two log-prob rows and a fold mark per symbol)
 MAX_BEAM = 32
 MAX_VOCAB = 16384
 
@@ -188,7 +194,19 @@ def _lib() -> ctypes.CDLL:
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.uasr_ctc_beam.argtypes = [P, P, P, I, Fl, Fl, I, I, I, I, I, P, P, P, P, P, P, P, I]
     lib.uasr_ctc_beam.restype = I
+    lib.uasr_ctc_beam_phases.argtypes = [P, P, P, I, Fl, Fl, I, I, I, I, I, P, P, P, P, P, P, P,
+                                         P, I]
+    lib.uasr_ctc_beam_phases.restype = I
+    lib.uasr_ctc_beam_plan.argtypes = [I, I, P, P]
+    lib.uasr_ctc_beam_plan.restype = None
     return lib
+
+
+def beam_plan(lib, beam_width: int, vocab: int) -> tuple[int, int]:
+    """The kernel's launch plan: (warps per CTA, CTAs per utterance)."""
+    warps, ctas = ctypes.c_int(), ctypes.c_int()
+    lib.uasr_ctc_beam_plan(beam_width, vocab, ctypes.byref(warps), ctypes.byref(ctas))
+    return warps.value, ctas.value
 
 
 def ctc_beam_cuda(logp, lengths, beam_width: int, blank_id: int = 0, lm_table=None,
@@ -196,6 +214,30 @@ def ctc_beam_cuda(logp, lengths, beam_width: int, blank_id: int = 0, lm_table=No
                   state: BeamState | None = None):
     """Launch K4 on CUDA tensors; same contract as the plain version."""
     global LAUNCHES
+    out = _launch(logp, lengths, beam_width, blank_id, lm_table, lm_order, lm_weight, lm_bonus,
+                  state, None)
+    LAUNCHES += 1
+    return out
+
+
+def ctc_beam_phases(logp, lengths, beam_width: int, blank_id: int = 0, lm_table=None,
+                    lm_order: int = 0, lm_weight: float = 1.0, lm_bonus: float = 0.0,
+                    state: BeamState | None = None):
+    """K4 built with its phase stamps (a diagnostic; no decode path calls
+    it): ``ctc_beam_cuda``'s outputs, and [B, len(PHASE_NAMES)] int64
+    clock cycles that the CTA's thread 0 spent in each phase, summed over
+    the utterance's steps (``uasr_torch.tools.time_beam`` reads them)."""
+    global LAUNCHES_PHASES
+    phases = torch.zeros(logp.shape[0], len(PHASE_NAMES), dtype=torch.int64, device=logp.device)
+    out = _launch(logp, lengths, beam_width, blank_id, lm_table, lm_order, lm_weight, lm_bonus,
+                  state, phases)
+    LAUNCHES_PHASES += 1
+    return (*out, phases)
+
+
+def _launch(logp, lengths, beam_width, blank_id, lm_table, lm_order, lm_weight, lm_bonus,
+            state, phases):
+    global LAST_BEAM_PLAN
     B, T, V = logp.shape
     W = beam_width
     if not 1 <= W <= MAX_BEAM:
@@ -225,16 +267,18 @@ def ctc_beam_cuda(logp, lengths, beam_width: int, blank_id: int = 0, lm_table=No
     istate_out = torch.empty_like(istate)
     fstate_out = torch.empty_like(fstate)
     lib = _lib()
-    code = lib.uasr_ctc_beam(
-        logp.data_ptr(), lens.data_ptr(), None if lm_table is None else lm_table.data_ptr(),
-        lm_order, float(lm_weight), float(lm_bonus), T, B, V, W, blank_id,
-        istate.data_ptr(), fstate.data_ptr(), parents.data_ptr(), chars.data_ptr(),
-        istate_out.data_ptr(), fstate_out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-    )
+    args = (logp.data_ptr(), lens.data_ptr(), None if lm_table is None else lm_table.data_ptr(),
+            lm_order, float(lm_weight), float(lm_bonus), T, B, V, W, blank_id,
+            istate.data_ptr(), fstate.data_ptr(), parents.data_ptr(), chars.data_ptr(),
+            istate_out.data_ptr(), fstate_out.data_ptr())
+    tail = (torch.cuda.current_stream(dev).cuda_stream,
+            dev.index if dev.index is not None else torch.cuda.current_device())
+    if phases is None:
+        code = lib.uasr_ctc_beam(*args, *tail)
+    else:
+        code = lib.uasr_ctc_beam_phases(*args, phases.data_ptr(), *tail)
     _build.check(lib, code, "ctc_beam kernel")
-    LAUNCHES += 1
+    LAST_BEAM_PLAN = beam_plan(lib, W, V)
     return parents, chars, BeamState(*istate_out.unbind(0), *fstate_out.unbind(0))
 
 
