@@ -509,9 +509,12 @@ def phase_train_kernels(torch, np, results: dict) -> None:
     tb = T * B * S * 4
     bms_a, by_a = bound(2 * tb + 4 * (T * B + 2 * B * S), 20 * steps * S, "float32")
     bms_b, by_b = bound(3 * tb + 4 * (T * B + 2 * B * S + 2 * B), 24 * steps * S, "float32")
-    print(f"  K3 kernel {ms_a:.4f} ms plain {plain_a:.4f} ms F.ctc_loss fwd {lib_a:.4f} ms bound "
-          f"{bms_a:.4f} ms ({by_a}); K3-bwd kernel {ms_b:.4f} ms plain {plain_b:.4f} ms "
-          f"F.ctc_loss bwd {lib_b:.4f} ms bound {bms_b:.4f} ms ({by_b})", flush=True)
+    longest = int(llen.max())
+    print(f"  K3 kernel {ms_a:.4f} ms ({ms_a * 1e3 / longest:.3f} us a step; threads, ring depth "
+          f"{k3.LAST_ALPHA_PLAN}) plain {plain_a:.4f} ms F.ctc_loss fwd {lib_a:.4f} ms bound "
+          f"{bms_a:.4f} ms ({by_a}); K3-bwd kernel {ms_b:.4f} ms ({ms_b * 1e3 / longest:.3f} us "
+          f"a step; {k3.LAST_BETA_PLAN}) plain {plain_b:.4f} ms F.ctc_loss bwd {lib_b:.4f} ms "
+          f"bound {bms_b:.4f} ms ({by_b})", flush=True)
     results["K3"] = dict(max_abs_err=a_err, ms=ms_a, plain_ms=plain_a, bound_ms=bms_a,
                          bound_by=by_a, library_ms=lib_a)
     results["K3-bwd"] = dict(max_abs_err=d_err, ms=ms_b, plain_ms=plain_b, bound_ms=bms_b,

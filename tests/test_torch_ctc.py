@@ -145,6 +145,36 @@ def test_plain_recursions_match_pallas_kernels(seed):
     assert not demit[:, 1].any()  # zero-length row: zero posterior
 
 
+def test_plain_recursions_match_pallas_kernels_on_masks_with_holes():
+    """The same on an act mask that is not a prefix, which the TPU kernels
+    take: frames dropped inside rows, a row that starts inactive, and the
+    zero-length row; label lengths cut so every row stays feasible."""
+    logits, llen, labels, ulen = _problem(seed=2, T=23, U=5)
+    llen[1] = 0  # a padding row
+    rng = np.random.RandomState(11)
+    T = logits.shape[1]
+    act = (np.arange(T)[:, None] < llen[None, :]) & (rng.rand(T, len(llen)) > 0.2)
+    act[:4, 0] = False  # row 0 starts inactive
+    act[10:13, 2] = False  # a run of holes inside row 2
+    ulen = np.minimum(ulen, np.maximum(act.sum(0) - 1, 0) // 2).astype(np.int32)
+    labels[np.arange(labels.shape[1])[None] >= ulen[:, None]] = 0
+    emit, _, skip, svalid, finals = cuda_ctc.ctc_inputs(*_torch(logits, llen, labels, ulen))
+    act = torch.tensor(act, dtype=torch.float32)
+    j_in = [jnp.asarray(x.numpy()) for x in (emit, act, skip, svalid, finals)]
+    j_ll, res = pallas_ctc._ctc_fwd(*j_in, jnp.asarray(2 * ulen), True)
+    traj = cuda_ctc.ctc_alpha_reference(emit, act, skip, svalid)
+    np.testing.assert_allclose(traj.numpy(), np.asarray(res[5]), atol=1e-4, rtol=1e-6)
+    assert torch.equal(traj[:4, 0], traj[:1, 0].expand(4, -1))  # inactive steps carry alpha
+    ll = cuda_ctc.final_ll(traj[-1], finals)
+    np.testing.assert_allclose(ll.numpy(), np.asarray(j_ll), rtol=LOSS_RTOL)
+    assert (ll.numpy()[ulen > 0] > -1e3).all()  # every row feasible
+    g = np.array([1.0, 3.0, -0.5, 0.2], np.float32)
+    j_demit = pallas_ctc._ctc_bwd_rule(True, res, jnp.asarray(g))[0]
+    demit = cuda_ctc.ctc_beta_reference(emit, act, skip, finals, traj, ll, torch.tensor(g))
+    np.testing.assert_allclose(demit.numpy(), np.asarray(j_demit), atol=1e-4, rtol=1e-4)
+    assert not demit[act == 0].any()  # inactive steps: zero posterior
+
+
 def test_kernel_path_matches_torch_ctc_loss():
     logits, llen, labels, ulen = _problem(seed=7)
     lg = torch.tensor(logits, requires_grad=True)

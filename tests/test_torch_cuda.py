@@ -9,8 +9,10 @@ also its main-path shapes, both sides of the cluster threshold, W = 32 at
 the largest vocabulary, fewer live candidates than beams, determinism and
 the phase-stamped build),
 T = 1, odd T, one row, batch rows split over passes and wh streamed
-(K2-bwd and its coefficient kernel alone), small and
-large S, a non-zero blank and zero-length rows (K3, K3-bwd), the edges of
+(K2-bwd and its coefficient kernel alone), S from 1 to 8191, a non-zero
+blank, zero-length rows, T and B around the ring's depth and the SM count,
+every ring depth, act masks with holes and the phase-stamped builds (K3,
+K3-bwd), the edges of
 K5-bwd's tensor-core tiles and its coefficient kernel alone, K5's skipped
 products of masked passes and warp tiles, wh streamed past shared memory
 (K5, K5-bwd, K8 at H = 1536 and 2304), input each kernel must refuse, and
@@ -566,23 +568,92 @@ def _ctc_problem(dev, B, T, U, V, blank, seed):
     return logits, *(torch.tensor(a, device=dev) for a in (llen, labels, ulen))
 
 
-@pytest.mark.parametrize("T,U,V,blank", [(1, 0, 5, 0), (7, 2, 6, 3), (40, 12, 30, 0),
-                                         (50, 600, 9, 1), (30, 2000, 40, 5)])
-def test_ctc_kernels_match_plain(dev, T, U, V, blank):
-    """K3 and K3-bwd against their plain versions: S from 1 to 4001 (more
-    states than threads), a non-zero blank, a zero-length row."""
-    logits, llen, labels, ulen = _ctc_problem(dev, 4, T, U, V, blank, T + U)
-    emit, act, skip, svalid, finals = cuda_ctc.ctc_inputs(logits, llen, labels, ulen, blank)
-    traj = cuda_ctc.ctc_alpha_cuda(emit, act, skip, svalid)
+def _ctc_holes(llen, ulen, labels, T, seed):
+    """An act mask that is not a prefix: frames dropped inside each row and
+    row 1 starting inactive; label lengths cut so that every row stays
+    feasible (2 U + 1 <= its active frames)."""
+    rng = np.random.RandomState(seed)
+    lens = llen.cpu().numpy()
+    act = (np.arange(T)[:, None] < lens[None, :]) & (rng.rand(T, len(lens)) > 0.15)
+    if len(lens) > 1:
+        act[:3, 1] = False
+    n = act.sum(0)
+    u = np.minimum(ulen.cpu().numpy(), np.maximum(n - 1, 0) // 2)
+    lab = labels.cpu().numpy().copy()
+    lab[np.arange(lab.shape[1])[None] >= u[:, None]] = 0
+    dev = llen.device
+    return (torch.tensor(act, dtype=torch.float32, device=dev), torch.tensor(u, device=dev),
+            torch.tensor(lab, device=dev))
+
+
+# T = 1, T below the ring depth and not a multiple of it, T = 1000; B = 1 and
+# more CTAs than SMs; S = 1 and S = 8191 (8 states a thread, the ring cut to
+# fit shared memory); every ring depth; act masks with holes
+@pytest.mark.parametrize("T,U,V,blank,B,holes,depth", [
+    (1, 0, 5, 0, 4, False, 8), (7, 2, 6, 3, 4, False, 8), (40, 12, 30, 0, 4, False, 8),
+    (50, 600, 9, 1, 4, False, 8), (30, 2000, 40, 5, 4, False, 8),
+    (37, 12, 30, 0, 4, True, 2), (37, 12, 30, 0, 4, True, 4), (37, 12, 30, 0, 4, True, 8),
+    (37, 12, 30, 0, 4, True, 16), (5, 3, 7, 0, 1, False, 16), (1000, 40, 12, 0, 4, True, 8),
+    (60, 20, 12, 2, 160, True, 8), (20, 0, 5, 0, 4, True, 8), (30, 4095, 40, 5, 3, True, 8)])
+def test_ctc_kernels_match_plain(dev, T, U, V, blank, B, holes, depth):
+    """K3 and K3-bwd against their plain versions: S from 1 to 8191 (more
+    states than threads), a non-zero blank, a zero-length row, T and B
+    around the ring's depth and the SM count, act masks that are not a
+    prefix."""
+    logits, llen, labels, ulen = _ctc_problem(dev, B, T, U, V, blank, T + U + B)
+    if holes:
+        act, ulen, labels = _ctc_holes(llen, ulen, labels, T, T + B)
+    emit, act0, skip, svalid, finals = cuda_ctc.ctc_inputs(logits, llen, labels, ulen, blank)
+    act = act if holes else act0
+    traj = cuda_ctc.ctc_alpha_cuda(emit, act, skip, svalid, depth=depth)
     ref = cuda_ctc.ctc_alpha_reference(emit, act, skip, svalid)
     ll = cuda_ctc.final_ll(ref[-1], finals)
-    g = torch.tensor([1.0, -0.5, 2.0, 0.3], device=dev)
-    demit = cuda_ctc.ctc_beta_cuda(emit, act, skip, finals, ref, ll, g)
+    g = torch.tensor(np.random.RandomState(B).uniform(-2, 2, B), dtype=torch.float32,
+                     device=dev)
+    demit = cuda_ctc.ctc_beta_cuda(emit, act, skip, finals, ref, ll, g, depth=depth)
     demit_ref = cuda_ctc.ctc_beta_reference(emit, act, skip, finals, ref, ll, g)
     torch.cuda.synchronize()
     assert float(((traj - ref).abs() / (1 + ref.abs())).max()) <= 1e-6
+    assert float((cuda_ctc.final_ll(traj[-1], finals) - ll).abs().max()) <= 1e-3
     assert float((demit - demit_ref).abs().max()) <= 1e-5
-    assert not demit[:, 2].any()
+    assert not demit[act == 0].any()
+    if B > 2:
+        assert not demit[:, 2].any()
+    # the plan: states per thread the least power of two that fits 1024
+    # threads; the ring halved from the depth asked while it does not fit
+    S = 2 * U + 1
+    k = 1
+    while k * 1024 < S:
+        k *= 2
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for plan, rows in ((cuda_ctc.LAST_ALPHA_PLAN, 1), (cuda_ctc.LAST_BETA_PLAN, 2)):
+        d = depth
+        while d > 2 and 4 * ((2 + rows * d) * S + d) > optin:
+            d //= 2
+        assert plan == ((-(-S // k) + 31) // 32 * 32, d)
+
+
+@pytest.mark.parametrize("T,U,B", [(37, 12, 4), (400, 256, 6)])
+def test_ctc_phases_build_matches_kernel(dev, T, U, B):
+    """The stamped builds give ctc_alpha_cuda's and ctc_beta_cuda's outputs
+    bit for bit, and a non-negative cycle count per phase of every CTA."""
+    logits, llen, labels, ulen = _ctc_problem(dev, B, T, U, 30, 0, T + U)
+    act, ulen, labels = _ctc_holes(llen, ulen, labels, T, T)
+    emit, _, skip, svalid, finals = cuda_ctc.ctc_inputs(logits, llen, labels, ulen)
+    traj = cuda_ctc.ctc_alpha_cuda(emit, act, skip, svalid)
+    ll = cuda_ctc.final_ll(traj[-1], finals)
+    g = torch.full((B,), 0.5, device=dev)
+    demit = cuda_ctc.ctc_beta_cuda(emit, act, skip, finals, traj, ll, g)
+    before = (cuda_ctc.LAUNCHES, cuda_ctc.LAUNCHES_BWD, cuda_ctc.LAUNCHES_PHASES)
+    traj_s, pa = cuda_ctc.ctc_alpha_phases(emit, act, skip, svalid)
+    demit_s, pb = cuda_ctc.ctc_beta_phases(emit, act, skip, finals, traj, ll, g)
+    torch.cuda.synchronize()
+    assert (cuda_ctc.LAUNCHES, cuda_ctc.LAUNCHES_BWD, cuda_ctc.LAUNCHES_PHASES) == (
+        before[0], before[1], before[2] + 2)
+    assert torch.equal(traj_s, traj) and torch.equal(demit_s, demit)
+    for p in (pa, pb):
+        assert p.shape == (B, len(cuda_ctc.PHASE_NAMES)) and bool((p >= 0).all())
+        assert bool((p.sum(1) > 0).all())
 
 
 def test_ctc_loss_kernel_on_card_matches_cpu(dev):
@@ -614,6 +685,8 @@ def test_ctc_kernels_reject_bad_input(dev):
     big = torch.zeros(2, 1, 8193, device=dev)
     with pytest.raises(ValueError, match="S <= 8192"):
         cuda_ctc.ctc_alpha_cuda(big, act[:2, :1].contiguous(), big[0], big[0])
+    with pytest.raises(ValueError, match="ring depth"):
+        cuda_ctc.ctc_alpha_cuda(emit, act, skip, svalid, depth=3)
 
 
 def test_training_step_on_card_matches_cpu(dev):

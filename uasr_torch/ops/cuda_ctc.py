@@ -13,12 +13,19 @@ posterior, written directly as d(emit)).
 
 Each ``*_cuda`` wrapper launches its kernel for CUDA tensors and raises on
 input the kernel does not take; ``ctc_alpha`` / ``ctc_beta`` run the plain
-version only for CPU tensors.
+version only for CPU tensors. The kernels bring each step's rows into a
+ring of ``depth`` slots in shared memory, ``depth`` - 1 steps ahead of the
+chain (``RING_DEPTH`` unless the caller asks for 2, 4 or 8; halved while
+the ring does not fit shared memory); ``LAST_ALPHA_PLAN`` /
+``LAST_BETA_PLAN`` are the last launch's (threads, ring depth).
+``ctc_alpha_phases`` / ``ctc_beta_phases`` run the kernels' builds with
+phase stamps (``uasr_torch.tools.time_ctc`` reads them).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +38,12 @@ MAX_STATES = 8192  # the kernels take S = 2U + 1 up to 8 states per thread x 102
 
 LAUNCHES = 0  # K3 launches by ctc_alpha_cuda (read by chip_smoke.py)
 LAUNCHES_BWD = 0  # K3-bwd launches by ctc_beta_cuda
+RING_DEPTH = 16  # the ring's slots (the fastest of 4, 8, 16 at both training shapes)
+LAST_ALPHA_PLAN = None  # (threads, ring depth) of the last K3 launch
+LAST_BETA_PLAN = None  # the same for K3-bwd
+LAUNCHES_PHASES = 0  # launches of the stamped builds by ctc_alpha_phases / ctc_beta_phases
+# the phases the stamped builds time, in the order of their columns
+PHASE_NAMES = ("rows", "math", "barrier", "stores")
 
 
 def _lse3(a, b, c):
@@ -94,11 +107,29 @@ def _check(name, tensors, device):
 
 def _lib(name: str, nptr: int) -> ctypes.CDLL:
     lib = _build.load(name)
-    fn = getattr(lib, f"uasr_{name}")
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [P] * nptr + [I, I, I, P, I]
-    fn.restype = I
+    getattr(lib, f"uasr_{name}").argtypes = [P] * nptr + [I, I, I, I, P, I]
+    getattr(lib, f"uasr_{name}_phases").argtypes = [P] * nptr + [I, I, I, I, P, P, I]
+    getattr(lib, f"uasr_{name}_plan").argtypes = [I, I, I, P, P]
+    for fn in ("", "_phases", "_plan"):
+        getattr(lib, f"uasr_{name}{fn}").restype = I
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(name: str, S: int, depth: int, device: int) -> tuple[int, int]:
+    """The kernel's launch plan: (threads per CTA, ring depth)."""
+    lib = _build.load(name)
+    threads, d = ctypes.c_int(), ctypes.c_int()
+    code = getattr(lib, f"uasr_{name}_plan")(S, depth, device, ctypes.byref(threads),
+                                              ctypes.byref(d))
+    _build.check(lib, code, f"{name} plan")
+    return threads.value, d.value
+
+
+def _check_depth(depth):
+    if depth not in (2, 4, 8, 16):
+        raise ValueError(f"ring depth must be 2, 4, 8 or 16, got {depth}")
 
 
 def _launch_args(emit):
@@ -107,28 +138,32 @@ def _launch_args(emit):
             dev.index if dev.index is not None else torch.cuda.current_device())
 
 
-def ctc_alpha_cuda(emit, act, skip_neg, svalid_neg):
-    """Launch K3 on CUDA tensors; same contract as the plain version."""
-    global LAUNCHES
+def _alpha(emit, act, skip_neg, svalid_neg, depth, phases):
+    global LAST_ALPHA_PLAN
     T, B, S = emit.shape
+    _check_depth(depth)
     _check("ctc_alpha kernel", ((emit, (T, B, S)), (act, (T, B)), (skip_neg, (B, S)),
                                 (svalid_neg, (B, S))), emit.device)
     if S > MAX_STATES:
         raise ValueError(f"ctc_alpha kernel takes S <= {MAX_STATES} states, got {S}")
     traj = torch.empty_like(emit)
     lib = _lib("ctc_alpha", 5)
-    code = lib.uasr_ctc_alpha(emit.data_ptr(), act.data_ptr(), skip_neg.data_ptr(),
-                              svalid_neg.data_ptr(), traj.data_ptr(), T, B, S,
-                              *_launch_args(emit))
+    args = (emit.data_ptr(), act.data_ptr(), skip_neg.data_ptr(), svalid_neg.data_ptr(),
+            traj.data_ptr(), T, B, S, depth)
+    stream, device = _launch_args(emit)
+    if phases is None:
+        code = lib.uasr_ctc_alpha(*args, stream, device)
+    else:
+        code = lib.uasr_ctc_alpha_phases(*args, phases.data_ptr(), stream, device)
     _build.check(lib, code, "ctc_alpha kernel")
-    LAUNCHES += 1
+    LAST_ALPHA_PLAN = _plan("ctc_alpha", S, depth, device)
     return traj
 
 
-def ctc_beta_cuda(emit, act, skip_neg, finals_neg, alpha_traj, ll, g):
-    """Launch K3-bwd on CUDA tensors; same contract as the plain version."""
-    global LAUNCHES_BWD
+def _beta(emit, act, skip_neg, finals_neg, alpha_traj, ll, g, depth, phases):
+    global LAST_BETA_PLAN
     T, B, S = emit.shape
+    _check_depth(depth)
     _check("ctc_beta kernel", ((emit, (T, B, S)), (act, (T, B)), (skip_neg, (B, S)),
                                (finals_neg, (B, S)), (alpha_traj, (T, B, S)), (ll, (B,)),
                                (g, (B,))), emit.device)
@@ -136,12 +171,58 @@ def ctc_beta_cuda(emit, act, skip_neg, finals_neg, alpha_traj, ll, g):
         raise ValueError(f"ctc_beta kernel takes S <= {MAX_STATES} states, got {S}")
     demit = torch.empty_like(emit)
     lib = _lib("ctc_beta", 8)
-    code = lib.uasr_ctc_beta(emit.data_ptr(), act.data_ptr(), skip_neg.data_ptr(),
-                             finals_neg.data_ptr(), alpha_traj.data_ptr(), ll.data_ptr(),
-                             g.data_ptr(), demit.data_ptr(), T, B, S, *_launch_args(emit))
+    args = (emit.data_ptr(), act.data_ptr(), skip_neg.data_ptr(), finals_neg.data_ptr(),
+            alpha_traj.data_ptr(), ll.data_ptr(), g.data_ptr(), demit.data_ptr(), T, B, S,
+            depth)
+    stream, device = _launch_args(emit)
+    if phases is None:
+        code = lib.uasr_ctc_beta(*args, stream, device)
+    else:
+        code = lib.uasr_ctc_beta_phases(*args, phases.data_ptr(), stream, device)
     _build.check(lib, code, "ctc_beta kernel")
+    LAST_BETA_PLAN = _plan("ctc_beta", S, depth, device)
+    return demit
+
+
+def _phases(emit):
+    return torch.zeros(emit.shape[1], len(PHASE_NAMES), dtype=torch.int64, device=emit.device)
+
+
+def ctc_alpha_cuda(emit, act, skip_neg, svalid_neg, depth: int = RING_DEPTH):
+    """Launch K3 on CUDA tensors; same contract as the plain version."""
+    global LAUNCHES
+    traj = _alpha(emit, act, skip_neg, svalid_neg, depth, None)
+    LAUNCHES += 1
+    return traj
+
+
+def ctc_beta_cuda(emit, act, skip_neg, finals_neg, alpha_traj, ll, g, depth: int = RING_DEPTH):
+    """Launch K3-bwd on CUDA tensors; same contract as the plain version."""
+    global LAUNCHES_BWD
+    demit = _beta(emit, act, skip_neg, finals_neg, alpha_traj, ll, g, depth, None)
     LAUNCHES_BWD += 1
     return demit
+
+
+def ctc_alpha_phases(emit, act, skip_neg, svalid_neg, depth: int = RING_DEPTH):
+    """K3 built with its phase stamps (a diagnostic; no training path calls
+    it): ``ctc_alpha_cuda``'s output, and [B, len(PHASE_NAMES)] int64 clock
+    cycles that each CTA's thread 0 spent in each phase, summed over the
+    steps."""
+    global LAUNCHES_PHASES
+    phases = _phases(emit)
+    traj = _alpha(emit, act, skip_neg, svalid_neg, depth, phases)
+    LAUNCHES_PHASES += 1
+    return traj, phases
+
+
+def ctc_beta_phases(emit, act, skip_neg, finals_neg, alpha_traj, ll, g, depth: int = RING_DEPTH):
+    """K3-bwd built with its phase stamps, as ``ctc_alpha_phases``."""
+    global LAUNCHES_PHASES
+    phases = _phases(emit)
+    demit = _beta(emit, act, skip_neg, finals_neg, alpha_traj, ll, g, depth, phases)
+    LAUNCHES_PHASES += 1
+    return demit, phases
 
 
 def ctc_alpha(emit, act, skip_neg, svalid_neg):
