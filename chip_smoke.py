@@ -237,12 +237,15 @@ def phase_kernels(torch, np, results: dict) -> None:
     T = num_frames_static(L, FL, FS)
     NB, M = NFFT // 2 + 1, fcfg.num_mel_bins
     nbytes = 4 * (B * L + 2 * FL * NB + 2 * NB + NB * M + B * T * M)
-    flop = 2 * B * T * FL * 2 * NB + 2 * B * T * NB * M
+    # the mel product counted over the filterbank's nonzero entries
+    nnz = int((fstate.mel_fb != 0).sum())
+    flop = 2 * B * T * FL * 2 * NB + 2 * B * T * nnz
     for tier, tol, products, dtype in (("highest", 1e-4, 1, "float32"),
                                        ("high", 5e-4, 3, "bfloat16"),
                                        ("bfloat16", 2e-2, 1, "bfloat16")):
         args = (audio, fstate, FL, FS, NFFT)
         got = k1.log_mel_fused_cuda(*args, precision=tier)
+        print(f"K1 plan {tier}: {json.dumps(k1.LAST_PLAN)}", flush=True)
         ref = k1.log_mel_fused_reference(*args, precision=tier)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
@@ -543,12 +546,14 @@ def phase_stream_kernels(torch, np, results: dict) -> None:
     audio = 0.1 * torch.randn(B, L, device=dev, generator=gen)
     NB, M = NFFT // 2 + 1, fcfg.num_mel_bins
     nbytes = 4 * (B * L + FL + 2 * FL * NB + NB * M + B * T * M)
-    flop = B * T * FL + 2 * B * T * FL * 2 * NB + 2 * B * T * NB * M
+    nnz = int((fstate.mel_fb != 0).sum())  # the mel product's nonzero entries
+    flop = B * T * FL + 2 * B * T * FL * 2 * NB + 2 * B * T * nnz
     for tier, tol, products, dtype in (("highest", 1e-4, 1, "float32"),
                                        ("high", 5e-4, 3, "bfloat16"),
                                        ("bfloat16", 2e-2, 1, "bfloat16")):
         args = (audio, fstate, FL, FS, NFFT)
         got = k7.log_mel_unfused_cuda(*args, precision=tier)
+        print(f"K7 plan {tier}: {json.dumps(k7.LAST_PLAN)}", flush=True)
         ref = k7.log_mel_unfused_reference(*args, precision=tier)
         torch.cuda.synchronize()
         check(got.shape == (B, T, M), f"K7 {tier}: shape {tuple(got.shape)}")

@@ -66,9 +66,99 @@ def test_log_mel_kernel_matches_plain(dev, precision, want_energy, L):
                                                 want_energy=want_energy)
     torch.cuda.synchronize()
     assert cuda_frontend.LAUNCHES == before + 1
+    assert cuda_frontend.LAST_PLAN == _log_mel_plan(dev, 3, L, cfg, precision, False)
     assert got.shape == ref.shape == (3, max(1 + (L - 400) // 160, 1), 40 + want_energy)
     assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= K1_TOL[precision]
+
+
+def _log_mel_plan(dev, B, L, cfg, precision, unfused):
+    return cuda_frontend.launch_plan(B, L, cfg.frame_length, cfg.frame_shift, cfg.n_fft,
+                                     precision, unfused,
+                                     torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def _log_mel_held_to_plain(dev, unfused, audio, cfg, precision, want_energy=False):
+    """Run K1 or K7 on [B, L] audio, assert its launch count and plan, and
+    hold it to the plain version at the card's bar. The plain version runs
+    on the rows repeated to at least 4096 frames: its f32 products are
+    cuBLAS's, whose summation order follows the row count (at 64 x 32
+    frames, 2048 rows, it splits the sums, and this kernel, like the one
+    before it, is up to 8.77e-4 from it on 80 mel bins; from 4096 rows on
+    it sums each product in ascending order, as the kernels do)."""
+    state = make_frontend_state(cfg, device=dev)
+    B, L = audio.shape
+    args = (state, cfg.frame_length, cfg.frame_shift, cfg.n_fft)
+    kernel, plain = ((cuda_frontend.log_mel_unfused_cuda, cuda_frontend.log_mel_unfused_reference)
+                     if unfused else
+                     (cuda_frontend.log_mel_fused_cuda, cuda_frontend.log_mel_fused_reference))
+    count = "LAUNCHES_UNFUSED" if unfused else "LAUNCHES"
+    before = getattr(cuda_frontend, count)
+    got = kernel(audio, *args, precision=precision, want_energy=want_energy)
+    torch.cuda.synchronize()
+    assert getattr(cuda_frontend, count) == before + 1
+    assert cuda_frontend.LAST_PLAN == _log_mel_plan(dev, B, L, cfg, precision, unfused)
+    T = max(1 + (L - cfg.frame_length) // cfg.frame_shift, 1)
+    reps = -(-4096 // (B * T))
+    ref = plain(audio.repeat(reps, 1), *args, precision=precision, want_energy=want_energy)[:B]
+    assert got.shape == ref.shape == (B, T, cfg.num_mel_bins + want_energy)
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= K1_TOL[precision]
+    return got
+
+
+@pytest.mark.parametrize("precision", sorted(K1_TOL))
+@pytest.mark.parametrize("B", [1, 8, 64])
+@pytest.mark.parametrize("chunk", [64, 32])
+def test_log_mel_unfused_kernel_at_streaming_chunks(dev, chunk, B, precision):
+    """K7 at the streaming recipe's 80 mel bins on chunks of 64 and 32
+    frames (240 + chunk * 160 samples) for 1, 8 and 64 streams; a stream's
+    rows do not depend on the others in the batch."""
+    cfg = FrontendConfig(num_mel_bins=80)
+    L = 240 + chunk * 160
+    audio = torch.tensor(0.1 * np.random.RandomState(B + chunk).randn(B, L).astype(np.float32),
+                         device=dev)
+    got = _log_mel_held_to_plain(dev, True, audio, cfg, precision)
+    alone = cuda_frontend.log_mel_unfused_cuda(audio[-1:], make_frontend_state(cfg, device=dev),
+                                               400, 160, 512, precision=precision)
+    assert torch.equal(alone[0], got[-1])
+
+
+@pytest.mark.parametrize("precision", sorted(K1_TOL))
+@pytest.mark.parametrize("B,L", [(1, 16000), (65536, 400), (65536, 561)])
+def test_log_mel_kernel_batch_edges(dev, B, L, precision):
+    """K1 on one utterance of 98 frames (not a multiple of any frame tile)
+    and on 65,536 rows of one and two frames (past the 65,535 CTAs a grid's
+    second dimension holds)."""
+    audio = torch.tensor(0.1 * np.random.RandomState(L).randn(B, L).astype(np.float32),
+                         device=dev)
+    _log_mel_held_to_plain(dev, False, audio, FrontendConfig(num_mel_bins=80), precision)
+
+
+@pytest.mark.parametrize("want_energy", [False, True])
+@pytest.mark.parametrize("precision", sorted(K1_TOL))
+@pytest.mark.parametrize("unfused", [False, True], ids=["k1", "k7"])
+def test_log_mel_kernels_at_nfft_1024(dev, unfused, precision, want_energy):
+    """50 ms frames (FL = 800) and n_fft 1024, which the kernels once
+    refused: two passes of 256 bins and the Nyquist bin, and mel filters
+    whose runs cross the passes' boundary at bin 256."""
+    cfg = FrontendConfig(num_mel_bins=80, frame_length_ms=50.0, n_fft=1024)
+    runs = make_frontend_state(cfg, device=dev).mel_runs.cpu()
+    assert bool(((runs[0] < 256) & (runs[1] > 256)).any())
+    audio = torch.tensor(0.1 * np.random.RandomState(3).randn(3, 5000).astype(np.float32),
+                         device=dev)
+    _log_mel_held_to_plain(dev, unfused, audio, cfg, precision, want_energy)
+    assert cuda_frontend.LAST_PLAN["passes"] == 2
+
+
+def test_log_mel_kernel_refuses_past_shared_memory(dev):
+    cfg = FrontendConfig(num_mel_bins=80, frame_length_ms=200.0, n_fft=8192)
+    audio = torch.zeros(1, 8000, device=dev)
+    before = cuda_frontend.LAUNCHES
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_frontend.log_mel_fused_cuda(audio, make_frontend_state(cfg, device=dev), 3200, 160,
+                                         8192)
+    assert cuda_frontend.LAUNCHES == before
 
 
 # one row, batch rows over several splits (B = 300), small batches at the
@@ -359,6 +449,7 @@ def test_log_mel_unfused_kernel_matches_plain(dev, precision, want_energy):
                                                       want_energy=want_energy)
         torch.cuda.synchronize()
         assert cuda_frontend.LAUNCHES_UNFUSED == before + 1
+        assert cuda_frontend.LAST_PLAN == _log_mel_plan(dev, 3, L, cfg, precision, True)
         assert got.shape == ref.shape == (3, max(1 + (L - 400) // 160, 1), 80 + want_energy)
         assert float((got - ref).abs().max()) <= K1_TOL[precision]
 

@@ -48,6 +48,16 @@ class FrontendState(NamedTuple):
     pre_cos: torch.Tensor | None = None  # [frame_len, n_bins]
     pre_sin: torch.Tensor | None = None  # [frame_len, n_bins]
     pre_bvec: torch.Tensor | None = None  # [2, n_bins] boundary (cos, sin)
+    # each mel filter's run of nonzero bins, for K1 and K7: mel_runs [3,
+    # num_mel] int32 holds lo, hi (every mel_fb[k, m] with k outside [lo,
+    # hi) is exactly 0) and the run's offset into mel_w, the runs' entries
+    # of mel_fb packed filter after filter
+    mel_runs: torch.Tensor | None = None
+    mel_w: torch.Tensor | None = None
+    # the DFT bases in K1's (pre_pack: pre_cos, pre_sin) and K7's (dft_pack:
+    # cos, sin) slab layout (pack_bases)
+    pre_pack: torch.Tensor | None = None
+    dft_pack: torch.Tensor | None = None
 
     def to(self, device) -> "FrontendState":
         return FrontendState(*(None if x is None else x.to(device) for x in self))
@@ -60,6 +70,44 @@ def dft_matrices(frame_len: int, n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     k = np.arange(n_fft // 2 + 1, dtype=np.float64)[None, :]
     ang = 2.0 * np.pi * n * k / n_fft
     return np.cos(ang), np.sin(ang)
+
+
+def mel_runs(mel_fb: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """[n_bins, num_mel] filterbank -> (runs [3, num_mel] int32: each
+    filter's first and one-past-last nonzero bin and its offset into the
+    packed entries, packed [sum of run lengths] entries). A filter with no
+    nonzero entry has the empty run [0, 0)."""
+    nz = mel_fb != 0
+    anyz = nz.any(0)
+    lo = np.where(anyz, nz.argmax(0), 0)
+    hi = np.where(anyz, mel_fb.shape[0] - nz[::-1].argmax(0), 0)
+    off = np.concatenate([[0], np.cumsum(hi - lo)[:-1]])
+    w = np.concatenate([mel_fb[a:b, m] for m, (a, b) in enumerate(zip(lo, hi))]
+                       + [np.zeros(0, mel_fb.dtype)])
+    return np.stack([lo, hi, off]).astype(np.int32), w
+
+
+PACK_BINS, PACK_ROWS = 256, 16  # csrc/log_mel.cu: bins a pass, slab rows' multiple
+
+
+def pack_bases(cos_b: np.ndarray, sin_b: np.ndarray) -> np.ndarray:
+    """[FL, NB] cos and sin bases -> the flat layout K1 and K7 copy slabs
+    of (csrc/log_mel.cu): with NB = 4 n + t, FLP = FL rounded up to 16 and
+    P = ceil(4 n / 256) passes, [P, FLP, cos 256 | sin 256] of bins 0 ..
+    4 n - 1, then [cos | sin][4][FLP] of the t tail bins, zero elsewhere."""
+    FL, NB = cos_b.shape
+    nt = NB % 4
+    nbm = NB - nt
+    npass = max(1, -(-nbm // PACK_BINS))
+    flp = -(-FL // PACK_ROWS) * PACK_ROWS
+    main = np.zeros((npass, flp, 2, PACK_BINS), np.float32)
+    tail = np.zeros((2, 4, flp), np.float32)
+    for w, basis in enumerate((cos_b, sin_b)):
+        for p in range(npass):
+            cols = basis[:, p * PACK_BINS: min(nbm, (p + 1) * PACK_BINS)]
+            main[p, :FL, w, :cols.shape[1]] = cols
+        tail[w, :nt, :FL] = basis[:, nbm:].T
+    return np.concatenate([main.ravel(), tail.ravel()])
 
 
 def make_frontend_state(
@@ -103,6 +151,7 @@ def make_frontend_state(
     pre_cos = wc - p * np.vstack([wc[1:], zrow])
     pre_sin = ws - p * np.vstack([ws[1:], zrow])
     pre_bvec = -p * np.stack([wc[0], ws[0]])  # [2, NB]
+    runs, mel_w = mel_runs(np.asarray(fb.T, np.float32))  # of mel_fb as stored
     return FrontendState(
         window=t(win),
         cos_basis=t(cos_b),
@@ -115,6 +164,10 @@ def make_frontend_state(
         pre_cos=t(pre_cos),
         pre_sin=t(pre_sin),
         pre_bvec=t(pre_bvec),
+        mel_runs=torch.as_tensor(runs, device=device),
+        mel_w=t(mel_w),
+        pre_pack=t(pack_bases(np.float32(pre_cos), np.float32(pre_sin))),
+        dft_pack=t(pack_bases(np.float32(cos_b), np.float32(sin_b))),
     )
 
 
