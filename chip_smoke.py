@@ -84,7 +84,17 @@ and prints no result line):
    with the linear backward (K8), a profile of one 12 s lc_bigru step and
    of one 16 s conformer and transformer step, and the first step's loss
    and gradients on the kernel path against the plain path, bf16 and f32;
-12. one JSON line listing every ported kernel with its check, times and
+12. the unsupervised path: configs/formant39_unsup.yaml at full width
+   (gan+eodm alternations through GANTrainer: the first one's losses on
+   the kernel path against the plain path, timed alternations with one
+   K1 per step, a profile), WGAN-GP at configs/timit_unsup_gan_eodm.yaml's
+   widths with the CTC mix-in through run_gan_training (K1, K3, K3-bwd),
+   configs/synthetic_unsup_demo.yaml's 600 steps through the CLI
+   (reproducible: trained twice, bit-equal) to dev PER below 0.65 with
+   greedy and K4 beam decode, and that checkpoint streamed with the
+   merged-stream collapse (K7), equal to the offline merged greedy decode;
+   phase 2 also prints K1's and K7's distance from the same formula in f64;
+13. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -218,6 +228,26 @@ def make_requests(np, cfg, n_req: int = 4, cps: float = 14):
             for hi_s in cfg.data.bucket_boundaries[:n_req]]
 
 
+def against_f64(torch, kernel, plain, audio, fstate, *args) -> str:
+    """The kernel's and the f32 plain version's max |d| against the same
+    log-mel formula in f64 (the plain version on the f32 inputs and
+    constants promoted to f64, ``highest`` tier), which has no summation
+    order to share, where the f32 plain version sums in cuBLAS's order for
+    the row count; and where the kernel's largest |d| sits (mel bin and
+    the f64 value there), and the share of its elements past 1e-4."""
+    from uasr_torch.frontend.features import FrontendState
+
+    st64 = FrontendState(*(x.double() if x is not None and x.is_floating_point() else x
+                           for x in fstate))
+    ref = plain(audio.double(), st64, *args, precision="highest")
+    d_k = (kernel(audio, fstate, *args, precision="highest").double() - ref).abs()
+    d_p = (plain(audio, fstate, *args, precision="highest").double() - ref).abs()
+    at = int(d_k.argmax())
+    return (f"kernel max|d| {float(d_k.max()):.3e} (mel bin {at % ref.shape[-1]}, f64 value "
+            f"{float(ref.reshape(-1)[at]):.3f}; {float((d_k > 1e-4).double().mean()):.2e} of "
+            f"the elements past 1e-4), f32 plain version max|d| {float(d_p.max()):.3e}")
+
+
 def phase_kernels(torch, np, results: dict) -> None:
     from uasr_torch.frontend import cuda_frontend as k1
     from uasr_torch.frontend.features import make_frontend_state, num_frames_static
@@ -258,6 +288,9 @@ def phase_kernels(torch, np, results: dict) -> None:
               f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
         results[f"K1:{tier}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                                      bound_by=by, library_ms=None)
+    print(f"K1 log_mel highest B={B} L={L} against f64: "
+          + against_f64(torch, k1.log_mel_fused_cuda, k1.log_mel_fused_reference, audio, fstate,
+                        FL, FS, NFFT), flush=True)
 
     # ---- K2 at T=400, H=512, ragged lengths incl. 1 and T: B=32, timed, then
     # B=7 and B=1 (a bucket's last partial batch; refused before K2 ran K5's plan)
@@ -567,6 +600,13 @@ def phase_stream_kernels(torch, np, results: dict) -> None:
               f"kernel {ms:.4f} ms plain {plain:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
         results[f"K7:{tier}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
                                      bound_by=by, library_ms=None)
+    # against f64, at this chunk and at 32-frame chunks (64 x 32 = 2048 rows,
+    # where cuBLAS splits the f32 plain version's sums)
+    for frames in (T, 32):
+        a = audio[:, : (FL - FS) + frames * FS].contiguous()
+        print(f"K7 log_mel highest B={B} x {frames} frames against f64: "
+              + against_f64(torch, k7.log_mel_unfused_cuda, k7.log_mel_unfused_reference, a,
+                            fstate, FL, FS, NFFT), flush=True)
 
     # ---- K4 at V=4233, W=8: one chunk from a carried state, then 12 s
     V, W = STREAM_V, STREAM_W
@@ -1923,6 +1963,334 @@ def phase_encoder_train(torch, np, launches: dict) -> None:
 
 
 
+# ------------------------------------------------------- unsupervised path
+
+# the formant corpora of the full-width phases, cut to this many
+# utterances (the recipes ask for 2048): enough for every batch they draw
+UNSUP_UTTS = 256
+UNSUP_STEPS = 4  # timed gan+eodm alternations at full width
+UNSUP_WGAN_V = 62  # a 61-phone TIMIT list with the blank; stand-in vocabulary
+DEMO_PER_BAR = 0.65  # the JAX package's own bar for the demo (chance ~0.83)
+
+
+def unsup_corpus(cfg, n: int, seed: int = 0):
+    """The recipe's synthetic corpus (``data.synthetic_*``), ``n``
+    utterances: (examples, vocab)."""
+    from uasr_torch.data.dataset import make_synthetic_dataset
+
+    d = cfg.data
+    return make_synthetic_dataset(num_utts=n, num_phones=cfg.dim_output - 2, seed=seed,
+                                  syntax=d.synthetic_syntax, min_len=d.synthetic_min_len,
+                                  max_len=d.synthetic_max_len, style=d.synthetic_style)
+
+
+def unsup_batches(cfg, examples, seed: int):
+    from uasr_torch.data.dataset import batch_iterator
+
+    return batch_iterator(examples, cfg.data.batch_size,
+                          int(cfg.data.max_audio_seconds * cfg.frontend.sample_rate),
+                          cfg.data.max_label_len, seed=seed)
+
+
+def copy_state(torch, state):
+    """A GANState whose tensors are copies (the trainers update in place)."""
+    def cp(tree):
+        if isinstance(tree, dict):
+            return {k: cp(v) for k, v in tree.items()}
+        return tree.detach().clone() if isinstance(tree, torch.Tensor) else tree
+
+    return type(state)(*(cp(x) for x in state))
+
+
+def alternation(trainer, state, audio, text_it):
+    """``gan.disc_steps`` critic steps, then one generator step: (state, aux)."""
+    for k in range(trainer.cfg.gan.disc_steps):
+        state, d_aux = trainer.d_step(state, next(audio), next(text_it),
+                                      generator=trainer.eps_generator(state.step, k))
+    state, g_aux = trainer.g_step(state, next(audio))
+    return state, {k: float(v) for k, v in {**d_aux, **g_aux}.items()}
+
+
+def phase_unsup_full(torch, np) -> None:
+    """configs/formant39_unsup.yaml at full width (classifier 384 x 2,
+    context 4, V = 41; critic 256 x 3; bce with merge_repeats, diversity
+    and smoothness; EODM orders 1 and 2, top-k 600; B = 32 at 6 s):
+    GANTrainer's gan+eodm alternations, the first one's losses on the
+    kernel path against the plain path from the same state, batches and
+    draws, then a set-up alternation and UNSUP_STEPS timed ones with their
+    launch counts (K1 once per step), and a profile of one."""
+    from uasr_torch import train
+    from uasr_torch.config import load_config
+    from uasr_torch.data.dataset import text_batch_iterator
+    from uasr_torch.ops.eodm import device_ngram_tables
+
+    dev = torch.device(DEVICE)
+    cfg = load_config(os.path.join(REPO, "configs", "formant39_unsup.yaml"))
+    examples, vocab = unsup_corpus(cfg, UNSUP_UTTS)
+    check(len(vocab) == cfg.dim_output, f"vocabulary of {len(vocab)}")
+    text = [ids for _, ids in examples]
+    tables = device_ngram_tables(cfg.eodm, text, dev)
+    trainer = train.GANTrainer(cfg, device=dev, tables=tables)
+    m, g = cfg.model, cfg.gan
+    print(f"unsup: {cfg.name} classifier {m.classifier_hidden} x {m.classifier_layers} context "
+          f"{m.classifier_context}, critic {m.disc_channels} x {m.disc_layers}, V="
+          f"{cfg.dim_output}, {g.objective}, merge {g.merge_repeats}, EODM orders "
+          f"{list(cfg.eodm.ngram_orders)} top-k {cfg.eodm.top_k} ({[len(t[0]) for t in tables]}"
+          f" kept), B={cfg.data.batch_size} at {cfg.data.max_audio_seconds} s, "
+          f"{g.disc_steps} critic steps per generator step; {UNSUP_UTTS} formant utterances",
+          flush=True)
+    audio = unsup_batches(cfg, examples, cfg.train.seed)
+    text_it = text_batch_iterator(text, cfg.data.batch_size, cfg.data.max_label_len,
+                                  seed=cfg.train.seed)
+
+    # the first alternation from the same state, batches and draws on both
+    # paths (K1's features differ from the plain version's within 1e-4)
+    state0 = trainer.init_state()
+    batches = [next(audio) for _ in range(g.disc_steps + 1)]
+    texts = [next(text_it) for _ in range(g.disc_steps)]
+    got = {}
+    for path in ("kernel", "plain"):
+        ctx = plain_versions() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            _, got[path] = alternation(trainer, copy_state(torch, state0), iter(batches),
+                                       iter(texts))
+    for name, v in got["kernel"].items():
+        p = got["plain"][name]
+        print(f"  first step, kernel path vs plain path: {name} {v:.6f} vs {p:.6f} (rel "
+              f"{_rel(v, p):.3e}, tol 1e-3)", flush=True)
+        check(math.isfinite(v) and _rel(v, p) <= 1e-3, f"unsup first step {name}: {v} vs {p}")
+
+    state = trainer.init_state()
+    t0 = time.perf_counter()
+    state, aux = alternation(trainer, state, audio, text_it)
+    torch.cuda.synchronize()
+    print(f"  set-up alternation: wall {(time.perf_counter() - t0) * 1e3:.2f} ms", flush=True)
+    walls = []
+    reset_launches()
+    for _ in range(UNSUP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = alternation(trainer, state, audio, text_it)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        print(f"  step {state.step}: wall {walls[-1] * 1e3:.2f} ms, "
+              + ", ".join(f"{k} {v:.4f}" for k, v in aux.items()), flush=True)
+        check(all(math.isfinite(v) for v in aux.values()), f"step {state.step}: {aux}")
+    counts = read_launches()
+    print(f"  launches over {UNSUP_STEPS} alternations: {counts}", flush=True)
+    want = dict.fromkeys(counts, 0)
+    want["K1"] = UNSUP_STEPS * (g.disc_steps + 1)
+    check(counts == want, f"gan+eodm launches {counts}, expected {want}")
+    secs = cfg.data.batch_size * (g.disc_steps + 1) * cfg.data.max_audio_seconds
+    print(f"  step wall (one alternation: {g.disc_steps} critic steps + 1 generator step) mean "
+          f"{np.mean(walls) * 1e3:.2f} ms, min {min(walls) * 1e3:.2f} ms; "
+          f"{secs / np.mean(walls):.1f} padded audio-s/s", flush=True)
+    for tree in (state.g_params, state.d_params):
+        check(all(bool(torch.isfinite(p).all()) for p in tree.values()), "non-finite weights")
+
+    def one():
+        nonlocal state
+        state, _ = alternation(trainer, state, audio, text_it)
+
+    profile_call(torch, one, "one gan+eodm alternation at full width")
+
+
+def phase_unsup_wgan(torch, np) -> None:
+    """The WGAN-GP objective at configs/timit_unsup_gan_eodm.yaml's model,
+    gan and eodm sections (classifier 512 x 2, context 4, splice +-1;
+    critic 256 x 3, kernel 5; lambda_gp 10; EODM orders 2 and 3, top-k
+    1000; B = 32 at 8 s) on a formant corpus standing in for the TIMIT
+    lists (V = 62), with the semi-supervised CTC mix-in
+    (``gan.supervised_weight`` 0.5, ``ctc.use_pallas``: K3 and K3-bwd)
+    through run_gan_training; every logged loss finite."""
+    import tempfile
+
+    from uasr_torch import train
+    from uasr_torch.config import load_config
+
+    dev = torch.device(DEVICE)
+    cfg = load_config(os.path.join(REPO, "configs", "timit_unsup_gan_eodm.yaml"))
+    steps = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cfg.replace(
+            model_dir=tmp, vocab_size=UNSUP_WGAN_V,
+            gan=dataclasses.replace(cfg.gan, supervised_weight=0.5),
+            ctc=dataclasses.replace(cfg.ctc, use_pallas=True),
+            data=dataclasses.replace(cfg.data, synthetic=True, synthetic_style="formant",
+                                     synthetic_syntax="markov", synthetic_min_len=20,
+                                     synthetic_max_len=45),
+            train=dataclasses.replace(cfg.train, total_steps=steps, log_every=1))
+        examples, vocab = unsup_corpus(cfg, UNSUP_UTTS, seed=5)
+        check(len(vocab) == cfg.dim_output, f"vocabulary of {len(vocab)}")
+        labeled = examples[: cfg.data.synthetic_labeled_utts]
+        while len(labeled) < cfg.data.batch_size:
+            labeled = labeled + labeled
+        m, g = cfg.model, cfg.gan
+        print(f"unsup wgan-gp: {cfg.name} classifier {m.classifier_hidden} x "
+              f"{m.classifier_layers} context {m.classifier_context}, input "
+              f"{cfg.frontend.dim_input}, critic {m.disc_channels} x {m.disc_layers} kernel "
+              f"{m.disc_kernel}, lambda_gp {g.lambda_gp}, EODM {list(cfg.eodm.ngram_orders)} "
+              f"top-k {cfg.eodm.top_k}, CTC mix-in {g.supervised_weight}, V={cfg.dim_output}, "
+              f"B={cfg.data.batch_size} at {cfg.data.max_audio_seconds} s", flush=True)
+        reset_launches()
+        _, state = train.run_gan_training(
+            cfg, unsup_batches(cfg, examples, cfg.train.seed), [ids for _, ids in examples],
+            with_eodm=True, labeled_batches=unsup_batches(cfg, labeled, cfg.train.seed + 1),
+            device=dev)
+        counts = read_launches()
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+    check(state.step == steps and len(recs) == steps, f"{len(recs)} logged steps")
+    for r in recs:
+        vals = {k: r[k] for k in ("d_loss", "gp", "wasserstein", "g_loss", "eodm_loss",
+                                  "sup_ctc")}
+        print(f"  step {r['step']}: " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+              + f", {r['steps_per_sec']:.2f} steps/s", flush=True)
+        check(all(math.isfinite(v) for v in vals.values()), f"step {r['step']}: {vals}")
+    print(f"  launches over {steps} steps: {counts}", flush=True)
+    want = dict.fromkeys(counts, 0)
+    # each critic step's and each generator step's features, and the labeled batch's
+    want.update(K1=steps * (g.disc_steps + 2), K3=steps, **{"K3-bwd": steps})
+    check(counts == want, f"wgan-gp launches {counts}, expected {want}")
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """cuDNN's deterministic algorithms, and a warning for any other op
+    that has none, around a run whose result must reproduce."""
+    saved = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
+
+
+def phase_unsup_demo(torch, np, model_dir: str) -> None:
+    """The acceptance run: configs/synthetic_unsup_demo.yaml trained for its
+    600 steps through the CLI, then ``--mode infer`` (greedy; it must beat
+    DEMO_PER_BAR) and ``--mode infer`` with ``ctc.use_beam`` (K4). The GAN
+    alternation is chaotic, so the run is made reproducible: deterministic
+    cuDNN algorithms, and a short run of the recipe first (the process's
+    first run at these shapes takes other rounding than every later one);
+    the acceptance run is then trained twice and the two runs' final
+    weights must be bit-equal."""
+    import io
+    import re
+
+    from uasr_torch import cli
+    from uasr_torch.checkpoint import CheckpointManager
+
+    def run(out_dir, *extra):
+        buf = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), deterministic(torch):
+            rc = cli.main(["-c", os.path.join(REPO, "configs", "synthetic_unsup_demo.yaml"),
+                           "--set", f"model_dir={out_dir}", *extra])
+        torch.cuda.synchronize()
+        check(rc == 0, f"cli {extra}: exit {rc}")
+        return buf.getvalue(), time.perf_counter() - t0, read_launches()
+
+    run(model_dir + "_warm", "--mode", "train", "--set", "train.total_steps=20")
+    out, wall, counts = run(model_dir, "--mode", "train")
+    dev_lines = [ln for ln in out.splitlines() if ln.startswith("[dev]")]
+    print(f"unsup demo: synthetic_unsup_demo trained through the CLI in {wall:.1f} s; "
+          + "; ".join(dev_lines) + f"; launches {counts}", flush=True)
+    check(counts["K1"] > 0, f"demo training launches {counts}")
+    again = model_dir + "_again"
+    _, wall2, _ = run(again, "--mode", "train")
+    blobs = []
+    for d in (model_dir, again):
+        step = CheckpointManager(os.path.join(d, "ckpt")).latest_step()
+        blobs.append(torch.load(os.path.join(d, "ckpt", f"{step}.pt"),
+                                weights_only=True)["leaves"])
+    differ = [k for k, v in blobs[0].items()
+              if not (torch.equal(v, blobs[1][k]) if isinstance(v, torch.Tensor)
+                      else v == blobs[1][k])]
+    print(f"  second training run ({wall2:.1f} s): final state bit-equal in "
+          f"{len(blobs[0]) - len(differ)} of {len(blobs[0])} leaves", flush=True)
+    check(not differ and blobs[0].keys() == blobs[1].keys(),
+          f"the demo run does not reproduce: {differ[:6]}")
+    for mode, extra in (("greedy", ()), ("beam", ("--set", "ctc.use_beam=true"))):
+        out, wall, counts = run(model_dir, "--mode", "infer", *extra)
+        hit = re.search(r"PER=([0-9.]+)", out)
+        check(hit is not None, f"infer printed {out!r}")
+        per = float(hit.group(1))
+        print(f"  --mode infer ({mode}): {out.strip()} in {wall:.1f} s; launches {counts}",
+              flush=True)
+        check(counts["K1"] > 0 and (counts["K4"] > 0) == (mode == "beam"),
+              f"{mode} infer launches {counts}")
+        if mode == "greedy":
+            check(per < DEMO_PER_BAR, f"demo dev PER {per} not below {DEMO_PER_BAR}")
+
+
+def phase_unsup_stream(torch, np, model_dir: str) -> None:
+    """The demo checkpoint streamed through StreamingRecognizer with
+    streaming CMVN (K7 once a step) and downsample 1, which streaming
+    needs (it was trained on utterance CMVN at downsample 3; the check is
+    between two paths on the same weights): the merged-stream collapse's
+    tokens against the offline greedy decode of the merged stream
+    (``GeneratorInfer.logits_fn``), for every stream."""
+    from uasr_torch import cli
+    from uasr_torch.config import load_config
+    from uasr_torch.data.dataset import Batch
+    from uasr_torch.ops.decode import ctc_greedy_decode
+    from uasr_torch.serve import StreamingRecognizer
+
+    dev = torch.device(DEVICE)
+    cfg = load_config(os.path.join(REPO, "configs", "synthetic_unsup_demo.yaml"))
+    cli.apply_overrides(cfg, [f"model_dir={model_dir}", "frontend.cmvn=streaming",
+                              "frontend.downsample=1"])
+    ginf, step = cli.restore_trainer(cfg, dev)
+    rec = StreamingRecognizer(cfg, ginf.gen, device=dev)
+    check(rec.collapse == "merge", f"collapse {rec.collapse}")
+    examples, _ = unsup_corpus(cfg, STREAM_B, seed=2)
+    lens = np.array([len(a) for a, _ in examples], np.int32)
+    L = -(-int(lens.max()) // rec.chunk_samples) * rec.chunk_samples
+    audio = np.zeros((STREAM_B, L), np.float32)
+    for i, (a, _) in enumerate(examples):
+        audio[i, : len(a)] = a
+    batch = Batch(audio, lens, np.zeros((STREAM_B, 1), np.int32), np.zeros(STREAM_B, np.int32))
+    want = dict.fromkeys(read_launches(), 0)
+    want["K7"] = 1
+
+    def per_step(d):
+        check(d == want, f"merged-stream step launches {d}, expected {want}")
+
+    part, tail, lat, _ = stream_batch(torch, np, rec, batch, per_step)
+    streamed = [p + t for p, t in zip(part, tail)]
+    with torch.inference_mode():
+        logits, n = ginf.logits_fn(torch.as_tensor(audio, device=dev),
+                                   torch.as_tensor(lens, device=dev, dtype=torch.long))
+        ids, k = ctc_greedy_decode(logits, n, cfg.ctc.blank_id)
+    ids, k = ids.cpu().numpy(), k.cpu().numpy()
+    offline = [ids[b, : k[b]].tolist() for b in range(STREAM_B)]
+    bad = [b for b in range(STREAM_B) if streamed[b] != offline[b]]
+    print(f"unsup stream: step {step} checkpoint, {STREAM_B} streams, chunk {rec.chunk} frames, "
+          f"merged-stream greedy == offline merged greedy for {STREAM_B - len(bad)} of "
+          f"{STREAM_B} streams, {np.mean([len(o) for o in offline]):.1f} tokens per stream",
+          flush=True)
+    check(not bad, f"merged streams {bad[:8]} differ from the offline decode")
+    check(sum(map(len, offline)) > 0, "the merged stream emitted nothing")
+    report_latency(np, f"B={STREAM_B}", lat[1:], STREAM_B,
+                   rec.chunk_samples / cfg.frontend.sample_rate)
+
+
+def phase_unsup(torch, np) -> None:
+    import tempfile
+
+    phase_unsup_full(torch, np)
+    phase_unsup_wgan(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        demo = os.path.join(tmp, "demo")
+        phase_unsup_demo(torch, np, demo)
+        phase_unsup_stream(torch, np, demo)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1957,6 +2325,7 @@ def main() -> int:
     phase_attention(torch, np, launches)
     phase_train_k5_k6(torch, np, results)
     phase_encoder_train(torch, np, launches)
+    phase_unsup(torch, np)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",

@@ -54,7 +54,7 @@ def test_bad_overrides_exit(override, match, tmp_path):
         cli.main(["-c", RECIPE, "--device", "cpu", "--set", override])
 
 
-@pytest.mark.parametrize("mode,match", [("frame_ce", "slice 3"), ("gan", "slice 4")])
+@pytest.mark.parametrize("mode,match", [("frame_ce", "slice 3"), ("ssl", "item 10")])
 def test_unported_modes_raise(mode, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["-c", RECIPE, "--device", "cpu", "--set", f"train.mode={mode}",

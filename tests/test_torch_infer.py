@@ -89,7 +89,6 @@ def test_entry_points_need_cuda_or_explicit_cpu(trained):
         (dataclasses.replace(cfg, ctc=tc.CTCConfig(use_viterbi=True)), {}, "viterbi"),
         (dataclasses.replace(cfg, ctc=tc.CTCConfig(use_beam=True, lm_path="lm.npz")), {},
          "lm_path"),
-        (cfg, {"logits_fn": lambda *a: a}, "logits_fn"),
         (cfg, {"device": ["cpu", "cpu"]}, "multi-device"),
     ]
     for c, kw, what in unported:

@@ -78,8 +78,10 @@ def test_seeded_init_and_families():
     wh = a.bigru0.wh[0]
     np.testing.assert_allclose((wh @ wh.T).detach().numpy(), np.eye(8), atol=1e-5)  # orthonormal rows
     assert encoder_time_subsample(cfg) == 4
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(ModelConfig(encoder="classifier"), V, D, device="cpu")
+    cls = ModelConfig(encoder="classifier", classifier_hidden=8, classifier_context=2)
+    assert encoder_time_subsample(cls) == 1
+    logits, n = build_model(cls, V, D, device="cpu")(torch.randn(2, 20, D), torch.tensor([20, 9]))
+    assert logits.shape == (2, 20, V) and n.tolist() == [20, 9]
     for enc in ("transformer", "conformer", "uni_gru", "lc_bigru"):
         small = ModelConfig(encoder=enc, hidden_size=16, num_heads=2, transformer_layers=1,
                             ffn_dim=8, conv_channels=2)

@@ -146,12 +146,19 @@ def _tf32(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def _mm_3xtf32(a, b):
+def _split_tf32(x):
+    """(hi, lo) = (tf32(x), tf32(x - hi))."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm_3xtf32(a, b, b_split=None):
     """a @ b as K5-bwd's f32 tensor-core products take it: hi = tf32(x),
     lo = tf32(x - hi) for both operands, a_hi b_hi + (a_lo b_hi + a_hi b_lo)
-    with the TF32 products exact in f32 and f32 sums."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    with the TF32 products exact in f32 and f32 sums. ``b_split``: b's
+    (hi, lo), split once for a constant b."""
+    a_hi, a_lo = _split_tf32(a)
+    b_hi, b_lo = b_split if b_split is not None else _split_tf32(b)
     return a_hi @ b_hi + (a_lo @ b_hi + a_hi @ b_lo)
 
 
@@ -258,8 +265,11 @@ def test_3xtf32_products_hold_the_forward_bar(T):
         return torch.stack(ys)
 
     assert float((fwd(torch.matmul) - ref).abs().max()) <= 1e-6  # the recurrence itself
+    # wh is constant over the steps: split and round it once
+    wh_split, wh_tf32 = _split_tf32(wh), _tf32(wh)
     err3, err1 = (float((fwd(mm) - ref).abs().max())
-                  for mm in (_mm_3xtf32, lambda a, b: _tf32(a) @ _tf32(b)))
+                  for mm in (lambda a, b: _mm_3xtf32(a, b, wh_split),
+                             lambda a, b: _tf32(a) @ wh_tf32))
     assert 0 < err3 <= 1e-4
     assert err1 > 100 * err3
 

@@ -33,7 +33,9 @@ from uasr.config import FrontendConfig as JaxFrontendConfig
 from uasr.config import ModelConfig as JaxModelConfig
 from uasr.models import build_model as jax_build_model
 from uasr.serve import StreamingRecognizer as JaxRecognizer
-from uasr_torch.config import Config, CTCConfig, FrontendConfig, ModelConfig, TrainConfig
+from uasr_torch.config import (
+    Config, CTCConfig, FrontendConfig, GANConfig, ModelConfig, TrainConfig,
+)
 from uasr_torch.convert import flax_to_state_dict
 from uasr_torch.frontend import cuda_frontend
 from uasr_torch.frontend.features import compute_features, make_frontend_state
@@ -292,7 +294,9 @@ def test_rejections(weights):
          "unbounded context"),
         (dict(ctc=dataclasses.replace(cfg.ctc, lm_path="lm.arpa", use_beam=True)),
          NotImplementedError, "load_lm"),
-        (dict(train=TrainConfig(mode="gan")), NotImplementedError, "slice 4"),
+        (dict(train=TrainConfig(mode="gan"), gan=GANConfig(merge_repeats=True,
+                                                           segmenter="kmeans")),
+         ValueError, "segmenter"),
     ]
     for change, exc, match in bad:
         with pytest.raises(exc, match=match):

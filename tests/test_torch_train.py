@@ -222,7 +222,7 @@ def test_dropout_acts_in_train_mode_only():
 
 @pytest.mark.parametrize("change,match", [
     (dict(train=dict(mode="frame_ce")), "slice 3"),
-    (dict(train=dict(mode="eodm")), "slice 4"),
+    (dict(train=dict(mode="ssl")), "item 10"),
     (dict(train=dict(grad_accum=2)), "slice 5"),
     (dict(parallel=dict(model_parallel=2)), "slice 5"),
 ])
@@ -239,7 +239,7 @@ def test_feature_batches_raise_and_cuda_needs_a_card():
     trainer = train.CTCTrainer(_port_cfg(8), device="cpu")
     feats = (np.zeros((2, 10, 16), np.float32), np.array([10, 4]), np.zeros((2, 3), np.int32),
              np.array([3, 1]))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         trainer.train_step(trainer.init_state(), feats)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device does not raise")

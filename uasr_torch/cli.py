@@ -3,17 +3,21 @@
 (counterpart of ``uasr.cli``).
 
 ``--mode train`` runs ``train.mode: ctc`` through ``run_ctc_training``,
-resuming from the newest checkpoint under ``model_dir/ckpt``.
-``--mode infer`` restores the newest checkpoint (or the average of the
-newest ``train.average_checkpoints``, or ``best_ckpt`` with
-``train.restore_best``) and decodes the test split with
-``run_inference``. ``--device`` defaults to ``cuda`` and raises without a
-card; ``--device cpu`` runs the plain PyTorch versions of the kernels.
+``gan`` and ``gan+eodm`` through ``run_gan_training`` and ``eodm``
+through ``run_eodm_training`` (the unpaired text from ``data.text_path``,
+or the split's own transcripts), resuming from the newest checkpoint
+under ``model_dir/ckpt``. ``--mode infer`` restores the newest
+checkpoint (or the average of the newest ``train.average_checkpoints``,
+or ``best_ckpt`` with ``train.restore_best``) and decodes the test split
+with ``run_inference``; a GAN or EODM checkpoint decodes through the
+chain it trained on (``GeneratorInfer.logits_fn``). ``--device``
+defaults to ``cuda`` and raises without a card; ``--device cpu`` runs
+the plain PyTorch versions of the kernels.
 ``--set`` casts each value to the field's type and rejects unknown keys.
 
 Data: the synthetic corpora and materialised utterance lists. The
-streaming loader and feature caches are not ported yet; other training
-modes raise ``NotImplementedError`` naming their slice.
+streaming loader and feature caches are not ported yet; ``frame_ce`` and
+``ssl`` raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,16 +37,17 @@ def _load_source(cfg, split: str):
     from uasr_torch.vocab import load_vocab
 
     cache_dir = {"train": cfg.data.feature_cache, "dev": cfg.data.dev_feature_cache,
-                 "test": cfg.data.test_feature_cache}.get(split)
+                 "test": cfg.data.test_feature_cache,
+                 "labeled": cfg.data.labeled_feature_cache}.get(split)
     if cache_dir:
         raise NotImplementedError(
-            "data feature caches are not ported yet (ROADMAP.md Queue 1, slice 4: "
-            "unsupervised training and SSL)")
+            "data feature caches are not ported yet (ROADMAP.md Queue 1, item 10: SSL and "
+            "feature caches)")
     if cfg.data.synthetic:
         n_utts = cfg.data.synthetic_num_utts
         if split in ("dev", "test") and cfg.data.synthetic_dev_utts:
             n_utts = cfg.data.synthetic_dev_utts
-        return make_synthetic_dataset(
+        examples, vocab = make_synthetic_dataset(
             num_utts=n_utts,
             num_phones=(cfg.vocab_size - 2) if cfg.vocab_size else 16,
             seed={"train": 0, "dev": 1, "test": 2}.get(split, 0),
@@ -51,11 +56,16 @@ def _load_source(cfg, split: str):
             max_len=cfg.data.synthetic_max_len,
             style=cfg.data.synthetic_style,
         )
+        if split == "labeled":
+            # the semi-supervised mix-in's labeled split: a small paired
+            # subset of the train corpus (seed 0)
+            examples = examples[: cfg.data.synthetic_labeled_utts]
+        return examples, vocab
     vocab = load_vocab(cfg.data.vocab_path)
     path = getattr(cfg.data, f"{split}_list")
     if path is None:
         raise SystemExit(f"recipe has no data.{split}_list")
-    if cfg.data.streaming:
+    if cfg.data.streaming and split != "labeled":
         raise NotImplementedError(
             "data.streaming (the disk-backed loader, uasr/data/loader.py) is not ported yet "
             "(ROADMAP.md Queue 1); --set data.streaming=false reads the list into memory")
@@ -190,23 +200,79 @@ def _train_ctc(cfg, examples, device):
     return 0
 
 
+def _load_text(cfg, examples, vocab):
+    """The unpaired text corpus: ``data.text_path``, or the split's own
+    transcripts (synthetic and smoke runs)."""
+    from uasr_torch.data.dataset import TextDataset
+
+    if cfg.data.text_path:
+        return TextDataset.from_file(cfg.data.text_path, vocab).sequences
+    return [ids for _, ids in examples if ids]
+
+
+def _train_gan(cfg, examples, vocab, device, with_eodm=False):
+    from uasr_torch.train import run_gan_training
+
+    labeled = None
+    if cfg.gan.supervised_weight > 0 and (cfg.data.labeled_list or cfg.data.synthetic):
+        # the semi-supervised mix-in's own small paired stream, cycled; a
+        # labeled set smaller than a batch wraps around to fill it
+        ex, _ = _load_source(cfg, "labeled")
+        if not ex:
+            raise SystemExit("data.labeled_list is empty")
+        while len(ex) < cfg.data.batch_size:
+            ex = ex + ex
+        labeled = _batches(cfg, ex, num_epochs=None, seed=cfg.train.seed + 1)
+    run_gan_training(cfg, _batches(cfg, examples, seed=cfg.train.seed),
+                     _load_text(cfg, examples, vocab), with_eodm=with_eodm,
+                     dev_batches_fn=_dev_batches_fn(cfg), labeled_batches=labeled,
+                     device=device)
+    return 0
+
+
+def _train_eodm(cfg, examples, vocab, device):
+    from uasr_torch.train import run_eodm_training
+
+    run_eodm_training(cfg, _batches(cfg, examples, seed=cfg.train.seed),
+                      _load_text(cfg, examples, vocab), dev_batches_fn=_dev_batches_fn(cfg),
+                      device=device)
+    return 0
+
+
 def restore_trainer(cfg, device):
-    """(trainer, step): a ``CTCTrainer`` whose model holds the newest
+    """(trainer, step): a trainer whose ``model`` holds the newest
     checkpoint under ``model_dir/ckpt`` (the average of the newest
     ``train.average_checkpoints``, or ``best_ckpt`` with
-    ``train.restore_best``). Exits when there is none."""
+    ``train.restore_best``): a ``CTCTrainer``, or for ``train.mode`` gan,
+    gan+eodm and eodm a ``GeneratorInfer`` holding the generator (a
+    ``GANState``'s first tree). Exits when there is none."""
     from uasr_torch.checkpoint import CheckpointManager, restore_averaged
-    from uasr_torch.train import CTCTrainer
+    from uasr_torch.train import CTCTrainer, GANState, GeneratorInfer, TrainState, make_optimizer
 
     ckpt_dir = f"{cfg.model_dir}/ckpt"
     if cfg.train.restore_best:
         ckpt_dir = f"{cfg.model_dir}/best_ckpt"
         if not os.path.isdir(ckpt_dir):
             raise SystemExit(f"train.restore_best: no {ckpt_dir} — was the run trained with "
-                             "train.keep_best?")
+                             "train.keep_best (dev PER) or gan.select_lm_path (label-free "
+                             "selection)?")
     mgr = CheckpointManager(ckpt_dir, max_to_keep=cfg.train.keep_checkpoints)
-    trainer = CTCTrainer(cfg, device=device)
-    template = trainer.init_state()
+    mode = cfg.train.mode
+    if mode in ("gan", "gan+eodm", "eodm"):
+        from uasr_torch.models.models import build_discriminator
+
+        trainer = GeneratorInfer(cfg, device=device)
+        params = dict(trainer.gen.named_parameters())
+        opt = make_optimizer(cfg)
+        if mode == "eodm":
+            template = TrainState(0, params, opt.init(params))
+        else:
+            dp = dict(build_discriminator(cfg.model, cfg.dim_output,
+                                          device=trainer.device).named_parameters())
+            template = GANState(0, params, dp, opt.init(params), opt.init(dp))
+    else:
+        trainer = CTCTrainer(cfg, device=device)
+        template = trainer.init_state()
     if cfg.train.average_checkpoints > 1:
         restored = restore_averaged(mgr, template, cfg.train.average_checkpoints)
     else:
@@ -215,7 +281,7 @@ def restore_trainer(cfg, device):
     if restored is None:
         raise SystemExit(f"no checkpoint under {ckpt_dir}")
     state, step = restored
-    trainer.model.load_state_dict(state.params)
+    trainer.model.load_state_dict(state[1])
     return trainer, step
 
 
@@ -223,10 +289,11 @@ def _infer(cfg, examples, vocab, device):
     from uasr_torch.infer import run_inference
 
     trainer, step = restore_trainer(cfg, device)
+    logits_fn = getattr(trainer, "logits_fn", None)
     res = run_inference(
         cfg, trainer.model, trainer.frontend_state,
         _batches(cfg, examples, num_epochs=1, drop_remainder=False),
-        vocab=vocab, hyp_path=f"{cfg.model_dir}/hyp.txt", device=device,
+        vocab=vocab, hyp_path=f"{cfg.model_dir}/hyp.txt", device=device, logits_fn=logits_fn,
     )
     avg = (f" (avg of last {cfg.train.average_checkpoints})"
            if cfg.train.average_checkpoints > 1 else "")
@@ -257,16 +324,22 @@ def main(argv=None):
     if mode == "frame_ce":
         raise NotImplementedError(
             "train.mode frame_ce is not ported yet (ROADMAP.md Queue 1, slice 3: frame-CE)")
-    if mode != "ctc":
+    if mode == "ssl":
         raise NotImplementedError(
-            f"train.mode {mode!r} is not ported yet (ROADMAP.md Queue 1, slice 4: "
-            "unsupervised training and SSL)")
+            "train.mode ssl is not ported yet (ROADMAP.md Queue 1, item 10: SSL and feature "
+            "caches)")
+    if mode not in ("ctc", "gan", "gan+eodm", "eodm"):
+        raise SystemExit(f"unknown train.mode {mode!r}")
     examples, vocab = _load_source(cfg, "train" if args.mode == "train" else "test")
     if cfg.vocab_size is None:
         cfg = cfg.replace(vocab_size=len(vocab))
     print(f"device: {device}", file=sys.stderr)
     if args.mode == "infer":
         return _infer(cfg, examples, vocab, device)
+    if mode in ("gan", "gan+eodm"):
+        return _train_gan(cfg, examples, vocab, device, with_eodm="+eodm" in mode)
+    if mode == "eodm":
+        return _train_eodm(cfg, examples, vocab, device)
     return _train_ctc(cfg, examples, device)
 
 

@@ -2,8 +2,8 @@
 
 The port keeps its own copy of the dataclasses it needs so that it never
 imports the JAX package. Field names and defaults are those of
-``uasr/config.py``; the GAN, EODM and SSL sections are not part of the
-decode slice and are absent here, so a recipe that sets them fails to
+``uasr/config.py``. The SSL section is not ported yet (ROADMAP.md
+Queue 1, item 10) and is absent here, so a recipe that sets it fails to
 load with "unknown config keys".
 
 ``yaml`` is imported inside ``load_config`` only: the port's runtime
@@ -105,8 +105,8 @@ class FrontendConfig:
 
 @dataclass
 class ModelConfig:
-    """Encoder hyperparameters (same fields as ``uasr.config.ModelConfig``;
-    the port builds ``conv_bigru`` only so far)."""
+    """Encoder, generator and critic hyperparameters (same fields as
+    ``uasr.config.ModelConfig``)."""
 
     # conv_bigru | lc_bigru | uni_gru | cnn | classifier | transformer
     # | conformer
@@ -157,6 +157,50 @@ class CTCConfig:
     viterbi_blank_prob: float = 0.1
     viterbi_auto_rates: bool = True
     fold_timit: bool = False
+
+
+@dataclass
+class GANConfig:
+    """Adversarial objective of the unsupervised generator (same fields as
+    ``uasr.config.GANConfig``): the WGAN-GP critic or wav2vec-U's bce
+    objective, the optimizers, the output regularisers, label-free
+    selection, the semi-supervised CTC mix-in and the segmental front."""
+
+    objective: str = "wgan-gp"  # wgan-gp | bce
+    lambda_gp: float = 10.0
+    disc_steps: int = 3  # D updates per G update
+    g_lr: float = 1e-4
+    d_lr: float = 4e-4
+    real_label_smooth: float = 0.0  # smooth real one-hot text toward uniform
+    adam_b1: float = 0.5  # both GAN optimizers (b2 0.9)
+    use_lr_schedule: bool = False  # train.lr_schedule's shape at g_lr / d_lr
+    entropy_weight: float = 0.0  # push G's posteriors toward one-hot
+    diversity_weight: float = 0.0  # entropy of the batch-mean posterior
+    smoothness_weight: float = 0.0  # ||p_t - p_t+1||^2 on the pre-merge stream
+    select_lm_path: str | None = None  # lm.npz from `prepare lm`
+    select_kl_weight: float = 1.0
+    select_coverage_weight: float = 1.0
+    d_weight_decay: float = 0.0  # coupled L2 on the critic's gradient
+    supervised_weight: float = 0.0  # semi-supervised CTC mix-in
+    segmenter: str = "none"  # none | kmeans
+    kmeans_clusters: int = 64
+    centroids_path: str | None = None  # npz with 'centroids' [K, D]
+    max_segments: int = 0  # 0 -> frame count (no cap)
+    segment_mode_radius: int = 0  # >0: majority-vote de-flicker window
+    merge_repeats: bool = False  # collapse equal-argmax runs before D / EODM
+    segment_on_raw: bool = False  # quantize on the pre-CMVN feature view
+
+
+@dataclass
+class EODMConfig:
+    """Empirical output-distribution matching (same fields as
+    ``uasr.config.EODMConfig``)."""
+
+    ngram_orders: tuple = (2, 3)
+    top_k: int = 1000  # top-K n-grams per order
+    weight: float = 1.0
+    ngram_path: str | None = None  # precomputed table; else built from text
+    k_chunk: int = 1024  # bounds the loss's peak to B * Tp * k_chunk
 
 
 @dataclass
@@ -229,6 +273,8 @@ class Config:
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     ctc: CTCConfig = field(default_factory=CTCConfig)
+    gan: GANConfig = field(default_factory=GANConfig)
+    eodm: EODMConfig = field(default_factory=EODMConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)

@@ -23,7 +23,12 @@ top-level ``"params"`` key); nothing here imports jax. Layouts:
   [heads, dh, D]`` -> ``weight [D, heads * dh]``: the projections stay
   packed; the conformer's depthwise conv ``kernel [k, 1, H]`` ->
   ``[H, 1, k]``, its conv module's unnamed ``LayerNorm_0`` -> ``norm``, and
-  ``rel_bias{i}`` [heads, 2R+1] as it is.
+  ``rel_bias{i}`` [heads, 2R+1] as it is;
+- the classifier generator: ``context_conv`` (``[k, D, H]`` ->
+  ``[H, D, k]``), ``fc{i}``, the unnamed ``LayerNorm_{i}`` -> ``norm{i}``,
+  ``logits``;
+- the GAN critic (``critic_to_state_dict``, the second tree of a
+  ``GANState``): ``conv{i}`` (stride-2 1-D convs), ``fc``, ``score``.
 """
 
 from __future__ import annotations
@@ -145,10 +150,35 @@ def _front(p: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     return out
 
 
+def _classifier(p: dict, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    _conv1d(out, "context_conv", p["context_conv"])
+    for i in range(cfg.classifier_layers - 1):
+        _dense(out, f"fc{i}", p[f"fc{i}"])
+    for i in range(cfg.classifier_layers):
+        _norm(out, f"norm{i}", p[f"LayerNorm_{i}"])
+    _dense(out, "logits", p["logits"])
+    return out
+
+
+def critic_to_state_dict(params: dict, cfg: ModelConfig | Config) -> dict[str, torch.Tensor]:
+    """Map a flax ``PhoneDiscriminator`` tree (a ``GANState``'s
+    ``d_params``) onto ``uasr_torch.models.models.PhoneDiscriminator``."""
+    if isinstance(cfg, Config):
+        cfg = cfg.model
+    p = params.get("params", params)
+    out: dict[str, torch.Tensor] = {}
+    for i in range(cfg.disc_layers):
+        _conv1d(out, f"conv{i}", p[f"conv{i}"])
+    _dense(out, "fc", p["fc"])
+    _dense(out, "score", p["score"])
+    return out
+
+
 def flax_to_state_dict(params: dict, cfg: ModelConfig | Config) -> dict[str, torch.Tensor]:
     """Map a flax encoder tree (``conv_bigru``, ``cnn``, ``uni_gru``,
-    ``lc_bigru``, ``transformer``, ``conformer``) onto ``uasr_torch``
-    names."""
+    ``lc_bigru``, ``transformer``, ``conformer``, ``classifier``) onto
+    ``uasr_torch`` names."""
     if isinstance(cfg, Config):
         cfg = cfg.model
     p = params.get("params", params)
@@ -158,10 +188,10 @@ def flax_to_state_dict(params: dict, cfg: ModelConfig | Config) -> dict[str, tor
         return _recurrent(p, cfg)
     if cfg.encoder in ("transformer", "conformer"):
         return _attention(p, cfg)
+    if cfg.encoder == "classifier":
+        return _classifier(p, cfg)
     if cfg.encoder != "conv_bigru":
-        raise NotImplementedError(
-            f"weight bridge for encoder {cfg.encoder!r} is not ported yet (ROADMAP.md Queue 1: "
-            "the unsupervised GAN/EODM slice)")
+        raise ValueError(f"unknown encoder {cfg.encoder!r}")
     out = _front(p, cfg)
     for i in range(cfg.num_gru_layers):
         for k in ("wx", "wh", "bx", "bh"):

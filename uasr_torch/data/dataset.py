@@ -6,6 +6,9 @@ Copies of the JAX package's host-side data layer, which is numpy only:
   - ``batch_iterator``: shuffle -> bucket by audio length -> pad, so a
     step sees one of a small static set of shapes;
   - ``prefetch``: a background thread that keeps batches ready;
+  - ``TextDataset`` and ``text_batch_iterator``: the unpaired token-id
+    text of the GAN's real side and EODM's statistics, batched with the
+    JAX package's numpy order (the same batches for the same seed);
   - the synthetic "tone language" corpus (phone k is a pure tone) and its
     formant-style variant, for tests and smoke runs without downloads.
 
@@ -33,6 +36,11 @@ class Batch(NamedTuple):
     label_lengths: np.ndarray  # [B] int32
 
 
+class TextBatch(NamedTuple):
+    ids: np.ndarray  # [B, U] int32
+    lengths: np.ndarray  # [B] int32
+
+
 @dataclass
 class ASRDataset:
     """Utterance list + vocab -> (audio, ids) examples."""
@@ -55,6 +63,22 @@ class ASRDataset:
             raise ValueError(f"{u.wav_path}: rate {sr} != {self.sample_rate}")
         return audio, self.vocab.encode(u.tokens)
 
+
+@dataclass
+class TextDataset:
+    """Unpaired token-id sequences (GAN real side / EODM statistics)."""
+
+    sequences: list[list[int]]
+
+    @classmethod
+    def from_file(cls, path: str, vocab: Vocab):
+        seqs = []
+        with open(path) as f:
+            for ln in f:
+                toks = ln.split()
+                if toks:
+                    seqs.append(vocab.encode(toks))
+        return cls(seqs)
 
 
 # ------------------------------------------------------------- synthetic
@@ -310,6 +334,27 @@ def _make_batch(exs, audio_len: int, max_label_len: int) -> Batch:
         labels[i, :u] = ids[:u]
         l_len[i] = u
     return Batch(audio, a_len, labels, l_len)
+
+
+def text_batch_iterator(sequences: Sequence[Sequence[int]], batch_size: int, max_len: int,
+                        seed: int = 0, num_epochs: int | None = None) -> Iterator[TextBatch]:
+    """Shuffled full batches of text, padded (and clipped) to ``max_len``;
+    the last partial batch of each epoch is dropped."""
+    rng = np.random.RandomState(seed)
+    epoch = 0
+    while num_epochs is None or epoch < num_epochs:
+        order = np.arange(len(sequences))
+        rng.shuffle(order)
+        for s in range(0, len(order) - batch_size + 1, batch_size):
+            idxs = order[s : s + batch_size]
+            ids = np.zeros((batch_size, max_len), np.int32)
+            lens = np.zeros((batch_size,), np.int32)
+            for j, i in enumerate(idxs):
+                seq = list(sequences[i])[:max_len]
+                ids[j, : len(seq)] = seq
+                lens[j] = len(seq)
+            yield TextBatch(ids, lens)
+        epoch += 1
 
 
 def prefetch(it: Iterator, depth: int = 2) -> Iterator:

@@ -4,7 +4,10 @@ Decodes batches on one device (greedy or exact prefix beam search) and
 reports PER/CER plus decode RTF (decode wall time / audio seconds).
 On CUDA the frontend, the BiGRU recurrence and the beam recursion go
 through kernels K1, K2 and K4 when ``frontend.use_pallas``,
-``model.gru_pallas`` and ``ctc.use_beam`` are set.
+``model.gru_pallas`` and ``ctc.use_beam`` are set. A GAN or EODM
+generator decodes through ``logits_fn`` (``train.GeneratorInfer``: the
+frontend, segmentation, classifier and repeat merge it trained on), which
+replaces the frontend and the model.
 """
 
 from __future__ import annotations
@@ -28,10 +31,13 @@ from uasr_torch.vocab import Vocab
 LAST_BEAM_IMPL: str | None = None
 
 
-def _decode_batch(cfg: Config, model, fstate: FrontendState, db: list[torch.Tensor]):
+def _decode_batch(cfg: Config, model, fstate: FrontendState, db: list[torch.Tensor],
+                  logits_fn=None):
     global LAST_BEAM_IMPL
     audio, alen, labels, llen = db
-    if audio.ndim == 3:  # precomputed features: frontend bypassed
+    if logits_fn is not None:
+        logits, out_len = logits_fn(audio, alen)
+    elif audio.ndim == 3:  # precomputed features: frontend bypassed
         logits, out_len = model(audio, alen)
     else:
         feats, flen = compute_features(audio, alen, fstate, cfg.frontend)
@@ -62,13 +68,11 @@ def run_inference(
 ) -> dict:
     """Decode + score. Returns {"per", "rtf", "audio_seconds", "errors",
     "ref_tokens"}. Runs on ``device`` (default CUDA; raises when no card
-    is present rather than running on the CPU)."""
+    is present rather than running on the CPU). ``logits_fn(audio,
+    lengths) -> (logits, lengths)``, when given, computes the logits in
+    place of ``model`` over ``compute_features``."""
     global LAST_BEAM_IMPL
     LAST_BEAM_IMPL = None
-    if logits_fn is not None:
-        raise NotImplementedError(
-            "logits_fn (GAN/EODM generator decode) is not ported yet "
-            "(ROADMAP.md Queue 1, unsupervised slice)")
     if cfg.ctc.use_viterbi:
         raise NotImplementedError(
             "ctc.use_viterbi (HMM Viterbi decode, ops/viterbi.py) is not ported yet "
@@ -95,7 +99,7 @@ def run_inference(
             sync(device)
             t0 = time.perf_counter()
             with torch.inference_mode():
-                hyps, hyp_len, e, t = _decode_batch(cfg, model, fstate, db)
+                hyps, hyp_len, e, t = _decode_batch(cfg, model, fstate, db, logits_fn)
             sync(device)
             wall += time.perf_counter() - t0
             hyps, hyp_len = hyps.cpu().numpy(), hyp_len.cpu().numpy()

@@ -31,6 +31,16 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> t
         return t.copy_(torch.randn(t.shape, generator=generator) / math.sqrt(fan_in))
 
 
+def lecun_truncated_normal_(t: torch.Tensor, fan_in: int,
+                            generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel init (``lecun_normal``: a normal truncated at
+    two standard deviations, its scale corrected to variance 1 / fan_in)."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                           generator=generator)
+
+
 def orthogonal_rows(rows: int, cols: int, generator: torch.Generator) -> torch.Tensor:
     """[rows, cols] matrix with orthonormal rows (rows <= cols) or columns."""
     a = torch.randn(max(rows, cols), min(rows, cols), generator=generator, dtype=torch.float64)

@@ -10,10 +10,14 @@
   carries;
 - ``TransformerEncoder`` and ``ConformerEncoder``: the attention encoders
   (multi-head self-attention through kernels K6 and K6-bwd with
-  ``attn_pallas``).
-
-``build_model`` raises ``NotImplementedError`` for ``classifier`` until
-its slice lands (ROADMAP.md Queue 1).
+  ``attn_pallas``);
+- ``PhoneClassifier``: the unsupervised generator (context conv + MLP,
+  f32 dense logits), built by ``build_model("classifier")``; it and the
+  critic draw their kernels as flax's default init does (truncated lecun
+  normal), the other encoders from an untruncated normal;
+- ``PhoneDiscriminator``: the GAN critic over phone distributions,
+  always f32 (a bf16 critic overflows under the gradient penalty's
+  double backward), built by ``build_discriminator``.
 
 All encoders take (features [B, T, D], lengths [B]) and return
 (logits [B, T', V], lengths [B]). ``model.dropout`` acts in ``train()``
@@ -36,7 +40,7 @@ from uasr_torch import resolve_device
 from uasr_torch.config import ModelConfig
 from uasr_torch.models.layers import (
     BiGRU, Conv1d, ConvBlock, Dense, GRULayer, LayerNorm, MultiHeadAttention, conv_out_length,
-    lecun_normal_, same_padding,
+    lecun_normal_, lecun_truncated_normal_, same_padding,
 )
 
 
@@ -596,6 +600,92 @@ class ConformerEncoder(_AttentionBase):
         return logits * _length_mask(logits, lengths), lengths
 
 
+def _flax_init(module: nn.Module, generator: torch.Generator) -> None:
+    """Initialise ``module``'s dense and conv layers as flax does by
+    default (truncated lecun normal kernels, zero biases) and its
+    LayerNorms to the identity."""
+    for mod in module.children():
+        if isinstance(mod, (Dense, Conv1d)):
+            lecun_truncated_normal_(mod.weight, mod.weight[0].numel(), generator)
+            nn.init.zeros_(mod.bias)
+        else:
+            mod.reset_parameters(generator)
+
+
+class PhoneClassifier(nn.Module):
+    """Per-frame phone posterior model (GAN generator / EODM model): a
+    "SAME" conv of ``2 * classifier_context + 1`` frames, then
+    ``classifier_layers - 1`` dense layers, LayerNorm (eps 1e-6) + ReLU
+    after each, and f32 dense logits, masked past each length. ``norm{i}``
+    follow flax's ``LayerNorm_{i}``."""
+
+    def __init__(self, cfg: ModelConfig, vocab_size: int, input_dim: int):
+        super().__init__()
+        if cfg.int8_compute:
+            raise NotImplementedError(
+                "model.int8_compute (int8 tensor-core GEMMs) is not ported yet "
+                "(ROADMAP.md Queue 1, item 13: quantize and export)")
+        self.cfg = cfg
+        H = cfg.classifier_hidden
+        self.context_conv = Conv1d(input_dim, H, 2 * cfg.classifier_context + 1)
+        for i in range(cfg.classifier_layers - 1):
+            self.add_module(f"fc{i}", Dense(H, H))
+        for i in range(cfg.classifier_layers):
+            self.add_module(f"norm{i}", LayerNorm(H))
+        self.logits = Dense(H, vocab_size)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _flax_init(self, generator)
+
+    def forward(self, feats: torch.Tensor, lengths: torch.Tensor):
+        dt = _dtype(self.cfg)
+        x = feats.to(dt) * _length_mask(feats, lengths)
+        x = F.relu(self.norm0(self.context_conv(x, dt)))
+        for i in range(self.cfg.classifier_layers - 1):
+            x = F.relu(getattr(self, f"norm{i + 1}")(getattr(self, f"fc{i}")(x, dt)))
+        logits = self.logits(x, torch.float32)
+        return logits * _length_mask(logits, lengths), lengths
+
+
+class PhoneDiscriminator(nn.Module):
+    """GAN critic over phone-distribution sequences [B, T, V]: stacked
+    stride-2 "SAME" convs (XLA's split: the high side gets the larger
+    half) with leaky ReLU 0.2, lengths shrinking to min((n + 1) // 2, T')
+    and the frames past them re-masked after each conv, then masked mean
+    and max pooling (-1e30 where masked), a dense layer, leaky ReLU and a
+    scalar score. No normalisation (the gradient penalty is defined on
+    the raw critic). Always f32, whatever ``model.dtype`` says."""
+
+    def __init__(self, cfg: ModelConfig, vocab_size: int):
+        super().__init__()
+        self.cfg = cfg
+        C = cfg.disc_channels
+        for i in range(cfg.disc_layers):
+            self.add_module(f"conv{i}", Conv1d(vocab_size if i == 0 else C, C, cfg.disc_kernel,
+                                               stride=2))
+        self.fc = Dense(2 * C, C)
+        self.score = Dense(C, 1)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        _flax_init(self, generator)
+
+    def forward(self, probs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        f32 = torch.float32
+        x = probs.to(f32) * _length_mask(probs, lengths)
+        for i in range(self.cfg.disc_layers):
+            x = F.leaky_relu(getattr(self, f"conv{i}")(x, f32), 0.2)
+            lengths = torch.clamp((lengths + 1) // 2, max=x.shape[1])
+            # the conv bias makes frames past the length nonzero, and the
+            # next strided conv would mix them into valid frames
+            x = x * _length_mask(x, lengths)
+        mask = _length_mask(x, lengths)
+        n = torch.clamp(lengths, min=1).to(f32)[:, None]
+        mean_pool = x.sum(1) / n
+        max_pool = torch.where(mask, x, torch.full_like(x, -1e30)).amax(1)
+        h = F.leaky_relu(self.fc(torch.cat([mean_pool, max_pool], -1), f32), 0.2)
+        return self.score(h, f32)[:, 0]
+
+
 def encoder_time_subsample(cfg: ModelConfig) -> int:
     """Total time-axis subsampling factor of an encoder (logits frames
     per input feature frame)."""
@@ -618,14 +708,9 @@ def build_model(cfg: ModelConfig, vocab_size: int, input_dim: int,
             "model.sequence_shard applies to the attention encoders "
             f"(transformer/conformer), not {cfg.encoder!r}"
         )
-    if cfg.encoder == "classifier":
-        raise NotImplementedError(
-            "encoder 'classifier' is not ported yet (ROADMAP.md Queue 1: "
-            "the unsupervised GAN/EODM slice)"
-        )
     families = {"conv_bigru": ConvBiGRUEncoder, "cnn": CNNEncoder, "uni_gru": UniGRUEncoder,
                 "lc_bigru": LCBiGRUEncoder, "transformer": TransformerEncoder,
-                "conformer": ConformerEncoder}
+                "conformer": ConformerEncoder, "classifier": PhoneClassifier}
     if cfg.encoder not in families:
         raise ValueError(f"unknown encoder {cfg.encoder!r}")
     device = resolve_device(device)
@@ -633,3 +718,15 @@ def build_model(cfg: ModelConfig, vocab_size: int, input_dim: int,
     model.reset_parameters(generator if generator is not None
                            else torch.Generator().manual_seed(0))
     return model.to(device).eval()
+
+
+def build_discriminator(cfg: ModelConfig, vocab_size: int,
+                        generator: torch.Generator | None = None,
+                        device="cuda") -> PhoneDiscriminator:
+    """Build and initialise the GAN critic on ``device``, drawn on the CPU
+    from ``generator`` (a fresh generator seeded 0 if None)."""
+    device = resolve_device(device)
+    disc = PhoneDiscriminator(cfg, vocab_size)
+    disc.reset_parameters(generator if generator is not None
+                          else torch.Generator().manual_seed(0))
+    return disc.to(device).eval()

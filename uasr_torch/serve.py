@@ -43,9 +43,17 @@ beam decode. ``step()`` still emits greedy partials.
 not exact, equal to the offline decode while the window covers the whole
 utterance.
 
-Not ported, each raising ``NotImplementedError`` that names its slice:
-the merged-stream collapse of GAN checkpoints and the beam with
-``ctc.lm_path`` (greedy streaming ignores the LM, as the JAX package's).
+A GAN or EODM checkpoint trained with ``gan.merge_repeats`` (the
+``classifier`` generator, window replay) streams with the merged-stream
+collapse: greedy decode of the merged stream equals a repeat collapse
+over the raw frame argmaxes that drops blanks without resetting the
+carried id (a run's pooled posterior keeps the run's argmax), so blank-
+separated repeats emit once. It is greedy only, and refuses
+``gan.segmenter=kmeans`` (segment pooling needs the whole utterance).
+
+Not ported, raising ``NotImplementedError`` that names its slice: the
+beam with ``ctc.lm_path`` (greedy streaming ignores the LM, as the JAX
+package's).
 
 The dynamic-batching primitives (``masked_step``, ``masked_step_and_finish``,
 ``finish_and_reset``, ``reset_slots``, ``set_valid_samples``) step,
@@ -220,10 +228,21 @@ class StreamingRecognizer:
         self.cfg = cfg
         self.model = model.to(self.device).eval()
         self.fe = frontend_state_from_config(cfg.frontend, device=self.device)
-        if cfg.train.mode in ("gan", "eodm", "gan+eodm"):
-            raise NotImplementedError(
-                "streaming a GAN/EODM checkpoint (the merged-stream collapse) is not ported "
-                "yet (ROADMAP.md Queue 1, slice 4: unsupervised training)")
+        # merged-stream checkpoints (gan.merge_repeats): greedy decode of the
+        # merged stream == a blank-dropping repeat collapse of the raw frame
+        # argmaxes, so only the emission rule changes
+        self.collapse = "ctc"
+        if cfg.train.mode in ("gan", "eodm", "gan+eodm") and cfg.gan.merge_repeats:
+            if cfg.gan.segmenter != "none":
+                raise ValueError(
+                    "streaming serving supports merge_repeats but not gan.segmenter=kmeans "
+                    "(segment pooling needs the whole utterance)")
+            if cfg.ctc.use_beam:
+                raise ValueError(
+                    "streaming beam search runs on the raw frame stream; a merge_repeats "
+                    "checkpoint's train-eval representation is the merged stream — use "
+                    "greedy streaming (exact) or offline beam decode")
+            self.collapse = "merge"
         if cfg.ctc.use_beam and cfg.ctc.lm_path:
             raise NotImplementedError(
                 "ctc.lm_path needs ops/lm.py::load_lm, not ported yet (ROADMAP.md Queue 1, "
@@ -484,9 +503,25 @@ class StreamingRecognizer:
         return logits.gather(1, idx[..., None].expand(-1, -1, logits.shape[-1]))
 
     def _emit(self, ids, prev_id, active):
-        """CTC greedy collapse with the carried previous id (a blank resets
-        the repeat carry): (ids [B, K] left-compacted, -1 padded, counts,
-        new prev)."""
+        """Greedy collapse with the carried previous id: (ids [B, K]
+        left-compacted, -1 padded, counts, new prev). ``collapse="ctc"``: a
+        blank resets the repeat carry and prev is the last raw argmax.
+        ``collapse="merge"``: blanks are dropped without resetting it, so
+        blank-separated repeats emit once, and prev is the last non-blank
+        id."""
+        if self.collapse == "merge":
+            B, K = ids.shape
+            ids = torch.where(active, ids, self.blank)
+            arr = torch.cat([prev_id[:, None], ids], 1)
+            slot = torch.arange(K + 1, device=ids.device)[None, :].expand(B, -1)
+            # index of the last non-blank up to each slot (the carry included)
+            lastnb = torch.cummax(torch.where(arr != self.blank, slot, -1), 1).values
+            prev_nb = torch.where(lastnb[:, :-1] >= 0,
+                                  arr.gather(1, lastnb[:, :-1].clamp(min=0)), self.blank)
+            keep = (ids != self.blank) & (ids != prev_nb)
+            last = lastnb[:, -1:]
+            new_prev = torch.where(last >= 0, arr.gather(1, last.clamp(min=0)), self.blank)[:, 0]
+            return compact_left(ids, keep, -1), keep.sum(1), new_prev
         prev_shift = torch.cat([prev_id[:, None], ids[:, :-1]], 1)
         keep = (ids != prev_shift) & (ids != self.blank) & active
         new_prev = torch.where(active[:, 0], ids[:, -1], prev_id)

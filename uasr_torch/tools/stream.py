@@ -1,8 +1,10 @@
 """Online streaming transcription from the command line (counterpart of
 ``uasr.tools.stream``).
 
-Restores a trained CTC checkpoint and transcribes a list of utterances as
-an online service would: audio fed in fixed chunks, tokens emitted
+Restores a trained CTC checkpoint (or a GAN / EODM generator's: the
+``classifier``, with the merged-stream collapse under
+``gan.merge_repeats``) and transcribes a list of utterances as an online
+service would: audio fed in fixed chunks, tokens emitted
 incrementally, the final transcript equal to the offline ``--mode infer``
 decode:
 
@@ -10,9 +12,10 @@ decode:
       [--chunk-frames 64] [--batch 8] [--verbose] [--device cuda|cpu]
 
 Requires ``frontend.cmvn: streaming`` and a streamable encoder: ``cnn``
-(window replay, one chunk of latency), ``uni_gru`` (carried recurrent
-state, no right-context latency) or ``lc_bigru`` (carried state,
-``num_gru_layers`` chunks of latency, chunks of ``lc_chunk`` patches).
+or ``classifier`` (window replay, one chunk of latency), ``uni_gru``
+(carried recurrent state, no right-context latency) or ``lc_bigru``
+(carried state, ``num_gru_layers`` chunks of latency, chunks of
+``lc_chunk`` patches).
 Mixed-length batches are safe: per-utterance lengths go to the
 recognizer, so decoding freezes at each utterance's own end. With
 ``--verbose`` the partial transcript is printed after every chunk; the
