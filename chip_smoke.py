@@ -94,7 +94,23 @@ and prints no result line):
    greedy and K4 beam decode, and that checkpoint streamed with the
    merged-stream collapse (K7), equal to the offline merged greedy decode;
    phase 2 also prints K1's and K7's distance from the same formula in f64;
-13. one JSON line listing every ported kernel with its check, times and
+13. training and decode straight from utterance lists on disk: a seeded
+   corpus of 256 PCM16 wavs (64 each in the 4, 8, 12 and 16 s buckets,
+   ~82 MB) and a 64-utterance test list written to a temporary directory
+   with ``prepare lists`` (lists and ``.lens`` sidecars); the streaming
+   loader's audio-s/s over the corpus at ``loader_threads`` 0 (one thread
+   per core) and 8; ``uasr_torch.cli.main`` in process, with
+   ``data.streaming`` at its default: configs/librispeech_ctc_bigru.yaml
+   at full width for 8 steps (each step's wall, its wait on the
+   prefetched stream and its launches: 1 K1, 3 K2, 3 K2-bwd chains and 3
+   of their coefficient kernels, 1 K3, 1 K3-bwd), the process's RSS
+   growth, then ``--mode infer`` with beam 16 over the test list (1 K1, 3
+   K2 and 1 K4 per request) and the native edit distance against the
+   torch one on the card on each request's hypotheses;
+   configs/timit_ctc_mini.yaml from a 64-utterance list of TIMIT's 61
+   phone names, 4 steps, then ``--mode infer`` with its finite
+   ``PER_folded``;
+14. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -104,6 +120,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -2291,6 +2308,285 @@ def phase_unsup(torch, np) -> None:
         phase_unsup_stream(torch, np, demo)
 
 
+# the data phase: DATA_PER_BUCKET utterances of random audio in each of the
+# recipe's buckets (lengths in (hi - 0.25, hi] s), DATA_TEST_UTTS more as the
+# test list, DATA_STEPS training steps; the TIMIT run's list and steps
+DATA_PER_BUCKET, DATA_TEST_UTTS, DATA_STEPS = 64, 64, 8
+TIMIT_UTTS, TIMIT_STEPS = 64, 4
+# TIMIT's 61 phones: the 23 that fold (uasr_torch.vocab.TIMIT_61_TO_39's
+# keys) and these 38 that fold to themselves
+TIMIT_SELF = ("aa ae ah aw ay b ch d dh dx eh er ey f g hh ih iy jh k l m n ng ow oy p r "
+              "s sh t th uh uw v w y z").split()
+
+
+def rss_bytes() -> int:
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def write_list(np, root: str, name: str, utts, prepare) -> str:
+    """``utts``: (audio, tokens) pairs. Writes the wavs, wav.scp and text,
+    then ``prepare lists`` (the list and its .lens sidecar); returns the
+    list's path."""
+    from uasr_torch.data.io import write_wav
+
+    scp, text = [], []
+    for i, (audio, toks) in enumerate(utts):
+        utt = f"{name}{i:04d}"
+        path = os.path.join(root, "wav", f"{utt}.wav")
+        write_wav(path, audio, 16000)
+        scp.append(f"{utt} {path}\n")
+        text.append(f"{utt} {' '.join(toks)}\n")
+    for fname, lines in ((f"{name}.scp", scp), (f"{name}.text", text)):
+        with open(os.path.join(root, fname), "w") as f:
+            f.writelines(lines)
+    out = os.path.join(root, f"{name}.tsv")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = prepare.main(["lists", "--wav-scp", os.path.join(root, f"{name}.scp"), "--text",
+                           os.path.join(root, f"{name}.text"), "--out", out])
+    check(rc == 0 and os.path.exists(out + ".lens"), f"prepare lists {name}")
+    return out
+
+
+def random_utts(np, seed: int, seconds, n_per_bucket: int, vocab, cps: float = 14):
+    """n_per_bucket utterances of 0.1-sigma noise per bucket, lengths in
+    (hi - 0.25, hi] s, ``cps`` random characters per second."""
+    rng = np.random.RandomState(seed)
+    chars = vocab.tokens[1:29]  # the letters, the apostrophe and <space>
+    utts = []
+    for hi in seconds:
+        for _ in range(n_per_bucket):
+            n = int(rng.uniform(hi - 0.25, hi) * 16000)
+            toks = [chars[j] for j in rng.randint(0, len(chars), int(n / 16000 * cps))]
+            utts.append(((0.1 * rng.randn(n)).astype(np.float32), toks))
+    return utts
+
+
+def run_cli(torch, argv: list) -> str:
+    """``uasr_torch.cli.main`` in process; its standard output."""
+    from uasr_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli {argv[:4]}: exit {rc}")
+    return buf.getvalue()
+
+
+@contextlib.contextmanager
+def traced_data_path(torch, record: dict):
+    """Wrap the training step, the CLI's batch stream and the decode of a
+    request so that each step's wall (ending in a synchronise), its
+    launches and the RSS after it, the time each ``next()`` of the
+    prefetched stream waited, and each request's launches and its
+    references and hypotheses are recorded."""
+    from uasr_torch import cli, infer, train
+
+    orig_step, orig_batches, orig_decode = (train.CTCTrainer.train_step, cli._batches,
+                                            infer._decode_batch)
+
+    def step(self, state, batch):
+        before = read_launches()
+        t0 = time.perf_counter()
+        out = orig_step(self, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after = read_launches()
+        record["steps"].append(dict(wall=wall, shape=tuple(batch[0].shape),
+                                    launches={k: after[k] - before[k] for k in after},
+                                    rss=rss_bytes()))
+        return out
+
+    def batches(*a, **k):
+        it = orig_batches(*a, **k)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                record["waits"].append(time.perf_counter() - t0)
+                yield b
+        finally:
+            it.close()
+
+    def decode(cfg, model, fstate, db, logits_fn=None):
+        before = read_launches()
+        out = orig_decode(cfg, model, fstate, db, logits_fn)
+        after = read_launches()
+        record["requests"].append(dict(launches={k: after[k] - before[k] for k in after},
+                                       refs=db[2].clone(), ref_len=db[3].clone(),
+                                       hyps=out[0].clone(), hyp_len=out[1].clone()))
+        return out
+
+    train.CTCTrainer.train_step, cli._batches, infer._decode_batch = step, batches, decode
+    try:
+        yield
+    finally:
+        train.CTCTrainer.train_step, cli._batches, infer._decode_batch = (
+            orig_step, orig_batches, orig_decode)
+
+
+def loader_rate(np, lst: str, vocab, cfg, threads: int) -> tuple[float, float]:
+    """(audio-s/s, seconds) of one epoch of ``StreamingASRDataset.batches``
+    over ``lst`` with ``threads`` decode threads, no training."""
+    from uasr_torch.data.loader import StreamingASRDataset
+
+    sr = cfg.frontend.sample_rate
+    ds = StreamingASRDataset.from_file(lst, vocab, sr)
+    t0 = time.perf_counter()
+    secs = 0.0
+    for b in ds.batches(batch_size=cfg.data.batch_size,
+                        max_audio_samples=int(cfg.data.max_audio_seconds * sr),
+                        max_label_len=cfg.data.max_label_len, num_epochs=1,
+                        drop_remainder=False, decode_threads=threads,
+                        bucket_boundaries=[int(s * sr) for s in cfg.data.bucket_boundaries]):
+        secs += float(np.sum(b.audio_lengths)) / sr
+    wall = time.perf_counter() - t0
+    return secs / wall, wall
+
+
+def phase_data(torch, np, root: str) -> None:
+    """Training and decode from utterance lists on disk through the CLI,
+    the streaming loader's rate, and a TIMIT-style list's folded PER."""
+    import re
+
+    from uasr_torch.native import batch_edit_distance_native
+    from uasr_torch.ops.edit_distance import batch_edit_distance
+    from uasr_torch.tools import prepare
+    from uasr_torch.vocab import TIMIT_61_TO_39
+
+    t_phase = time.perf_counter()
+    vocab = char_vocab()
+    cfg = recipe_config(len(vocab))
+    with open(os.path.join(root, "chars.txt"), "w") as f:
+        f.write("\n".join(vocab.tokens) + "\n")
+    t0 = time.perf_counter()
+    train_lst = write_list(np, root, "train", random_utts(
+        np, SEED, cfg.data.bucket_boundaries, DATA_PER_BUCKET, vocab), prepare)
+    test_lst = write_list(np, root, "test", random_utts(
+        np, SEED + 1, cfg.data.bucket_boundaries, DATA_TEST_UTTS // 4, vocab), prepare)
+    corpus = sum(os.path.getsize(os.path.join(root, "wav", f"train{i:04d}.wav"))
+                 for i in range(4 * DATA_PER_BUCKET))
+    print(f"data: {4 * DATA_PER_BUCKET} PCM16 wavs ({corpus / 1e6:.1f} MB, buckets "
+          f"{cfg.data.bucket_boundaries} s) and {DATA_TEST_UTTS} test wavs written with "
+          f"prepare lists in {time.perf_counter() - t0:.1f} s; card {card_line()}, "
+          f"os.cpu_count() {os.cpu_count()}", flush=True)
+
+    loader_rate(np, train_lst, vocab, cfg, 8)  # warm-up pass: page cache and the native build
+    for threads in (0, 8):
+        rate, wall = loader_rate(np, train_lst, vocab, cfg, threads)
+        print(f"  loader alone, loader_threads {threads}: {rate:.1f} audio-s/s (one epoch, "
+              f"{wall * 1e3:.1f} ms)", flush=True)
+
+    libri = os.path.join(REPO, "configs", "librispeech_ctc_bigru.yaml")
+    model_dir = os.path.join(root, "libri")
+    lists = ["--set", f"data.train_list={train_lst}", "--set", f"data.dev_list={test_lst}",
+             "--set", f"data.test_list={test_lst}", "--set",
+             f"data.vocab_path={os.path.join(root, 'chars.txt')}", "--set",
+             f"model_dir={model_dir}"]
+    record = dict(steps=[], waits=[], requests=[])
+    rss0 = rss_bytes()
+    reset_launches()
+    t0 = time.perf_counter()
+    with traced_data_path(torch, record):
+        out = run_cli(torch, ["-c", libri, "--mode", "train", *lists, "--set",
+                              f"train.total_steps={DATA_STEPS}", "--set", "train.log_every=1"])
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    rss1 = rss_bytes()
+    steps = record["steps"]
+    check(len(steps) == DATA_STEPS, f"{len(steps)} training steps ran")
+    losses = [float(x) for x in re.findall(r"\[train\] step \d+: loss=([0-9.e+-]+|nan|inf)", out)]
+    print(f"  librispeech_ctc_bigru from disk through the CLI ({cfg.model.dtype}, H="
+          f"{cfg.model.hidden_size} x{cfg.model.num_gru_layers}, B={cfg.data.batch_size}): "
+          f"{DATA_STEPS} steps in {wall:.2f} s (start-up included); losses {losses}", flush=True)
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1": 1, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3, "K3": 1, "K3-bwd": 1})
+    for i, (st, wait) in enumerate(zip(steps, record["waits"])):
+        print(f"  step {i + 1} {st['shape'][1] / 16000:5.2f} s bucket: wall {st['wall'] * 1e3:.2f} "
+              f"ms, waited {wait * 1e3:.2f} ms on the stream, RSS {st['rss'] / 1e6:.1f} MB",
+              flush=True)
+        check(st["launches"] == want, f"step {i + 1}: launches {st['launches']}, expected {want}")
+    check(len(losses) == DATA_STEPS and all(np.isfinite(losses)), f"losses {losses}")
+    check(counts == {k: v * DATA_STEPS for k, v in want.items()}, f"train launches {counts}")
+    waits = record["waits"][: len(steps)]
+    walls = [st["wall"] for st in steps]
+    # growth after the first step, whose set-up (in a fresh process the CUDA
+    # context and libraries) does not depend on the data
+    base, peak = steps[0]["rss"], max(st["rss"] for st in steps[1:])
+    print(f"  steps 2-{DATA_STEPS}: wall mean {np.mean(walls[1:]) * 1e3:.2f} ms, waited on the "
+          f"stream {np.sum(waits[1:]) * 1e3:.2f} ms of {np.sum(walls[1:]) * 1e3:.2f} ms stepping "
+          f"(first next() {waits[0] * 1e3:.2f} ms); RSS growth over the run "
+          f"{(rss1 - rss0) / 1e6:.1f} MB, after the first step {(rss1 - base) / 1e6:.1f} MB "
+          f"(peak {(peak - base) / 1e6:.1f} MB), corpus {corpus / 1e6:.1f} MB; card "
+          f"{card_line()}", flush=True)
+    check(rss1 - base < corpus, f"RSS grew {(rss1 - base) / 1e6:.1f} MB after the first step, "
+          f"more than the corpus ({corpus / 1e6:.1f} MB)")
+
+    record = dict(steps=[], waits=[], requests=[])
+    reset_launches()
+    t0 = time.perf_counter()
+    with traced_data_path(torch, record):
+        out = run_cli(torch, ["-c", libri, "--mode", "infer", *lists])
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    reqs = record["requests"]
+    print(f"  --mode infer (beam {cfg.ctc.beam_width}) from disk, {len(reqs)} requests in "
+          f"{wall:.2f} s: {out.strip()}; launches {counts}", flush=True)
+    check(out.startswith(f"step {DATA_STEPS}: PER="), f"infer printed {out!r}")
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1": 1, "K2": 3, "K4": 1})
+    for i, r in enumerate(reqs):
+        check(r["launches"] == want, f"request {i}: launches {r['launches']}, expected {want}")
+    check(len(reqs) > 0 and counts == {k: v * len(reqs) for k, v in want.items()},
+          f"infer launches {counts}")
+    for i, r in enumerate(reqs):
+        plain = batch_edit_distance(r["refs"], r["ref_len"], r["hyps"], r["hyp_len"])
+        t0 = time.perf_counter()
+        nat = batch_edit_distance_native(*(x.cpu().numpy() for x in
+                                           (r["refs"], r["ref_len"], r["hyps"], r["hyp_len"])))
+        ms = (time.perf_counter() - t0) * 1e3
+        check(plain.is_cuda and np.array_equal(plain.cpu().numpy(), nat),
+              f"request {i}: native edit distance {nat} != torch on the card {plain}")
+        print(f"  request {i}: native edit distance == torch batch_edit_distance on the card "
+              f"for {len(nat)} pairs ({int(nat.sum())} edits, {ms:.2f} ms on the host)",
+              flush=True)
+
+    phones = sorted(TIMIT_61_TO_39) + TIMIT_SELF
+    check(len(set(phones)) == 61, f"{len(set(phones))} TIMIT phones")
+    with open(os.path.join(root, "phones61.txt"), "w") as f:
+        f.write("\n".join(phones) + "\n")
+    from uasr_torch.data.dataset import make_synthetic_dataset
+
+    examples, _ = make_synthetic_dataset(num_utts=TIMIT_UTTS, num_phones=61, seed=SEED)
+    timit_lst = write_list(np, root, "timit", [(a, [phones[i - 1] for i in ids])
+                                               for a, ids in examples], prepare)
+    timit = ["-c", os.path.join(REPO, "configs", "timit_ctc_mini.yaml"), "--set",
+             f"data.train_list={timit_lst}", "--set", f"data.dev_list={timit_lst}", "--set",
+             f"data.test_list={timit_lst}", "--set",
+             f"data.vocab_path={os.path.join(root, 'phones61.txt')}", "--set",
+             f"model_dir={os.path.join(root, 'timit')}"]
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_cli(torch, [*timit, "--mode", "train", "--set", f"train.total_steps={TIMIT_STEPS}",
+                          "--set", "train.log_every=1"])
+    out += run_cli(torch, [*timit, "--mode", "infer"])
+    counts = read_launches()
+    hit = re.search(r"PER=([0-9.]+) PER_folded=([0-9.]+|nan)", out)
+    print(f"  timit_ctc_mini from a {TIMIT_UTTS}-utterance list of 61 phones: {TIMIT_STEPS} "
+          f"steps and --mode infer in {time.perf_counter() - t0:.2f} s: "
+          f"{out.strip().splitlines()[-1]}; launches {counts}", flush=True)
+    check(hit is not None and np.isfinite(float(hit.group(2))), f"no finite PER_folded in {out!r}")
+    check(counts["K1"] > TIMIT_STEPS, f"timit launches {counts}")
+    print(f"  data phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2326,6 +2622,10 @@ def main() -> int:
     phase_train_k5_k6(torch, np, results)
     phase_encoder_train(torch, np, launches)
     phase_unsup(torch, np)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_data(torch, np, tmp)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",

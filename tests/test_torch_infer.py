@@ -112,3 +112,36 @@ def test_vocab_copy_matches_jax(tmp_path):
         assert got.decode(valid) == ref.decode(valid)
         for fold in (False, True):
             assert got.decode_for_scoring(valid, fold) == ref.decode_for_scoring(valid, fold)
+
+
+# a TIMIT-named vocabulary of the fixture's size: 'ao' folds to 'aa', 'pcl'
+# to 'sil', 'ix' to 'ih', and 'q' is deleted before scoring
+TIMIT_TOKENS = ["<blk>", "ao", "aa", "pcl", "q", "ix", "ih", "<unk>"]
+
+
+def test_fold_timit_scores_and_writes_as_jax(trained, tmp_path):
+    """ctc.fold_timit: per_folded and the folded hypothesis file equal the
+    JAX package's run_inference(..., fold_timit=True)."""
+    from uasr.vocab import Vocab as JaxVocab
+
+    examples, vocab, jcfg, trainer, state = trained
+    assert len(vocab) == len(TIMIT_TOKENS)
+    jcfg = dataclasses.replace(jcfg, ctc=JaxCTCConfig(use_beam=False))
+    j_hyp, t_hyp = tmp_path / "jax_hyp.txt", tmp_path / "torch_hyp.txt"
+    ref = jax_run_inference(jcfg, trainer, state, _batches(examples),
+                            vocab=JaxVocab(tokens=TIMIT_TOKENS), fold_timit=True,
+                            hyp_path=str(j_hyp))
+    cfg, model, fstate = _port({"use_beam": False, "fold_timit": True}, len(vocab),
+                               state.params)
+    got = infer.run_inference(cfg, model, fstate, _batches(examples),
+                              vocab=Vocab(tokens=TIMIT_TOKENS), fold_timit=True,
+                              hyp_path=str(t_hyp), device="cpu")
+    assert "per_folded" in ref and got["per_folded"] == ref["per_folded"]
+    for key in ("errors", "ref_tokens", "per"):
+        assert got[key] == ref[key], key
+    hyps = t_hyp.read_text()
+    assert hyps == j_hyp.read_text() and len(hyps.splitlines()) == 16
+    assert not {"ao", "pcl", "q", "ix"} & set(hyps.split())
+    plain = infer.run_inference(cfg, model, fstate, _batches(examples),
+                                vocab=Vocab(tokens=TIMIT_TOKENS), device="cpu")
+    assert "per_folded" not in plain

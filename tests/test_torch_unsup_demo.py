@@ -38,19 +38,19 @@ RECIPE = str(pathlib.Path(__file__).resolve().parents[1] / "configs" / "syntheti
 def test_demo_from_jax_init_tracks_jax(tmp_path):
     cfg, jcfg = load_config(RECIPE), jax_load_config(RECIPE)
     jcfg.model_dir = cfg.model_dir = str(tmp_path)
-    examples, _ = cli._load_source(cfg, "train")
-    text = [ids for _, ids in examples if ids]
+    source, _ = cli._load_source(cfg, "train")
+    text = [ids for _, ids in source[1] if ids]
     dev = cli._dev_batches_fn(cfg)
     B, k = cfg.data.batch_size, cfg.gan.disc_steps
 
     # JAX: its run_gan_training as `--mode train` runs it, dev PER every 200
-    jax_train.run_gan_training(jcfg, cli._batches(cfg, examples, seed=cfg.train.seed), text,
+    jax_train.run_gan_training(jcfg, cli._batches(cfg, source, seed=cfg.train.seed), text,
                                with_eodm=True, dev_batches_fn=dev)
     recs = [json.loads(ln) for ln in (tmp_path / "metrics.jsonl").read_text().splitlines()]
     pers = {r["step"]: [r["per"]] for r in recs if r["tag"] == "dev"}
 
     # the port from the same initial weights, batches and interpolation draws
-    audio = cli._batches(cfg, examples, seed=cfg.train.seed)
+    audio = cli._batches(cfg, source, seed=cfg.train.seed)
     text_it = text_batch_iterator(text, B, cfg.data.max_label_len, seed=cfg.train.seed)
     first_a, first_t = next(audio), next(text_it)
     init = jax_train.GANTrainer(jcfg).init_state(

@@ -15,9 +15,12 @@ defaults to ``cuda`` and raises without a card; ``--device cpu`` runs
 the plain PyTorch versions of the kernels.
 ``--set`` casts each value to the field's type and rejects unknown keys.
 
-Data: the synthetic corpora and materialised utterance lists. The
-streaming loader and feature caches are not ported yet; ``frame_ce`` and
-``ssl`` raise ``NotImplementedError`` naming their ROADMAP.md item.
+Data: the synthetic corpora, and utterance lists (``prepare lists`` or
+``synth``) streamed from disk one batch at a time by
+``data.loader.StreamingASRDataset`` (``data.streaming``, the default) or
+read into memory (``--set data.streaming=false``). Feature caches are not
+ported yet; ``frame_ce`` and ``ssl`` raise ``NotImplementedError`` naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -30,9 +33,12 @@ import sys
 
 
 def _load_source(cfg, split: str):
-    """(examples, vocab) of a split: the synthetic corpus (seed 0 for
-    train, 1 for dev, 2 for test, so dev and test are held out) or a
-    materialised utterance list."""
+    """(source, vocab) of a split. The source is ``("examples", list)``:
+    the synthetic corpus (seed 0 for train, 1 for dev, 2 for test, so dev
+    and test are held out) or an utterance list read into memory; or
+    ``("stream", StreamingASRDataset)``: an utterance list under
+    ``data.streaming``, decoded one batch at a time. The labeled mix-in
+    split is always read into memory."""
     from uasr_torch.data.dataset import ASRDataset, make_synthetic_dataset
     from uasr_torch.vocab import load_vocab
 
@@ -60,35 +66,37 @@ def _load_source(cfg, split: str):
             # the semi-supervised mix-in's labeled split: a small paired
             # subset of the train corpus (seed 0)
             examples = examples[: cfg.data.synthetic_labeled_utts]
-        return examples, vocab
+        return ("examples", examples), vocab
     vocab = load_vocab(cfg.data.vocab_path)
     path = getattr(cfg.data, f"{split}_list")
     if path is None:
         raise SystemExit(f"recipe has no data.{split}_list")
     if cfg.data.streaming and split != "labeled":
-        raise NotImplementedError(
-            "data.streaming (the disk-backed loader, uasr/data/loader.py) is not ported yet "
-            "(ROADMAP.md Queue 1); --set data.streaming=false reads the list into memory")
+        from uasr_torch.data.loader import StreamingASRDataset
+
+        return ("stream", StreamingASRDataset.from_file(path, vocab,
+                                                        cfg.frontend.sample_rate)), vocab
     ds = ASRDataset.from_file(path, vocab, cfg.frontend.sample_rate)
-    return [ds.example(i) for i in range(len(ds))], vocab
+    return ("examples", [ds.example(i) for i in range(len(ds))]), vocab
 
 
-def _batches(cfg, examples, num_epochs="cfg", seed=0, drop_remainder=True, limit=None):
+def _batches(cfg, source, num_epochs="cfg", seed=0, drop_remainder=True, limit=None):
     from uasr_torch.data.dataset import batch_iterator, prefetch
 
     if num_epochs == "cfg":
         num_epochs = cfg.data.num_epochs  # None = cycle forever
     sr = cfg.frontend.sample_rate
-    it = batch_iterator(
-        examples,
-        batch_size=cfg.data.batch_size,
-        max_audio_samples=int(cfg.data.max_audio_seconds * sr),
-        max_label_len=cfg.data.max_label_len,
-        seed=seed,
-        drop_remainder=drop_remainder,
-        num_epochs=num_epochs,
-        bucket_boundaries=[int(s * sr) for s in cfg.data.bucket_boundaries],
-    )
+    kind, payload = source
+    kw = dict(batch_size=cfg.data.batch_size,
+              max_audio_samples=int(cfg.data.max_audio_seconds * sr),
+              max_label_len=cfg.data.max_label_len, seed=seed, drop_remainder=drop_remainder,
+              num_epochs=num_epochs,
+              bucket_boundaries=[int(s * sr) for s in cfg.data.bucket_boundaries])
+    if kind == "stream":
+        it = payload.batches(shuffle_buffer=cfg.data.shuffle_buffer,
+                             decode_threads=cfg.data.loader_threads, **kw)
+    else:
+        it = batch_iterator(payload, **kw)
     if limit is not None:
         # cap before prefetch so the worker ends instead of being abandoned
         it = itertools.islice(it, limit)
@@ -162,15 +170,22 @@ def _scalar(s: str):
             return s
 
 
-def _lift_caps_for_split(cfg, examples):
+def _lift_caps_for_split(cfg, source):
     """cfg with the data caps sized to the split's real maxima
     (train.dev_full_length): dev eval sees whole utterances; the recipe's
     bucket boundaries below the cap stay and the cap is the catch-all
-    bucket."""
+    bucket. A stream's maxima come from its scanned lengths and encoded
+    labels, so nothing is decoded."""
     max_sec, max_lab = cfg.data.max_audio_seconds, cfg.data.max_label_len
-    for a, ids in examples:
-        max_sec = max(max_sec, len(a) / cfg.frontend.sample_rate)
-        max_lab = max(max_lab, len(ids))
+    kind, payload = source
+    if kind == "stream":
+        if len(payload):
+            max_sec = max(max_sec, float(max(payload.num_samples)) / cfg.frontend.sample_rate)
+            max_lab = max(max_lab, max(len(ids) for ids in payload.labels))
+    else:
+        for a, ids in payload:
+            max_sec = max(max_sec, len(a) / cfg.frontend.sample_rate)
+            max_lab = max(max_lab, len(ids))
     bounds = ()
     if cfg.data.bucket_boundaries:
         bounds = tuple(sorted(b for b in cfg.data.bucket_boundaries if b < max_sec)) + (max_sec,)
@@ -181,60 +196,63 @@ def _lift_caps_for_split(cfg, examples):
 def _dev_batches_fn(cfg):
     if cfg.data.dev_list is None and not cfg.data.synthetic:
         return None
-    dev_examples, _ = _load_source(cfg, "dev")
+    dev_source, _ = _load_source(cfg, "dev")
     if cfg.train.dev_full_length:
-        cfg = _lift_caps_for_split(cfg, dev_examples)
+        cfg = _lift_caps_for_split(cfg, dev_source)
 
     def fn():
-        return _batches(cfg, dev_examples, num_epochs=1, drop_remainder=False,
+        return _batches(cfg, dev_source, num_epochs=1, drop_remainder=False,
                         limit=cfg.train.dev_eval_batches)
 
     return fn
 
 
-def _train_ctc(cfg, examples, device):
+def _train_ctc(cfg, source, device):
     from uasr_torch.train import run_ctc_training
 
-    run_ctc_training(cfg, _batches(cfg, examples, seed=cfg.train.seed),
+    run_ctc_training(cfg, _batches(cfg, source, seed=cfg.train.seed),
                      dev_batches_fn=_dev_batches_fn(cfg), device=device)
     return 0
 
 
-def _load_text(cfg, examples, vocab):
+def _load_text(cfg, source, vocab):
     """The unpaired text corpus: ``data.text_path``, or the split's own
     transcripts (synthetic and smoke runs)."""
     from uasr_torch.data.dataset import TextDataset
 
     if cfg.data.text_path:
         return TextDataset.from_file(cfg.data.text_path, vocab).sequences
-    return [ids for _, ids in examples if ids]
+    kind, payload = source
+    if kind == "stream":
+        return [ids for ids in payload.labels if ids]
+    return [ids for _, ids in payload if ids]
 
 
-def _train_gan(cfg, examples, vocab, device, with_eodm=False):
+def _train_gan(cfg, source, vocab, device, with_eodm=False):
     from uasr_torch.train import run_gan_training
 
     labeled = None
     if cfg.gan.supervised_weight > 0 and (cfg.data.labeled_list or cfg.data.synthetic):
         # the semi-supervised mix-in's own small paired stream, cycled; a
         # labeled set smaller than a batch wraps around to fill it
-        ex, _ = _load_source(cfg, "labeled")
+        (_, ex), _ = _load_source(cfg, "labeled")
         if not ex:
             raise SystemExit("data.labeled_list is empty")
         while len(ex) < cfg.data.batch_size:
             ex = ex + ex
-        labeled = _batches(cfg, ex, num_epochs=None, seed=cfg.train.seed + 1)
-    run_gan_training(cfg, _batches(cfg, examples, seed=cfg.train.seed),
-                     _load_text(cfg, examples, vocab), with_eodm=with_eodm,
+        labeled = _batches(cfg, ("examples", ex), num_epochs=None, seed=cfg.train.seed + 1)
+    run_gan_training(cfg, _batches(cfg, source, seed=cfg.train.seed),
+                     _load_text(cfg, source, vocab), with_eodm=with_eodm,
                      dev_batches_fn=_dev_batches_fn(cfg), labeled_batches=labeled,
                      device=device)
     return 0
 
 
-def _train_eodm(cfg, examples, vocab, device):
+def _train_eodm(cfg, source, vocab, device):
     from uasr_torch.train import run_eodm_training
 
-    run_eodm_training(cfg, _batches(cfg, examples, seed=cfg.train.seed),
-                      _load_text(cfg, examples, vocab), dev_batches_fn=_dev_batches_fn(cfg),
+    run_eodm_training(cfg, _batches(cfg, source, seed=cfg.train.seed),
+                      _load_text(cfg, source, vocab), dev_batches_fn=_dev_batches_fn(cfg),
                       device=device)
     return 0
 
@@ -285,19 +303,21 @@ def restore_trainer(cfg, device):
     return trainer, step
 
 
-def _infer(cfg, examples, vocab, device):
+def _infer(cfg, source, vocab, device):
     from uasr_torch.infer import run_inference
 
     trainer, step = restore_trainer(cfg, device)
     logits_fn = getattr(trainer, "logits_fn", None)
     res = run_inference(
         cfg, trainer.model, trainer.frontend_state,
-        _batches(cfg, examples, num_epochs=1, drop_remainder=False),
+        _batches(cfg, source, num_epochs=1, drop_remainder=False),
         vocab=vocab, hyp_path=f"{cfg.model_dir}/hyp.txt", device=device, logits_fn=logits_fn,
+        fold_timit=cfg.ctc.fold_timit,
     )
+    folded = f" PER_folded={res['per_folded']:.4f}" if "per_folded" in res else ""
     avg = (f" (avg of last {cfg.train.average_checkpoints})"
            if cfg.train.average_checkpoints > 1 else "")
-    print(f"step {step}{avg}: PER={res['per']:.4f} RTF={res['rtf']:.4f} "
+    print(f"step {step}{avg}: PER={res['per']:.4f}{folded} RTF={res['rtf']:.4f} "
           f"({res['audio_seconds']:.1f}s audio)")
     return 0
 
@@ -330,17 +350,17 @@ def main(argv=None):
             "caches)")
     if mode not in ("ctc", "gan", "gan+eodm", "eodm"):
         raise SystemExit(f"unknown train.mode {mode!r}")
-    examples, vocab = _load_source(cfg, "train" if args.mode == "train" else "test")
+    source, vocab = _load_source(cfg, "train" if args.mode == "train" else "test")
     if cfg.vocab_size is None:
         cfg = cfg.replace(vocab_size=len(vocab))
     print(f"device: {device}", file=sys.stderr)
     if args.mode == "infer":
-        return _infer(cfg, examples, vocab, device)
+        return _infer(cfg, source, vocab, device)
     if mode in ("gan", "gan+eodm"):
-        return _train_gan(cfg, examples, vocab, device, with_eodm="+eodm" in mode)
+        return _train_gan(cfg, source, vocab, device, with_eodm="+eodm" in mode)
     if mode == "eodm":
-        return _train_eodm(cfg, examples, vocab, device)
-    return _train_ctc(cfg, examples, device)
+        return _train_eodm(cfg, source, vocab, device)
+    return _train_ctc(cfg, source, device)
 
 
 if __name__ == "__main__":

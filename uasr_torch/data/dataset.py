@@ -10,10 +10,12 @@ Copies of the JAX package's host-side data layer, which is numpy only:
     text of the GAN's real side and EODM's statistics, batched with the
     JAX package's numpy order (the same batches for the same seed);
   - the synthetic "tone language" corpus (phone k is a pure tone) and its
-    formant-style variant, for tests and smoke runs without downloads.
+    formant-style variant, for tests and smoke runs without downloads;
+  - ``compute_cmvn_stats``: dataset-level feature mean and std for
+    ``frontend.cmvn: global`` (``prepare cmvn``).
 
-The streaming loader, Kaldi archives, feature transforms and feature
-caches are not ported yet (ROADMAP.md Queue 1).
+The streaming loader is ``data.loader``. Kaldi archives, feature
+transforms and feature caches are not ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
 
+from uasr_torch.config import FrontendConfig
 from uasr_torch.data.io import Utterance, read_utterance_list, read_wav
 from uasr_torch.vocab import Vocab, make_vocab
 
@@ -402,3 +405,41 @@ def prefetch(it: Iterator, depth: int = 2) -> Iterator:
             yield item
     finally:
         stop.set()
+
+
+# ----------------------------------------------------------------- CMVN
+
+
+def compute_cmvn_stats(
+    examples: Sequence[tuple[np.ndarray, list[int]]],
+    frontend_cfg: FrontendConfig,
+) -> tuple[np.ndarray, np.ndarray]:
+    """One host pass accumulating the dataset's feature mean and std
+    (pre-CMVN base features, deltas appended where the recipe adds them)
+    with the float64 numpy oracle."""
+    from uasr_torch.frontend import oracle
+
+    cfg = frontend_cfg
+    total = None
+    total_sq = None
+    n = 0
+    for audio, _ in examples:
+        feat = (
+            oracle.oracle_mfcc(audio, cfg)
+            if cfg.feature_type == "mfcc"
+            else oracle.oracle_fbank(audio, cfg)
+        )
+        if cfg.add_deltas:
+            d1 = oracle.delta(feat, cfg.delta_window)
+            d2 = oracle.delta(d1, cfg.delta_window)
+            feat = np.concatenate([feat, d1, d2], axis=1)
+        if total is None:
+            total = feat.sum(0)
+            total_sq = (feat**2).sum(0)
+        else:
+            total += feat.sum(0)
+            total_sq += (feat**2).sum(0)
+        n += len(feat)
+    mean = total / n
+    var = np.maximum(total_sq / n - mean**2, 1e-12)
+    return mean.astype(np.float32), np.sqrt(var).astype(np.float32)

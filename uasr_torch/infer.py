@@ -1,7 +1,9 @@
 """Inference / decode entry (counterpart of ``uasr.infer``, ``--mode infer``).
 
 Decodes batches on one device (greedy or exact prefix beam search) and
-reports PER/CER plus decode RTF (decode wall time / audio seconds).
+reports PER/CER plus decode RTF (decode wall time / audio seconds), and
+with ``fold_timit`` the PER in TIMIT's folded 39-phone space, scored on
+the host by the native edit distance.
 On CUDA the frontend, the BiGRU recurrence and the beam recursion go
 through kernels K1, K2 and K4 when ``frontend.use_pallas``,
 ``model.gru_pallas`` and ``ctc.use_beam`` are set. A GAN or EODM
@@ -65,12 +67,16 @@ def run_inference(
     hyp_path: str | None = None,
     device="cuda",
     logits_fn=None,
+    fold_timit: bool = False,
 ) -> dict:
     """Decode + score. Returns {"per", "rtf", "audio_seconds", "errors",
-    "ref_tokens"}. Runs on ``device`` (default CUDA; raises when no card
-    is present rather than running on the CPU). ``logits_fn(audio,
-    lengths) -> (logits, lengths)``, when given, computes the logits in
-    place of ``model`` over ``compute_features``."""
+    "ref_tokens"}, and "per_folded" with ``fold_timit`` and a ``vocab``:
+    references and hypotheses folded 61 -> 39 (``Vocab.decode_for_scoring``),
+    the hypothesis file written in folded tokens. Runs on ``device``
+    (default CUDA; raises when no card is present rather than running on
+    the CPU). ``logits_fn(audio, lengths) -> (logits, lengths)``, when
+    given, computes the logits in place of ``model`` over
+    ``compute_features``."""
     global LAST_BEAM_IMPL
     LAST_BEAM_IMPL = None
     if cfg.ctc.use_viterbi:
@@ -90,6 +96,7 @@ def run_inference(
     audio_sec = 0.0
     wall = 0.0
     n_utts = 0
+    fold_pairs: list[tuple[list[str], list[str]]] = []
     hyp_f = open(hyp_path, "w") if hyp_path else None
     try:
         for b in batches:
@@ -110,18 +117,48 @@ def run_inference(
                 audio_sec += float(np.sum(b_np.audio_lengths)) / cfg.frontend.sample_rate
             errs += int(e)
             total += int(t)
-            if vocab is not None and hyp_f is not None:
+            if vocab is not None and (hyp_f is not None or fold_timit):
                 for i in range(hyps.shape[0]):
-                    toks = vocab.decode_for_scoring(hyps[i, : int(hyp_len[i])])
-                    hyp_f.write(f"utt{n_utts}\t{' '.join(toks)}\n")
+                    toks = vocab.decode_for_scoring(hyps[i, : int(hyp_len[i])],
+                                                    fold_timit=fold_timit)
+                    if hyp_f is not None:
+                        hyp_f.write(f"utt{n_utts}\t{' '.join(toks)}\n")
                     n_utts += 1
+                    if fold_timit:
+                        ref = vocab.decode_for_scoring(
+                            b_np.labels[i, : int(b_np.label_lengths[i])], fold_timit=True)
+                        fold_pairs.append((ref, toks))
     finally:
         if hyp_f is not None:
             hyp_f.close()
-    return {
+    out = {
         "per": errs / max(total, 1),
         "rtf": wall / max(audio_sec, 1e-9),
         "audio_seconds": audio_sec,
         "errors": errs,
         "ref_tokens": total,
     }
+    if fold_pairs:
+        out["per_folded"] = folded_per(fold_pairs)
+    return out
+
+
+def folded_per(pairs: list[tuple[list[str], list[str]]]) -> float:
+    """Edit distance over reference tokens of (reference, hypothesis)
+    token lists, the tokens numbered in sorted order, by the native
+    edit distance on the host."""
+    from uasr_torch.native import batch_edit_distance_native
+
+    sym = {t: i for i, t in enumerate(sorted({t for r, h in pairs for t in r + h}))}
+    N = max(max(len(r) for r, _ in pairs), 1)
+    M = max(max(len(h) for _, h in pairs), 1)
+    refs = np.zeros((len(pairs), N), np.int32)
+    hyps = np.zeros((len(pairs), M), np.int32)
+    rl = np.zeros(len(pairs), np.int32)
+    hl = np.zeros(len(pairs), np.int32)
+    for i, (r, h) in enumerate(pairs):
+        refs[i, : len(r)] = [sym[t] for t in r]
+        hyps[i, : len(h)] = [sym[t] for t in h]
+        rl[i], hl[i] = len(r), len(h)
+    d = batch_edit_distance_native(refs, rl, hyps, hl)
+    return float(d.sum()) / max(int(rl.sum()), 1)

@@ -1,6 +1,15 @@
-"""Data preparation for unsupervised training (counterpart of the
-``ngrams``, ``lm`` and ``kmeans`` subcommands of ``uasr.tools.prepare``):
+"""Data preparation (counterpart of ``uasr.tools.prepare``; each output
+file equals the JAX command's byte for byte, ``cmvn``'s arrays to float
+rounding):
 
+  python -m uasr_torch.tools.prepare vocab --text phones.txt --out vocab.txt [--has-utt-ids]
+  python -m uasr_torch.tools.prepare lists --wav-scp wav.scp --text text \\
+      --out train.tsv [--no-lens]           # also writes the train.tsv.lens sidecar
+  python -m uasr_torch.tools.prepare scan-lengths --list train.tsv   # the .lens sidecar
+  python -m uasr_torch.tools.prepare cmvn --list train.tsv --vocab vocab.txt \\
+      --config recipe.yaml --out cmvn.npz    # frontend.cmvn_stats_path
+  python -m uasr_torch.tools.prepare synth --out-dir data/synth --num-utts 128 \\
+      [--num-phones 16 --seed 0 --syntax iid|markov --style tone|formant]
   python -m uasr_torch.tools.prepare ngrams --text phones.txt --vocab vocab.txt \\
       --orders 2,3 --top-k 1000 --out ngrams.npz     # eodm.ngram_path
   python -m uasr_torch.tools.prepare lm --text phones.txt --vocab vocab.txt \\
@@ -10,18 +19,114 @@
 
 ``kmeans`` fits the segmenter's centroids in the feature space the
 trainer quantises in: the recipe's frontend (the raw pre-CMVN view with
-``gan.segment_on_raw``). The other subcommands of the JAX tool are not
-ported yet (ROADMAP.md Queue 1: ``import-arpa`` item 8; ``vocab``,
-``lists``, ``scan-lengths``, ``cmvn`` and ``synth`` item 8a;
-``import-features`` and ``export-kaldi`` item 10; ``import-ali`` item 6).
+``gan.segment_on_raw``). ``lists`` joins Kaldi-style wav.scp (utt_id
+wav_path) and text (utt_id tokens...) into the TSV utterance lists the
+datasets read; ``synth`` writes the synthetic corpus to disk (wavs,
+``train.tsv`` / ``dev.tsv`` with their sidecars, ``vocab.txt``,
+``text.txt``). The other subcommands of the JAX tool are not ported yet
+(ROADMAP.md Queue 1: ``import-arpa`` item 8; ``import-features`` and
+``export-kaldi`` item 10; ``import-ali`` and ``synth --align`` item 6).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
+
+
+def cmd_vocab(args):
+    from uasr_torch.vocab import BLK, UNK
+
+    counts: dict[str, int] = {}
+    with open(args.text) as f:
+        for ln in f:
+            toks = ln.split()
+            if args.has_utt_ids:
+                toks = toks[1:]
+            for t in toks:
+                counts[t] = counts.get(t, 0) + 1
+    tokens = [BLK] + sorted(counts, key=lambda t: (-counts[t], t)) + [UNK]
+    with open(args.out, "w") as f:
+        f.write("\n".join(tokens) + "\n")
+    print(f"wrote {len(tokens)} tokens -> {args.out}")
+
+
+def cmd_lists(args):
+    from uasr_torch.data.loader import write_length_sidecar
+
+    wavs: dict[str, str] = {}
+    with open(args.wav_scp) as f:
+        for ln in f:
+            parts = ln.split(maxsplit=1)
+            if len(parts) == 2:
+                wavs[parts[0]] = parts[1].strip()
+    texts: dict[str, str] = {}
+    if args.text:
+        with open(args.text) as f:
+            for ln in f:
+                parts = ln.split(maxsplit=1)
+                texts[parts[0]] = parts[1].strip() if len(parts) == 2 else ""
+    with open(args.out, "w") as f:
+        for utt, wav in sorted(wavs.items()):
+            f.write(f"{utt}\t{wav}\t{texts.get(utt, '')}\n")
+    print(f"wrote {len(wavs)} utterances -> {args.out}")
+    if not args.no_lens:
+        print(f"wrote length cache -> {write_length_sidecar(args.out)}")
+
+
+def cmd_scan_lengths(args):
+    """The ``<list>.lens`` length cache of an existing utterance list: one
+    header scan now, no file opened at later starts of the streaming
+    loader."""
+    from uasr_torch.data.loader import write_length_sidecar
+
+    print(f"wrote length cache -> {write_length_sidecar(args.list, scan_threads=args.threads)}")
+
+
+def cmd_cmvn(args):
+    from uasr_torch.config import load_config
+    from uasr_torch.data.dataset import ASRDataset, compute_cmvn_stats
+    from uasr_torch.vocab import load_vocab
+
+    cfg = load_config(args.config)
+    ds = ASRDataset.from_file(args.list, load_vocab(args.vocab), cfg.frontend.sample_rate)
+    mean, std = compute_cmvn_stats([ds.example(i) for i in range(len(ds))], cfg.frontend)
+    np.savez(args.out, mean=mean, std=std)
+    print(f"wrote CMVN stats ({mean.shape[0]} dims) -> {args.out}")
+
+
+def cmd_synth(args):
+    from uasr_torch.data.dataset import make_synthetic_dataset
+    from uasr_torch.data.io import write_wav
+    from uasr_torch.data.loader import write_length_sidecar
+
+    if args.align:
+        raise NotImplementedError(
+            "synth --align (the per-frame alignment track of train.mode frame_ce) is not "
+            "ported yet (ROADMAP.md Queue 1, item 6: frame-CE)")
+    examples, vocab = make_synthetic_dataset(
+        num_utts=args.num_utts, num_phones=args.num_phones, seed=args.seed,
+        syntax=args.syntax, style=args.style, min_len=args.min_len, max_len=args.max_len,
+    )
+    wav_dir = os.path.join(args.out_dir, "wav")
+    lines = []
+    for i, (audio, ids) in enumerate(examples):
+        path = os.path.join(wav_dir, f"utt{i:05d}.wav")
+        write_wav(path, audio, 16000)
+        lines.append(f"utt{i:05d}\t{path}\t{' '.join(vocab.tokens[j] for j in ids)}")
+    n_dev = max(args.num_utts // 8, 1)
+    for split, part in (("train.tsv", lines[n_dev:]), ("dev.tsv", lines[:n_dev])):
+        with open(os.path.join(args.out_dir, split), "w") as f:
+            f.write("\n".join(part) + "\n")
+        write_length_sidecar(os.path.join(args.out_dir, split))
+    with open(os.path.join(args.out_dir, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab.tokens) + "\n")
+    with open(os.path.join(args.out_dir, "text.txt"), "w") as f:
+        f.write("\n".join(" ".join(vocab.tokens[j] for j in ids) for _, ids in examples) + "\n")
+    print(f"wrote {args.num_utts} wavs + lists + vocab -> {args.out_dir}")
 
 
 def _text(args):
@@ -106,6 +211,32 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    v = sub.add_parser("vocab")
+    v.add_argument("--text", required=True)
+    v.add_argument("--out", required=True)
+    v.add_argument("--has-utt-ids", action="store_true")
+    v.set_defaults(fn=cmd_vocab)
+
+    ls = sub.add_parser("lists")
+    ls.add_argument("--wav-scp", required=True)
+    ls.add_argument("--text")
+    ls.add_argument("--out", required=True)
+    ls.add_argument("--no-lens", action="store_true",
+                    help="skip writing the <out>.lens length cache")
+    ls.set_defaults(fn=cmd_lists)
+
+    sl = sub.add_parser("scan-lengths")
+    sl.add_argument("--list", required=True)
+    sl.add_argument("--threads", type=int, default=16)
+    sl.set_defaults(fn=cmd_scan_lengths)
+
+    c = sub.add_parser("cmvn")
+    c.add_argument("--list", required=True)
+    c.add_argument("--vocab", required=True)
+    c.add_argument("--config", required=True)
+    c.add_argument("--out", required=True)
+    c.set_defaults(fn=cmd_cmvn)
+
     n = sub.add_parser("ngrams")
     n.add_argument("--text", required=True)
     n.add_argument("--vocab", required=True)
@@ -139,6 +270,21 @@ def main(argv=None):
                     help="cuda (K1; raises without a card) or cpu (its plain version)")
     km.add_argument("--out", required=True)
     km.set_defaults(fn=cmd_kmeans)
+
+    s = sub.add_parser("synth")
+    s.add_argument("--out-dir", required=True)
+    s.add_argument("--num-utts", type=int, default=128)
+    s.add_argument("--num-phones", type=int, default=16)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--align", action="store_true",
+                   help="per-frame phone labels as a 4th column (not ported yet)")
+    s.add_argument("--syntax", choices=["iid", "markov"], default="iid",
+                   help="markov = phonotactic grammar (needed for unsupervised identifiability)")
+    s.add_argument("--style", choices=["tone", "formant"], default="tone",
+                   help="formant = narrowband-noise formants with speaker and channel variation")
+    s.add_argument("--min-len", type=int, default=3, help="min phones per utterance")
+    s.add_argument("--max-len", type=int, default=10, help="max phones per utterance")
+    s.set_defaults(fn=cmd_synth)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -130,7 +130,7 @@ def main(argv=None):
     # the tool reads the list into memory (small serving sets)
     cfg.data.streaming = False
     device = resolve_device(args.device)
-    examples, vocab = _load_source(cfg, "test")
+    (_, examples), vocab = _load_source(cfg, "test")
     if cfg.vocab_size is None:
         cfg = cfg.replace(vocab_size=len(vocab))
     names = None
