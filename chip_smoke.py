@@ -110,7 +110,24 @@ and prints no result line):
    configs/timit_ctc_mini.yaml from a 64-utterance list of TIMIT's 61
    phone names, 4 steps, then ``--mode infer`` with its finite
    ``PER_folded``;
-14. one JSON line listing every ported kernel with its check, times and
+14. LM and HMM decode: configs/librispeech_ctc_bigru.yaml's four requests
+   decoded by ``run_inference`` with ``ctc.lm_path``, once with a bigram
+   [33, 32] from ``prepare lm`` and once with a trigram [33, 33, 32] from
+   ``prepare import-arpa`` of an ARPA file written here (1 K1, 3 K2, 1 K4
+   a request; K4 on each request's log-probs bit-equal to its plain
+   version, timed with its bound); configs/aishell_streaming.yaml's 64
+   streams through StreamingRecognizer with a [4234, 4233] bigram (1 K7
+   and 1 K4 a step, finals equal to the offline LM beam; K4 on two steps'
+   inputs bit-equal, timed) and the daemon for two rounds with it;
+   configs/formant39_unsup.yaml's generator decoded with
+   ``ctc.use_viterbi`` over a bigram and a trigram from ``prepare lm``
+   (rates calibrated on four probe batches, 1 K1 a batch and probe, card
+   ids equal to the CPU's on the same logits); phase 13's timit_ctc_mini
+   checkpoint through ``--mode infer --set ctc.use_viterbi=true``; and
+   ``uasr_torch.tools.align`` on phase 13's librispeech_ctc_bigru
+   checkpoint (1 K1 and 3 K2 a batch), every alignment that fits its
+   frames collapsing to its transcript;
+15. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -377,10 +394,11 @@ def phase_kernels(torch, np, results: dict) -> None:
     for name, (tab, order) in tables.items():
         lm = None if tab is None else torch.tensor(tab, dtype=torch.float32, device=dev)
         args = (logp, lengths, W, 0, lm, order, 0.5, 0.3)
-        res = check_beam(torch, k4, args, f"K4 {name}")
+        res, ref = check_beam(torch, k4, args, f"K4 {name}")
         ms = cuda_ms(torch, lambda: k4.ctc_beam_cuda(*args), 10)
         plain = cuda_ms(torch, lambda: k4.ctc_beam_reference(*args), 1, warmup=0)
-        bms, by = beam_bound(lengths, T, B, W, V, 0 if tab is None else tab.size, order)
+        rows = 0 if tab is None else lm_rows(torch, ref, None, lengths, V, order)
+        bms, by = beam_bound(lengths, T, B, W, V, rows * V, order)
         print(f"K4 beam    {name:8s} T={T} B={B} W={W} V={V}: backpointers, state and ids "
               f"equal, score max|d| {res['max_abs_err']:.3e} kernel {ms:.4f} ms "
               f"({beam_plan(k4, ms, lengths)}) plain {plain:.4f} ms bound {bms:.6f} ms ({by})",
@@ -389,10 +407,10 @@ def phase_kernels(torch, np, results: dict) -> None:
                                      library_ms=None)
 
 
-def check_beam(torch, k4, args, what: str, state=None) -> dict:
+def check_beam(torch, k4, args, what: str, state=None) -> tuple:
     """K4 against its plain version on the same inputs (and start state):
     backpointers and the state out bit-equal, tracebacks equal, best
-    scores to 1e-4."""
+    scores to 1e-4. Returns ({max_abs_err}, the plain version's output)."""
     got = k4.ctc_beam_cuda(*args, state=state)
     ref = k4.ctc_beam_reference(*args, state=state)
     torch.cuda.synchronize()
@@ -406,7 +424,33 @@ def check_beam(torch, k4, args, what: str, state=None) -> dict:
     check(bool(torch.equal(ids, r_ids)) and bool(torch.equal(n, r_n)), f"{what}: ids differ")
     err = float((score - r_score).abs().max())
     check(err <= 1e-4, f"{what}: score max|d| {err:.3e} > 1e-4")
-    return dict(max_abs_err=err)
+    return dict(max_abs_err=err), ref
+
+
+def lm_rows(torch, out, state, lengths, V: int, order: int) -> int:
+    """The distinct LM table rows a K4 call needs: the histories (last
+    symbol; for a trigram also the one before) of every beam at every
+    step its row is active, replayed from the call's backpointers
+    ``out`` = (parents, chars, _) from its start ``state`` (None: fresh).
+    A dead beam's history is counted too; dead beams occur only at a
+    fresh start, where they share the live beam's start row."""
+    parents, chars = out[0].long(), out[1].long()
+    T, B, W = parents.shape
+    if state is None:
+        last = last2 = torch.full((B, W), -1, dtype=torch.long, device=parents.device)
+    else:
+        last, last2 = state.last.long(), state.last2.long()
+    lengths = lengths.to(parents.device)
+    seen = []
+    for t in range(T):
+        hist = torch.where(last >= 0, last, V)
+        if order == 3:
+            hist = hist + torch.where(last2 >= 0, last2, V) * (V + 1)
+        seen.append(hist[t < lengths])
+        is_ext = chars[t] >= 0
+        p_last, p_last2 = last.gather(1, parents[t]), last2.gather(1, parents[t])
+        last, last2 = torch.where(is_ext, chars[t], p_last), torch.where(is_ext, p_last, p_last2)
+    return int(torch.unique(torch.cat(seen)).numel())
 
 
 def beam_plan(k4, ms: float, lengths) -> str:
@@ -420,8 +464,9 @@ def beam_bound(lengths, T: int, B: int, W: int, V: int, lm_size: int, order: int
     """K4's least time: the work of the steps this run's lengths keep
     active (the W*V extends with their LM terms, the fold, one top-W
     selection pass of ~2 comparisons per candidate over the W*V + W
-    candidates, the rebuild), and the bytes of log-probs, lengths, LM
-    table, backpointers and state."""
+    candidates, the rebuild), and the bytes of log-probs, lengths, the
+    ``lm_size`` LM entries the call reads (the rows of ``lm_rows``),
+    backpointers and state."""
     steps = int(lengths.clamp(max=T).sum())
     K = W * V + W
     ops = steps * (W * V * (2 + 4 * (order > 0)) + 8 * W + 6 * W * W + 2 * K + 20 * W)
@@ -639,7 +684,7 @@ def phase_stream_kernels(torch, np, results: dict) -> None:
                                       -1).contiguous()
             state = k4.ctc_beam_reference(first, torch.full((B,), T4, device=dev), W)[2]
         args = (logp, lengths, W, 0)
-        res = check_beam(torch, k4, args, f"K4 V={V} {what}", state=state)
+        res, _ = check_beam(torch, k4, args, f"K4 V={V} {what}", state=state)
         ms = cuda_ms(torch, lambda: k4.ctc_beam_cuda(*args, state=state), 20 if carried else 5)
         plain = cuda_ms(torch, lambda: k4.ctc_beam_reference(*args, state=state), 1, warmup=0)
         bms, by = beam_bound(lengths, T4, B, W, V, 0, 0)
@@ -1170,13 +1215,14 @@ def report_latency(np, what: str, lat: list, B: int, chunk_s: float) -> None:
           f"{B * chunk_s * 1e3 / float(np.mean(ms)):.1f} audio-s/s", flush=True)
 
 
-def phase_daemon(torch, np, encoder: str = "cnn", rounds: int = 4) -> None:
+def phase_daemon(torch, np, encoder: str = "cnn", rounds: int = 4,
+                 lm_path: str | None = None) -> None:
     """The TCP serving daemon on localhost with 8 slots. Staggered: 8
     clients stream their utterances while a ninth is refused as busy.
     Sustained: 8 clients stream rounds - 1 utterances each, one connection
     per utterance, back to back, with the engine's tick statistics. Every
-    final transcript equals the offline beam decode. Every socket and
-    wait has a timeout."""
+    final transcript equals the offline beam decode (with ``lm_path``, the
+    beam fuses that table in both). Every socket and wait has a timeout."""
     import threading
 
     from uasr_torch.frontend.features import make_frontend_state
@@ -1185,6 +1231,9 @@ def phase_daemon(torch, np, encoder: str = "cnn", rounds: int = 4) -> None:
 
     dev = torch.device(DEVICE)
     cfg = aishell_config(encoder)
+    if lm_path:
+        cfg = cfg.replace(ctc=dataclasses.replace(cfg.ctc, lm_path=lm_path,
+                                                  lm_bonus=STREAM_LM_BONUS))
     vocab = aishell_vocab()
     model = build_model(cfg.model, cfg.dim_output, cfg.frontend.dim_input,
                         generator=torch.Generator().manual_seed(SEED), device=dev)
@@ -1286,7 +1335,8 @@ def phase_daemon(torch, np, encoder: str = "cnn", rounds: int = 4) -> None:
     check(not bad, f"daemon finals {bad} differ from the offline beam decode")
     secs = float(np.sum(batch.audio_lengths[DAEMON_SLOTS:])) / sr
     n = DAEMON_SLOTS * (rounds - 1)
-    print(f"daemon ({encoder}): {DAEMON_SLOTS} slots; {DAEMON_SLOTS} staggered clients with a ninth refused "
+    tag = encoder + (", bigram LM" if lm_path else "")
+    print(f"daemon ({tag}): {DAEMON_SLOTS} slots; {DAEMON_SLOTS} staggered clients with a ninth refused "
           f"busy, then {DAEMON_SLOTS} clients x {rounds - 1} utterances back to back; all "
           f"{len(ref)} finals == offline beam {cfg.ctc.beam_width}; sustained: {n} utterances, "
           f"{secs:.2f} s of audio in {wall:.3f} s, {secs / wall:.1f} audio-s/s", flush=True)
@@ -2382,7 +2432,7 @@ def traced_data_path(torch, record: dict):
     """Wrap the training step, the CLI's batch stream and the decode of a
     request so that each step's wall (ending in a synchronise), its
     launches and the RSS after it, the time each ``next()`` of the
-    prefetched stream waited, and each request's launches and its
+    prefetched stream waited, and each request's wall, launches,
     references and hypotheses are recorded."""
     from uasr_torch import cli, infer, train
 
@@ -2415,12 +2465,16 @@ def traced_data_path(torch, record: dict):
         finally:
             it.close()
 
-    def decode(cfg, model, fstate, db, logits_fn=None):
+    def decode(cfg, model, fstate, db, *rest):
+        torch.cuda.synchronize()
         before = read_launches()
-        out = orig_decode(cfg, model, fstate, db, logits_fn)
+        t0 = time.perf_counter()
+        out = orig_decode(cfg, model, fstate, db, *rest)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         after = read_launches()
         record["requests"].append(dict(launches={k: after[k] - before[k] for k in after},
-                                       refs=db[2].clone(), ref_len=db[3].clone(),
+                                       wall=wall, refs=db[2].clone(), ref_len=db[3].clone(),
                                        hyps=out[0].clone(), hyp_len=out[1].clone()))
         return out
 
@@ -2587,6 +2641,475 @@ def phase_data(torch, np, root: str) -> None:
     print(f"  data phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# the LM decode phase: text corpora for the n-gram tables (LM_SEQS random
+# sentences of up to 20 tokens), the formant39 Viterbi corpus (VIT_UTTS
+# utterances, five batches of 32: four probe the dwell rates; every row of
+# every batch is decoded again on the CPU, ~7 s a trigram batch)
+LM_SEQS, VIT_UTTS = 2000, 160
+# the streaming LM's per-token bonus: lm_weight * log V offsets the cost a
+# near-uniform V = 4233 table adds to each emitted token, so the fused beam
+# emits at about the rate the beam without it does
+STREAM_LM_BONUS = round(0.5 * math.log(STREAM_V), 4)
+
+
+def write_text(path: str, seqs) -> None:
+    with open(path, "w") as f:
+        f.writelines(" ".join(s) + "\n" for s in seqs)
+
+
+def write_arpa(path: str, seqs) -> None:
+    """An ARPA trigram model of ``seqs`` (lists of token strings): add-one
+    unigrams, maximum-likelihood bigrams and trigrams of the observed
+    n-grams, fixed backoff weights (log10 -0.4 and -0.3)."""
+    from collections import Counter
+
+    c1, c2, c3 = Counter(), Counter(), Counter()
+    for s in seqs:
+        w = ["<s>", *s, "</s>"]
+        c1.update(w[1:])
+        c2.update(zip(w, w[1:]))
+        c3.update(zip(w, w[1:], w[2:]))
+    h1, h2 = Counter(), Counter()
+    for (a, _), n in c2.items():
+        h1[a] += n
+    for (a, b, _), n in c3.items():
+        h2[a, b] += n
+    n1 = sum(c1.values()) + len(c1)
+    uni = [f"{math.log10((n + 1) / n1):.6f}\t{w}\t-0.400000" for w, n in sorted(c1.items())]
+    uni.append("-99.000000\t<s>\t-0.400000")
+    bi = [f"{math.log10(n / h1[a]):.6f}\t{a} {b}\t-0.300000" for (a, b), n in sorted(c2.items())]
+    tri = [f"{math.log10(n / h2[a, b]):.6f}\t{a} {b} {c}" for (a, b, c), n in sorted(c3.items())]
+    with open(path, "w") as f:
+        f.write(f"\\data\\\nngram 1={len(uni)}\nngram 2={len(bi)}\nngram 3={len(tri)}\n\n")
+        for n, lines in ((1, uni), (2, bi), (3, tri)):
+            f.write(f"\\{n}-grams:\n" + "\n".join(lines) + "\n\n")
+        f.write("\\end\\\n")
+
+
+def random_seqs(np, seed: int, tokens, n: int = LM_SEQS):
+    rng = np.random.RandomState(seed)
+    return [[tokens[j] for j in rng.randint(0, len(tokens), rng.randint(1, 21))]
+            for _ in range(n)]
+
+
+def prepare_quiet(prepare, argv) -> None:
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(prepare.main(argv) == 0, f"prepare {argv[0]}")
+
+
+@contextlib.contextmanager
+def recorded_beam(torch, module, record: list):
+    """Wrap ``module.ctc_beam_steps`` (K4's dispatcher as ``module`` calls
+    it): each call's arguments, tensors copied, the start state included."""
+    orig = module.ctc_beam_steps
+
+    def steps(*args, state=None):
+        record.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+                       None if state is None else type(state)(*(x.clone() for x in state))))
+        return orig(*args, state=state)
+
+    module.ctc_beam_steps = steps
+    try:
+        yield
+    finally:
+        module.ctc_beam_steps = orig
+
+
+def expect_each(records: list, want: dict, what: str) -> None:
+    for i, r in enumerate(records):
+        check(r["launches"] == want, f"{what} request {i}: launches {r['launches']}, "
+                                     f"expected {want}")
+
+
+def k4_lm_timing(torch, k4, args, state, what: str) -> str:
+    """K4 on a recorded call of the path against its plain version
+    (check_beam), its time and its bound (the table's rows this call's
+    histories reach, not the whole table)."""
+    logp, lengths, W, blank, table, order = args[:6]
+    B, T, V = logp.shape
+    check(table is not None and order in (2, 3), f"{what}: K4 ran without the table")
+    res, ref = check_beam(torch, k4, args, what, state=state)
+    ms = cuda_ms(torch, lambda: k4.ctc_beam_cuda(*args, state=state), 10)
+    rows = lm_rows(torch, ref, state, lengths, V, order)
+    bms, by = beam_bound(lengths, T, B, W, V, rows * V, order)
+    return (f"{what} T={T} B={B} W={W} V={V}, {order}-gram table {tuple(table.shape)}: "
+            f"backpointers, state and ids equal to the plain version, score max|d| "
+            f"{res['max_abs_err']:.3e}; kernel {ms:.4f} ms ({beam_plan(k4, ms, lengths)}) "
+            f"bound {bms:.6f} ms ({by}; {rows} of the table's {table.shape[0]} rows read, "
+            f"{rows * V * 4 / 1e6:.2f} MB)")
+
+
+def phase_lm_offline(torch, np, root: str, tables: dict) -> None:
+    """Path 1: configs/librispeech_ctc_bigru.yaml at full width decoded by
+    run_inference with ctc.use_beam and ctc.lm_path, once with the bigram
+    table (`prepare lm`) and once with the trigram (`prepare import-arpa`):
+    four requests of 32 (4-16 s), 1 K1, 3 K2 and 1 K4 each; K4 on each
+    request's log-probs bit-equal to its plain version with each table."""
+    from uasr_torch import infer
+    from uasr_torch.frontend.features import make_frontend_state
+    from uasr_torch.models.models import build_model
+    from uasr_torch.ops import cuda_beam as k4
+    from uasr_torch.ops import decode as decode_mod
+
+    dev = torch.device(DEVICE)
+    vocab = char_vocab()
+    cfg = recipe_config(len(vocab))
+    model = build_model(cfg.model, cfg.dim_output, cfg.frontend.dim_input,
+                        generator=torch.Generator().manual_seed(SEED), device=dev)
+    fstate = make_frontend_state(cfg.frontend, device=dev)
+    requests = make_requests(np, cfg)
+    want = dict.fromkeys(read_launches(), 0)
+    want.update({"K1": 1, "K2": cfg.model.num_gru_layers, "K4": 1})
+    for order, path in tables.items():
+        run_cfg = cfg.replace(ctc=dataclasses.replace(cfg.ctc, lm_path=path))
+        rec, calls = dict(steps=[], waits=[], requests=[]), []
+        reset_launches()
+        with traced_data_path(torch, rec), recorded_beam(torch, decode_mod, calls):
+            r = infer.run_inference(run_cfg, model, fstate, requests, vocab=vocab, device=dev)
+        reqs = rec["requests"]
+        counts = read_launches()
+        check(infer.LAST_BEAM_IMPL == "cuda", f"LM beam ran {infer.LAST_BEAM_IMPL}")
+        check(np.isfinite(r["per"]) and r["ref_tokens"] > 0, f"LM beam: bad score {r}")
+        expect_each(reqs, want, f"{order}-gram beam")
+        check(counts == {k: v * len(requests) for k, v in want.items()},
+              f"{order}-gram beam launches {counts}")
+        wall = r["rtf"] * r["audio_seconds"]
+        print(f"lm offline: {cfg.name} beam {cfg.ctc.beam_width}, lm_weight "
+              f"{cfg.ctc.lm_weight}, {order}-gram {os.path.basename(path)}: "
+              f"{len(requests)} requests in {wall * 1e3:.2f} ms ("
+              + ", ".join(f"{b.audio.shape[1] / 16000:.0f} s {q['wall'] * 1e3:.2f} ms"
+                          for b, q in zip(requests, reqs))
+              + f"), {r['audio_seconds'] / wall:.1f} audio-s/s, PER {r['per']:.3f}; launches "
+              f"{counts}", flush=True)
+        check(len(calls) == len(requests) and all(a[5] == order for a, _ in calls),
+              f"K4 calls recorded: {[a[5] for a, _ in calls]}")
+        t0 = time.perf_counter()
+        for i, (args, state) in enumerate(calls[:-1]):  # the last one below, timed
+            check_beam(torch, k4, args, f"{order}-gram request {i}", state=state)
+        print("  " + k4_lm_timing(torch, k4, *calls[-1], f"K4 {order}-gram, 16 s request")
+              + f"; the {len(calls)} requests' checks against the plain version "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def phase_lm_stream(torch, np, path: str) -> None:
+    """Path 2: configs/aishell_streaming.yaml at full width (cnn, V = 4233
+    stand-in, beam 8) with a bigram [4234, 4233] table through
+    StreamingRecognizer over the stream phase's 64 streams (1 K7 and 1 K4
+    a step, the table carried chunk to chunk), finals against the port's
+    offline LM beam of the same audio; K4 on two of the steps' recorded
+    inputs bit-equal to its plain version, timed; then the daemon for two
+    rounds with the table."""
+    from uasr_torch import serve
+    from uasr_torch.frontend.features import make_frontend_state
+    from uasr_torch.models.models import build_model
+    from uasr_torch.ops import cuda_beam as k4
+    from uasr_torch.serve import StreamingRecognizer
+
+    dev = torch.device(DEVICE)
+    cfg = aishell_config()
+    cfg = cfg.replace(ctc=dataclasses.replace(cfg.ctc, lm_path=path, lm_bonus=STREAM_LM_BONUS))
+    vocab = aishell_vocab()
+    model = build_model(cfg.model, cfg.dim_output, cfg.frontend.dim_input,
+                        generator=torch.Generator().manual_seed(SEED), device=dev)
+    fstate = make_frontend_state(cfg.frontend, device=dev)
+    batch = make_streams(np, cfg, STREAM_B, SEED + 3)
+    calibrate_blank(torch, cfg, model, fstate, batch, dev)
+    t0 = time.perf_counter()
+    ref = offline_ids(cfg, model, fstate, batch, vocab, dev, use_beam=True)
+    off_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec = StreamingRecognizer(cfg, model, device=dev)
+    load_s = time.perf_counter() - t0
+    check(rec.lm_order == 2 and tuple(rec.lm_table.shape) == (STREAM_V + 1, STREAM_V),
+          f"recognizer table {rec.lm_order} {tuple(rec.lm_table.shape)}")
+    want = dict.fromkeys(read_launches(), 0)
+    want.update({"K7": 1, "K4": 1})
+    steps = 0
+
+    def per_step(d):
+        nonlocal steps
+        steps += 1
+        check(d == want, f"LM stream step launches {d}, expected {want}")
+
+    calls = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with recorded_beam(torch, serve, calls):
+        _, final, lat, _ = stream_batch(torch, np, rec, batch, per_step)
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    check(counts["K7"] == steps and counts["K4"] == steps + 1, f"LM stream launches {counts}")
+    cap = cfg.data.max_label_len
+    bad = [b for b in range(STREAM_B) if final[b] != ref[b][:cap]]
+    secs = float(np.sum(batch.audio_lengths)) / cfg.frontend.sample_rate
+    print(f"lm stream: {cfg.name} cnn, V={cfg.dim_output}, beam {cfg.ctc.beam_width}, bigram "
+          f"table {tuple(rec.lm_table.shape)}, lm_weight {cfg.ctc.lm_weight} lm_bonus "
+          f"{cfg.ctc.lm_bonus} ({rec.lm_table.numel() * 4 / 1e6:.1f} MB, loaded "
+          f"onto the card in {load_s * 1e3:.1f} ms); {STREAM_B} streams, {steps} steps + "
+          f"finish in {wall:.3f} s ({secs:.1f} s of audio); finals == offline LM beam for "
+          f"{STREAM_B - len(bad)} of {STREAM_B} (offline decode {off_s:.3f} s, "
+          f"{np.mean([len(x) for x in ref]):.1f} tokens per stream); launches {counts}",
+          flush=True)
+    check(not bad, f"LM streams {bad[:8]} differ from the offline LM beam")
+    report_latency(np, f"B={STREAM_B}, bigram LM", lat[1:], STREAM_B,
+                   rec.chunk_samples / cfg.frontend.sample_rate)
+    for i in (1, len(calls) // 2):
+        print("  " + k4_lm_timing(torch, k4, *calls[i], f"K4 bigram, streaming step {i}"),
+              flush=True)
+    args, state = calls[len(calls) // 2]
+    plain = cuda_ms(torch, lambda: k4.ctc_beam_reference(*args, state=state), 1, warmup=0)
+    print(f"  K4 bigram streaming step plain version {plain:.4f} ms", flush=True)
+    st = rec.init(STREAM_B, batch.audio_lengths)
+    cs = rec.chunk_samples
+    mid = batch.audio.shape[1] // cs // 2
+    for k in range(mid):
+        st, _, _ = rec.step(st, batch.audio[:, k * cs:(k + 1) * cs])
+    profile_call(torch, lambda: rec.step(st, batch.audio[:, mid * cs:(mid + 1) * cs])[1].cpu(),
+                 f"one streaming step of {STREAM_B} streams with the bigram LM")
+    phase_daemon(torch, np, "cnn", rounds=2, lm_path=path)
+
+
+def phase_lm_viterbi(torch, np, root: str) -> None:
+    """Path 3: configs/formant39_unsup.yaml at full width (classifier 384 x
+    2, V = 41, merge_repeats; random weights) decoded by run_inference
+    through GeneratorInfer.logits_fn with ctc.use_viterbi over a bigram and
+    a trigram table from `prepare lm` on the corpus text: the dwell rates
+    calibrated on four probe batches, 1 K1 per decoded batch (and per
+    probe); each batch's Viterbi on the card against the same decoder on
+    CPU copies of its logits."""
+    from uasr_torch import infer, train
+    from uasr_torch.config import load_config
+    from uasr_torch.data.dataset import batch_iterator
+    from uasr_torch.ops import viterbi
+    from uasr_torch.tools import prepare
+
+    dev = torch.device(DEVICE)
+    cfg = load_config(os.path.join(REPO, "configs", "formant39_unsup.yaml"))
+    examples, vocab = unsup_corpus(cfg, VIT_UTTS, seed=SEED + 7)
+    text, vocab_path = os.path.join(root, "f39_text.txt"), os.path.join(root, "f39_vocab.txt")
+    write_text(text, [vocab.decode(ids) for _, ids in examples])
+    with open(vocab_path, "w") as f:
+        f.write("\n".join(vocab.tokens) + "\n")
+    ginf = train.GeneratorInfer(cfg, device=dev)
+    batches = list(batch_iterator(examples, cfg.data.batch_size,
+                                  int(cfg.data.max_audio_seconds * cfg.frontend.sample_rate),
+                                  cfg.data.max_label_len, shuffle=False, num_epochs=1,
+                                  drop_remainder=False))
+    want = dict.fromkeys(read_launches(), 0)
+    want["K1"] = 1
+    make = viterbi.make_lm_decoder
+    for order in (2, 3):
+        lm = os.path.join(root, f"f39_lm{order}.npz")
+        prepare_quiet(prepare, ["lm", "--text", text, "--vocab", vocab_path, "--order",
+                                str(order), "--out", lm])
+        run_cfg = cfg.replace(ctc=dataclasses.replace(cfg.ctc, use_viterbi=True, lm_path=lm))
+        made, runs = [], []
+
+        def recording(table, blank_id, self_loop, blank_prob, device):
+            made.append((self_loop, blank_prob))
+            fn = make(table, blank_id, self_loop, blank_prob, device)
+
+            def decode(logits, lengths):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(logits, lengths)
+                torch.cuda.synchronize()
+                runs.append(dict(wall=time.perf_counter() - t0, logits=logits.clone(),
+                                 lengths=lengths.clone(), out=[x.clone() for x in out]))
+                return out
+
+            return decode
+
+        rec = dict(steps=[], waits=[], requests=[])
+        viterbi.make_lm_decoder = recording
+        reset_launches()
+        try:
+            with traced_data_path(torch, rec):
+                r = infer.run_inference(run_cfg, ginf.gen, ginf.frontend_state, batches,
+                                        vocab=vocab, device=dev, logits_fn=ginf.logits_fn)
+        finally:
+            viterbi.make_lm_decoder = make
+        reqs = rec["requests"]
+        counts = read_launches()
+        n = len(batches)
+        check(np.isfinite(r["per"]) and r["ref_tokens"] > 0, f"viterbi: bad score {r}")
+        expect_each(reqs, want, f"{order}-gram Viterbi")
+        check(counts == dict(want, K1=n + min(4, n)), f"{order}-gram Viterbi launches {counts}")
+        check(len(made) == 1 and len(runs) == n, f"{len(made)} decoders, {len(runs)} decodes")
+        sl, bp = made[0]
+        t_cpu = time.perf_counter()
+        cpu = make(np.load(lm)["logp"], cfg.ctc.blank_id, sl, bp, "cpu")
+        worst = 0.0
+        for i, run in enumerate(runs):
+            ids, k, score = (x.cpu() for x in run["out"])
+            r_ids, r_k, r_score = cpu(run["logits"].cpu(), run["lengths"].cpu())
+            check(torch.equal(ids, r_ids) and torch.equal(k, r_k),
+                  f"{order}-gram batch {i}: card ids differ from the CPU's")
+            rel = float(((score - r_score).abs() / r_score.abs().clamp_min(1e-30)).max())
+            worst = max(worst, rel)
+            check(rel <= 1e-5, f"{order}-gram batch {i}: score rel {rel:.3e}")
+        t_cpu = time.perf_counter() - t_cpu
+        wall = r["rtf"] * r["audio_seconds"]
+        vit = sum(x["wall"] for x in runs)
+        T = max(int(x["logits"].shape[1]) for x in runs)
+        print(f"lm viterbi: {cfg.name} classifier {cfg.model.classifier_hidden} x "
+              f"{cfg.model.classifier_layers}, V={cfg.dim_output}, merged stream (T up to {T}), "
+              f"{order}-gram table from prepare lm: rates calibrated on {min(4, n)} probe "
+              f"batches self_loop {sl:.6f} blank_prob {bp:.6f}; {n} batches of "
+              f"{cfg.data.batch_size} decoded in {wall * 1e3:.2f} ms, Viterbi {vit * 1e3:.2f} ms "
+              f"of it ({vit / wall:.1%}), {r['audio_seconds'] / wall:.1f} audio-s/s, PER "
+              f"{r['per']:.3f}; card == CPU ids in every row of all {n} batches, score rel "
+              f"max {worst:.2e} (the CPU's decodes {t_cpu:.2f} s); launches {counts}",
+              flush=True)
+
+
+def phase_lm_cli(torch, np, root: str) -> None:
+    """Path 3 through the CLI and path 4: configs/timit_ctc_mini.yaml's
+    checkpoint from the data phase decoded by `--mode infer --set
+    ctc.use_viterbi=true --set ctc.lm_path=...` (a bigram from `prepare lm`
+    on the list's transcripts; 1 K1 per batch and probe), and
+    ``python -m uasr_torch.tools.align``'s main on the data phase's
+    librispeech_ctc_bigru checkpoint over its 64-utterance test list (B =
+    32, 16 s; 1 K1 and 3 K2 per batch): every utterance whose transcript
+    fits its frames collapses back to its transcript; each batch's
+    ctc_forced_align timed alone, synchronised around it."""
+    import re
+
+    from uasr_torch.data.io import read_utterance_list
+    from uasr_torch.ops import viterbi
+    from uasr_torch.tools import align, prepare
+    from uasr_torch.vocab import load_vocab
+
+    timit_lst = os.path.join(root, "timit.tsv")
+    phones = os.path.join(root, "phones61.txt")
+    text = os.path.join(root, "timit_text.txt")
+    write_text(text, [u.tokens for u in read_utterance_list(timit_lst)])
+    lm = os.path.join(root, "timit_lm2.npz")
+    prepare_quiet(prepare, ["lm", "--text", text, "--vocab", phones, "--out", lm])
+    rec = dict(steps=[], waits=[], requests=[])
+    reset_launches()
+    t0 = time.perf_counter()
+    with traced_data_path(torch, rec):
+        out = run_cli(torch, ["-c", os.path.join(REPO, "configs", "timit_ctc_mini.yaml"),
+                              "--mode", "infer", "--set", f"data.test_list={timit_lst}",
+                              "--set", f"data.vocab_path={phones}", "--set",
+                              f"model_dir={os.path.join(root, 'timit')}", "--set",
+                              "ctc.use_viterbi=true", "--set", f"ctc.lm_path={lm}"])
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    reqs = rec["requests"]
+    want = dict.fromkeys(counts, 0)
+    want["K1"] = 1
+    expect_each(reqs, want, "timit Viterbi")
+    n = len(reqs)
+    check(n > 0 and counts == dict(want, K1=n + min(4, n)), f"timit Viterbi launches {counts}")
+    hit = re.search(r"PER=([0-9.]+) PER_folded=([0-9.]+|nan)", out)
+    check(hit is not None and np.isfinite(float(hit.group(2))), f"timit Viterbi printed {out!r}")
+    shape = tuple(np.load(lm)["logp"].shape)
+    print(f"lm cli: timit_ctc_mini --mode infer with ctc.use_viterbi over a bigram {shape}: "
+          f"{n} batches in {wall:.2f} s (decode {sum(q['wall'] for q in reqs) * 1e3:.2f} ms): "
+          f"{out.strip()}; launches {counts}", flush=True)
+
+    libri = os.path.join(REPO, "configs", "librispeech_ctc_bigru.yaml")
+    test_lst = os.path.join(root, "test.tsv")
+    chars = os.path.join(root, "chars.txt")
+    out_lst = os.path.join(root, "test_aligned.tsv")
+    forced, fa = viterbi.ctc_forced_align, []
+
+    def timed_align(logits, lengths, labels, label_lengths, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = forced(logits, lengths, labels, label_lengths, **kw)
+        torch.cuda.synchronize()
+        fa.append((time.perf_counter() - t, tuple(logits.shape), tuple(labels.shape)))
+        return out
+
+    reset_launches()
+    viterbi.ctc_forced_align = timed_align
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            rc = align.main(["-c", libri, "--split", "test", "--out", out_lst, "--set",
+                             f"data.test_list={test_lst}", "--set", f"data.vocab_path={chars}",
+                             "--set", f"model_dir={os.path.join(root, 'libri')}"])
+        torch.cuda.synchronize()
+    finally:
+        viterbi.ctc_forced_align = forced
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    check(rc == 0, f"align exit {rc}")
+    utts = read_utterance_list(out_lst)
+    nb = -(-len(utts) // 32)
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1": nb, "K2": 3 * nb})
+    check(counts == want, f"align launches {counts}, expected {want}")
+    check(len(fa) == nb, f"{len(fa)} forced alignments for {nb} batches")
+    vocab = load_vocab(chars)
+    total = 4  # frontend.downsample 1 x two stride-2 convs
+    fits = ok = 0
+    for u in utts:
+        lab = vocab.encode(u.tokens)[:256]
+        track = vocab.encode(u.align_tokens)
+        check(len(track) % total == 0, f"{u.utt_id}: {len(track)} frames")
+        frames = track[::total]
+        if len(frames) < len(lab) + sum(a == b for a, b in zip(lab, lab[1:])):
+            continue
+        fits += 1
+        merged = [t for i, t in enumerate(frames) if t != 0 and (i == 0 or t != frames[i - 1])]
+        ok += merged == lab
+    print(f"lm align: tools.align on librispeech_ctc_bigru (the data phase's step-"
+          f"{DATA_STEPS} checkpoint), {len(utts)} utterances in {nb} batches of 32 at 16 s in "
+          f"{wall:.2f} s (ctc_forced_align " + ", ".join(
+              f"{ms * 1e3:.2f} ms on logits {lg} labels {lb}" for ms, lg, lb in fa)
+          + f"); {err.getvalue().strip().splitlines()[-1]}; {fits} fit their frames, "
+          f"{ok} of them collapse to their transcript; launches {counts}", flush=True)
+    check(fits > 0 and ok == fits, f"alignments: {ok} of {fits} collapse to the transcript")
+
+
+def phase_lm_decode(torch, np, root: str) -> None:
+    """Paths 1-4 of the LM and HMM decode slice (after phase_data, whose
+    checkpoints and lists under ``root`` paths 3 and 4 read)."""
+    from uasr_torch.tools import prepare
+
+    t_phase = time.perf_counter()
+    chars = os.path.join(root, "chars.txt")
+    letters = char_vocab().tokens[1:29]
+    text = os.path.join(root, "lm_text.txt")
+    seqs = random_seqs(np, SEED + 11, letters)
+    write_text(text, seqs)
+    arpa = os.path.join(root, "lm.arpa")
+    write_arpa(arpa, seqs)
+    tables = {2: os.path.join(root, "lm2.npz"), 3: os.path.join(root, "lm3.npz")}
+    prepare_quiet(prepare, ["lm", "--text", text, "--vocab", chars, "--order", "2", "--out",
+                            tables[2]])
+    prepare_quiet(prepare, ["import-arpa", "--arpa", arpa, "--vocab", chars, "--order", "3",
+                            "--out", tables[3]])
+    t0 = time.perf_counter()
+    phase_lm_offline(torch, np, root, tables)
+    print(f"  path 1: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    vocab = aishell_vocab()
+    with open(os.path.join(root, "chars4233.txt"), "w") as f:
+        f.write("\n".join(vocab.tokens) + "\n")
+    write_text(os.path.join(root, "lm_text4233.txt"),
+               random_seqs(np, SEED + 12, vocab.tokens[2:-1]))
+    t0 = time.perf_counter()
+    big = os.path.join(root, "lm4233.npz")
+    prepare_quiet(prepare, ["lm", "--text", os.path.join(root, "lm_text4233.txt"), "--vocab",
+                            os.path.join(root, "chars4233.txt"), "--out", big])
+    print(f"lm stream table: prepare lm over {LM_SEQS} sentences, V={STREAM_V}: "
+          f"{os.path.getsize(big) / 1e6:.1f} MB in {time.perf_counter() - t0:.2f} s", flush=True)
+    phase_lm_stream(torch, np, big)
+    print(f"  path 2 with the table's build: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_lm_viterbi(torch, np, root)
+    print(f"  path 3, formant39: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_lm_cli(torch, np, root)
+    print(f"  path 3 through the CLI and path 4: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  lm decode phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2626,6 +3149,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         phase_data(torch, np, tmp)
+        phase_lm_decode(torch, np, tmp)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",

@@ -4,7 +4,8 @@ reach: audio shorter than one frame and the log-energy column (K1, K7),
 batch rows split over several passes and idle hidden units, B = 1, 4 and
 7 at H = 512 and wh streamed at H = 1536 and 2304 (K2, also against K5),
 one-beam and full-warp beams, V above a warp and at 4233, a non-zero
-blank, zero lengths, and a decode fed in chunks from a carried state (K4;
+blank, zero lengths, and a decode fed in chunks from a carried state, at
+V = 4233 with a bigram table too (K4;
 also its main-path shapes, both sides of the cluster threshold, W = 32 at
 the largest vocabulary, fewer live candidates than beams, determinism and
 the phase-stamped build),
@@ -16,8 +17,9 @@ K3-bwd), the edges of
 K5-bwd's tensor-core tiles and its coefficient kernel alone, K5's skipped
 products of masked passes and warp tiles, wh streamed past shared memory
 (K5, K5-bwd, K8 at H = 1536 and 2304), input each kernel must refuse, and
-the encoder, one training step and the streaming recognizer on CUDA against
-the same weights on the CPU.
+the encoder, one training step, the streaming recognizer, the HMM Viterbi
+decode (bigram and trigram) and CTC forced alignment on CUDA against the
+same weights or logits on the CPU.
 
 Every test needs a CUDA card and skips without one. On the card, from the
 repository root (the package ``uasr`` and JAX are not needed there):
@@ -279,19 +281,21 @@ def _assert_beam_equal(got, ref, blank):
     assert float((score - r_score).abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("lm_order", [0, 3])
-def test_beam_kernel_carried_chunks_equal_one_pass(dev, lm_order):
+@pytest.mark.parametrize("lm_order,V", [(0, 50), (3, 50), (2, 4233)],
+                         ids=["0", "3", "2-V4233"])
+def test_beam_kernel_carried_chunks_equal_one_pass(dev, lm_order, V):
     """K4 fed chunks of one log-prob sequence, each from the state the
-    previous one left, gives one pass's backpointers and state."""
+    previous one left, gives one pass's backpointers and state; at V = 4233
+    with a bigram table, the streaming LM decode's shape."""
     rng = np.random.RandomState(11)
-    B, T, V, W = 4, 40, 50, 8
+    B, T, W = 4, 40, 8
     logp = torch.log_softmax(torch.tensor(rng.randn(B, T, V) * 3.0, dtype=torch.float32,
                                           device=dev), -1).contiguous()
     lengths = torch.tensor([T, 33, 16, 0], device=dev)
     lm = None
     if lm_order:
-        lm = torch.tensor(np.log(rng.dirichlet(np.ones(V), (V + 1) ** 2)), dtype=torch.float32,
-                          device=dev)
+        lm = torch.tensor(np.log(rng.dirichlet(np.ones(V), (V + 1) ** (lm_order - 1))),
+                          dtype=torch.float32, device=dev)
     kw = dict(lm_table=lm, lm_order=lm_order, lm_weight=0.5, lm_bonus=0.3)
     p1, c1, s1 = cuda_beam.ctc_beam_cuda(logp, lengths, W, 0, **kw)
     state, ps, cs = None, [], []
@@ -488,6 +492,61 @@ def test_streaming_on_card_matches_cpu(dev, beam):
         outs.append(got)
     for (a, na), (b, nb) in zip(*outs):
         assert torch.equal(a, b) and torch.equal(na, nb)
+
+
+def _hmm_logits(seed, B, T, V, ties):
+    """Random logits, or one-hot runs (whole rows of tied HMM paths)."""
+    rng = np.random.RandomState(seed)
+    if ties:
+        ids = np.repeat(rng.randint(0, V, (B, T // 2 + 1)), 2, axis=1)[:, :T]
+        return (10.0 * np.eye(V, dtype=np.float32)[ids]).astype(np.float32)
+    return (2.0 * rng.randn(B, T, V)).astype(np.float32)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "one_hot"])
+@pytest.mark.parametrize("order", [2, 3], ids=["bigram", "trigram"])
+def test_viterbi_on_card_equals_cpu(dev, order, ties):
+    """The HMM Viterbi decode over a bigram and a trigram table on CUDA
+    tensors against the same calls on the CPU: ids and lengths equal,
+    scores to 1e-5 relative."""
+    from uasr_torch.ops.lm import build_bigram_lm, build_trigram_lm
+    from uasr_torch.ops.viterbi import make_lm_decoder
+
+    V = 41
+    rng = np.random.RandomState(order)
+    seqs = [list(rng.randint(1, V, rng.randint(2, 12))) for _ in range(200)]
+    table = (build_bigram_lm if order == 2 else build_trigram_lm)(seqs, V, exclude=(0,))
+    logits = _hmm_logits(order + 2 * ties, 5, 60, V, ties)
+    lengths = np.array([60, 37, 1, 0, 60])
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        fn = make_lm_decoder(table, 0, self_loop=0.05 if ties else 0.75, blank_prob=0.2,
+                             device=d)
+        outs.append([x.cpu() for x in fn(torch.tensor(logits, device=d),
+                                         torch.tensor(lengths, device=d))])
+    (ids, n, score), (r_ids, r_n, r_score) = outs
+    assert torch.equal(ids, r_ids) and torch.equal(n, r_n)
+    assert float(((score - r_score).abs() / r_score.abs().clamp_min(1e-30)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "one_hot"])
+def test_forced_align_on_card_equals_cpu(dev, ties):
+    from uasr_torch.ops.viterbi import ctc_forced_align
+
+    V, T = 32, 80
+    logits = _hmm_logits(5 + ties, 4, T, V, ties)
+    rng = np.random.RandomState(6)
+    labels = rng.randint(1, V, (4, 30))
+    labels[0, 3] = labels[0, 2]  # a repeat: no skip between them
+    llen = np.array([30, 12, 0, 30])
+    lengths = np.array([T, 50, 40, 20])  # the last transcript does not fit its frames
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        outs.append([x.cpu() for x in ctc_forced_align(
+            *(torch.tensor(x, device=d) for x in (logits, lengths, labels, llen)))])
+    (ids, score), (r_ids, r_score) = outs
+    assert torch.equal(ids, r_ids)
+    assert float(((score - r_score).abs() / r_score.abs().clamp_min(1e-30)).max()) <= 1e-5
 
 
 @pytest.mark.parametrize("front", ["conv2d", "patch"])

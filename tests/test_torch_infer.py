@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import jax
+import jax.numpy as jnp
 
 from uasr.config import Config as JaxConfig
 from uasr.config import CTCConfig as JaxCTCConfig
@@ -19,7 +20,7 @@ from uasr.config import ModelConfig as JaxModelConfig
 from uasr.config import TrainConfig as JaxTrainConfig
 from uasr.data.dataset import batch_iterator, make_synthetic_dataset
 from uasr.infer import run_inference as jax_run_inference
-from uasr.train import CTCTrainer
+from uasr.train import CTCTrainer, TrainState
 from uasr.vocab import load_vocab as jax_load_vocab
 from uasr.vocab import make_vocab as jax_make_vocab
 from uasr_torch import config as tc
@@ -40,7 +41,11 @@ def trained():
                     train=JaxTrainConfig(total_steps=1), vocab_size=len(vocab))
     trainer = CTCTrainer(cfg)
     first = next(iter(batch_iterator(examples, 8, 16000, 8, shuffle=False)))
-    state = trainer.init_state(jax.random.PRNGKey(0), first)
+    # init_state's parameters, with the model's init jitted (seconds faster)
+    feats, flen = trainer._feats(first.audio, first.audio_lengths)
+    params = jax.jit(trainer.model.init)(jax.random.PRNGKey(0), feats, flen)
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       opt_state=trainer.optimizer.init(params))
     return examples, vocab, cfg, trainer, state
 
 
@@ -77,7 +82,7 @@ def test_run_inference_matches_jax(trained, use_beam, tmp_path, monkeypatch):
     assert infer.LAST_BEAM_IMPL == ("reference" if use_beam else None)
 
 
-def test_entry_points_need_cuda_or_explicit_cpu(trained):
+def test_entry_points_need_cuda_or_explicit_cpu(trained, tmp_path):
     examples, vocab, _, _, state = trained
     cfg, model, fstate = _port({}, len(vocab), state.params)
     if not torch.cuda.is_available():
@@ -85,14 +90,20 @@ def test_entry_points_need_cuda_or_explicit_cpu(trained):
             infer.run_inference(cfg, model, fstate, _batches(examples))
         with pytest.raises(RuntimeError, match="cuda"):
             make_frontend_state(cfg.frontend)
-    unported = [
-        (dataclasses.replace(cfg, ctc=tc.CTCConfig(use_viterbi=True)), {}, "viterbi"),
-        (dataclasses.replace(cfg, ctc=tc.CTCConfig(use_beam=True, lm_path="lm.npz")), {},
-         "lm_path"),
-        (cfg, {"device": ["cpu", "cpu"]}, "multi-device"),
+    V = len(vocab)
+    wrong_lm = str(tmp_path / "lm.npz")  # a bigram table of V - 1 symbols
+    np.savez(wrong_lm, logp=np.zeros((V, V - 1), np.float32))
+    refused = [
+        (dataclasses.replace(cfg, ctc=tc.CTCConfig(use_viterbi=True)), {}, ValueError,
+         "use_viterbi needs ctc.lm_path"),
+        (dataclasses.replace(cfg, ctc=tc.CTCConfig(use_viterbi=True, lm_path=wrong_lm)), {},
+         ValueError, "trigram table, got"),
+        (dataclasses.replace(cfg, ctc=tc.CTCConfig(use_beam=True, lm_path=wrong_lm)), {},
+         ValueError, "does not match the model vocabulary"),
+        (cfg, {"device": ["cpu", "cpu"]}, NotImplementedError, "multi-device"),
     ]
-    for c, kw, what in unported:
-        with pytest.raises(NotImplementedError, match=what):
+    for c, kw, exc, what in refused:
+        with pytest.raises(exc, match=what):
             infer.run_inference(c, model, fstate, _batches(examples), **{"device": "cpu", **kw})
 
 

@@ -15,6 +15,8 @@ UNSUP = ("uasr_torch/ops/wgan.py", "uasr_torch/ops/eodm.py", "uasr_torch/ops/seg
          "uasr_torch/models/models.py", "uasr_torch/data/dataset.py")
 # the data-at-scale slice's: the streaming loader and the native host runtime's binding
 DATA = ("uasr_torch/data/loader.py", "uasr_torch/native/__init__.py")
+# the LM and HMM decode slice's: Viterbi and forced alignment, the align tool
+LM = ("uasr_torch/ops/viterbi.py", "uasr_torch/tools/align.py")
 
 
 def _port_files():
@@ -29,7 +31,7 @@ def _module_name(path: pathlib.Path) -> str:
 
 def test_imports_pull_in_no_jax_flax_or_uasr():
     files = {str(p.relative_to(REPO)) for p in _port_files()}
-    assert set(UNSUP) <= files and set(DATA) <= files
+    assert set(UNSUP) <= files and set(DATA) <= files and set(LM) <= files
     mods = [_module_name(p) for p in _port_files()]
     code = (
         "import importlib, sys\n"

@@ -271,9 +271,11 @@ def test_approx_context_bigru_matches_jax():
     np.testing.assert_array_equal(n.numpy(), np.asarray(jn))
 
 
-def test_rejections(weights):
+def test_rejections(weights, tmp_path):
     _, model = weights
     cfg = _cfg()
+    wrong_lm = str(tmp_path / "lm.npz")  # a bigram table of V - 1 symbols
+    np.savez(wrong_lm, logp=np.zeros((V, V - 1), np.float32))
     assert streaming_receptive_field(cfg.model) == (2 + 4 + 8 + 16, 2)
     rec = StreamingRecognizer(cfg, model, device="cpu")
     assert (rec.lookback, rec.window) == (32, 96)
@@ -292,8 +294,8 @@ def test_rejections(weights):
          "chunk grid"),
         (dict(model=dataclasses.replace(cfg.model, encoder="transformer")), ValueError,
          "unbounded context"),
-        (dict(ctc=dataclasses.replace(cfg.ctc, lm_path="lm.arpa", use_beam=True)),
-         NotImplementedError, "load_lm"),
+        (dict(ctc=dataclasses.replace(cfg.ctc, lm_path=wrong_lm, use_beam=True)),
+         ValueError, "does not match"),
         (dict(train=TrainConfig(mode="gan"), gan=GANConfig(merge_repeats=True,
                                                            segmenter="kmeans")),
          ValueError, "segmenter"),

@@ -9,8 +9,10 @@ or the split's own transcripts), resuming from the newest checkpoint
 under ``model_dir/ckpt``. ``--mode infer`` restores the newest
 checkpoint (or the average of the newest ``train.average_checkpoints``,
 or ``best_ckpt`` with ``train.restore_best``) and decodes the test split
-with ``run_inference``; a GAN or EODM checkpoint decodes through the
-chain it trained on (``GeneratorInfer.logits_fn``). ``--device``
+with ``run_inference`` (greedy, ``ctc.use_beam`` with an optional
+``ctc.lm_path`` table, or ``ctc.use_viterbi`` over that table); a GAN or
+EODM checkpoint decodes through the chain it trained on
+(``GeneratorInfer.logits_fn``), for the Viterbi's rate probe too. ``--device``
 defaults to ``cuda`` and raises without a card; ``--device cpu`` runs
 the plain PyTorch versions of the kernels.
 ``--set`` casts each value to the field's type and rejects unknown keys.

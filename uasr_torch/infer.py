@@ -1,19 +1,28 @@
 """Inference / decode entry (counterpart of ``uasr.infer``, ``--mode infer``).
 
-Decodes batches on one device (greedy or exact prefix beam search) and
+Decodes batches on one device (greedy, exact prefix beam search with
+optional shallow n-gram fusion, or HMM Viterbi over an n-gram table) and
 reports PER/CER plus decode RTF (decode wall time / audio seconds), and
 with ``fold_timit`` the PER in TIMIT's folded 39-phone space, scored on
 the host by the native edit distance.
 On CUDA the frontend, the BiGRU recurrence and the beam recursion go
 through kernels K1, K2 and K4 when ``frontend.use_pallas``,
-``model.gru_pallas`` and ``ctc.use_beam`` are set. A GAN or EODM
-generator decodes through ``logits_fn`` (``train.GeneratorInfer``: the
-frontend, segmentation, classifier and repeat merge it trained on), which
-replaces the frontend and the model.
+``model.gru_pallas`` and ``ctc.use_beam`` are set; ``ctc.lm_path`` hands
+K4 a bigram or trigram table, loaded onto the device once per run.
+``ctc.use_viterbi`` decodes with ``ops.viterbi.make_lm_decoder`` over the
+``ctc.lm_path`` table (plain PyTorch on the logits' device, as the JAX
+package runs it outside any kernel), its dwell rates calibrated on the
+first four batches' greedy paths (``resolve_viterbi_rates``; those
+batches' forward is run once more, outside the timed wall). A GAN or
+EODM generator decodes through ``logits_fn`` (``train.GeneratorInfer``:
+the frontend, segmentation, classifier and repeat merge it trained on),
+which replaces the frontend and the model, for the probe as for the
+decode.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Iterable
 
@@ -26,6 +35,7 @@ from uasr_torch.data.dataset import Batch
 from uasr_torch.frontend.features import FrontendState, compute_features
 from uasr_torch.ops.decode import ctc_beam_search_decode, ctc_greedy_decode
 from uasr_torch.ops.edit_distance import batch_edit_distance
+from uasr_torch.ops.lm import load_decode_table
 from uasr_torch.vocab import Vocab
 
 # which beam recursion the last run_inference ran: "cuda" (K4) or
@@ -33,20 +43,26 @@ from uasr_torch.vocab import Vocab
 LAST_BEAM_IMPL: str | None = None
 
 
+def _logits(cfg: Config, model, fstate: FrontendState, audio, alen, logits_fn=None):
+    if logits_fn is not None:
+        return logits_fn(audio, alen)
+    if audio.ndim == 3:  # precomputed features: frontend bypassed
+        return model(audio, alen)
+    feats, flen = compute_features(audio, alen, fstate, cfg.frontend)
+    return model(feats, flen)
+
+
 def _decode_batch(cfg: Config, model, fstate: FrontendState, db: list[torch.Tensor],
-                  logits_fn=None):
+                  logits_fn=None, lm_table=None, viterbi_fn=None):
     global LAST_BEAM_IMPL
     audio, alen, labels, llen = db
-    if logits_fn is not None:
-        logits, out_len = logits_fn(audio, alen)
-    elif audio.ndim == 3:  # precomputed features: frontend bypassed
-        logits, out_len = model(audio, alen)
-    else:
-        feats, flen = compute_features(audio, alen, fstate, cfg.frontend)
-        logits, out_len = model(feats, flen)
-    if cfg.ctc.use_beam:
+    logits, out_len = _logits(cfg, model, fstate, audio, alen, logits_fn)
+    if viterbi_fn is not None:
+        hyps, hyp_len, _ = viterbi_fn(logits, out_len)
+    elif cfg.ctc.use_beam:
         hyps, hyp_len, _ = ctc_beam_search_decode(
-            logits, out_len, cfg.ctc.beam_width, cfg.ctc.blank_id)
+            logits, out_len, cfg.ctc.beam_width, cfg.ctc.blank_id, lm_logp=lm_table,
+            lm_weight=cfg.ctc.lm_weight, lm_bonus=cfg.ctc.lm_bonus)
         LAST_BEAM_IMPL = "cuda" if logits.is_cuda else "reference"
     else:
         hyps, hyp_len = ctc_greedy_decode(logits, out_len, cfg.ctc.blank_id)
@@ -79,18 +95,41 @@ def run_inference(
     ``compute_features``."""
     global LAST_BEAM_IMPL
     LAST_BEAM_IMPL = None
-    if cfg.ctc.use_viterbi:
-        raise NotImplementedError(
-            "ctc.use_viterbi (HMM Viterbi decode, ops/viterbi.py) is not ported yet "
-            "(ROADMAP.md Queue 1, slice 3: LM and HMM decode)")
-    if cfg.ctc.lm_path:
-        raise NotImplementedError(
-            "ctc.lm_path needs ops/lm.py::load_lm, not ported yet (ROADMAP.md "
-            "Queue 1, slice 3: LM and HMM decode); ctc_beam_search_decode takes a "
-            "table directly")
     device = resolve_device(device)
     model = model.to(device).eval()
     fstate = frontend_state.to(device)
+    V = cfg.dim_output
+    viterbi_fn = lm_table = None
+    if cfg.ctc.use_viterbi:
+        from uasr_torch.ops.viterbi import make_lm_decoder, resolve_viterbi_rates
+
+        if not cfg.ctc.lm_path:
+            raise ValueError(
+                "ctc.use_viterbi needs ctc.lm_path (a bigram/trigram "
+                "table from `prepare lm`) for the HMM transitions"
+            )
+        table = load_decode_table(cfg.ctc.lm_path, V, lambda shape: (
+            f"ctc.use_viterbi needs a [{V + 1}, {V}] bigram or "
+            f"[{V + 1}, {V + 1}, {V}] trigram table, got {shape}"))
+        # dwell calibration on the first batches' greedy paths, through the
+        # same forward as the decode; they are decoded again below
+        batches = iter(batches)
+        probe = list(itertools.islice(batches, 4))
+        batches = itertools.chain(probe, batches)
+
+        def probe_fn(b):
+            audio, alen = _upload(b, device)[:2]
+            with torch.inference_mode():
+                return _logits(cfg, model, fstate, audio, alen, logits_fn)
+
+        sl, bp, _how = resolve_viterbi_rates(cfg.ctc, probe_fn, probe)
+        viterbi_fn = make_lm_decoder(table, cfg.ctc.blank_id, self_loop=sl, blank_prob=bp,
+                                     device=device)
+    if cfg.ctc.use_beam and cfg.ctc.lm_path:
+        table = load_decode_table(cfg.ctc.lm_path, V, lambda shape: (
+            f"ctc.lm_path table shape {shape} does not match the model vocabulary "
+            f"([{V + 1}, {V}] bigram or [{V + 1}, {V + 1}, {V}] trigram expected)"))
+        lm_table = torch.as_tensor(table, device=device)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *_: None)
     errs = total = 0
     audio_sec = 0.0
@@ -101,12 +140,12 @@ def run_inference(
     try:
         for b in batches:
             b_np = Batch(*(np.asarray(x) for x in b))
-            db = [torch.as_tensor(b_np.audio, dtype=torch.float32).to(device)] + [
-                torch.as_tensor(x, dtype=torch.long).to(device) for x in b_np[1:]]
+            db = _upload(b_np, device)
             sync(device)
             t0 = time.perf_counter()
             with torch.inference_mode():
-                hyps, hyp_len, e, t = _decode_batch(cfg, model, fstate, db, logits_fn)
+                hyps, hyp_len, e, t = _decode_batch(cfg, model, fstate, db, logits_fn,
+                                                    lm_table, viterbi_fn)
             sync(device)
             wall += time.perf_counter() - t0
             hyps, hyp_len = hyps.cpu().numpy(), hyp_len.cpu().numpy()
@@ -141,6 +180,12 @@ def run_inference(
     if fold_pairs:
         out["per_folded"] = folded_per(fold_pairs)
     return out
+
+
+def _upload(b, device) -> list[torch.Tensor]:
+    """A batch's audio (f32) and lengths and labels (int64) on ``device``."""
+    return [torch.as_tensor(np.asarray(b[0]), dtype=torch.float32).to(device)] + [
+        torch.as_tensor(np.asarray(x), dtype=torch.long).to(device) for x in b[1:]]
 
 
 def folded_per(pairs: list[tuple[list[str], list[str]]]) -> float:

@@ -1,1 +1,2 @@
-"""Decoding, the CTC prefix-beam kernel (K4) and edit distance."""
+"""Decoding (greedy, the CTC prefix-beam kernel K4, HMM Viterbi and forced
+alignment), the CTC loss, n-gram tables and the other ops of the port."""

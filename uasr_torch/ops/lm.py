@@ -1,6 +1,7 @@
-"""Token n-gram language model tables (counterpart of the parts of
-``uasr.ops.lm`` that unsupervised model selection and ``prepare lm``
-need; ARPA import is not ported yet, ROADMAP.md Queue 1, item 8).
+"""Token n-gram language model tables (counterpart of ``uasr.ops.lm``):
+the add-k builds of ``prepare lm``, ARPA import (``prepare import-arpa``:
+the Katz backoff chain evaluated into every cell), the tables' files, and
+the label-free selection score.
 
 The LM is a dense [V + 1, V] (bigram) or [V + 1, V + 1, V] (trigram)
 table of log-probabilities: row ``h`` (0 <= h < V) is log P(next | prev =
@@ -62,6 +63,17 @@ def load_lm(path: str) -> np.ndarray:
         return z["logp"].astype(np.float32)
 
 
+def load_decode_table(path: str, V: int, mismatch) -> np.ndarray:
+    """``load_lm`` for a decoder over V tokens: a table that is neither a
+    [V + 1, V] bigram nor a [V + 1, V + 1, V] trigram raises ValueError
+    with ``mismatch(shape)`` as its text (a mismatched table would index
+    past its rows)."""
+    table = load_lm(path)
+    if table.shape not in ((V + 1, V), (V + 1, V + 1, V)):
+        raise ValueError(mismatch(table.shape))
+    return table
+
+
 def load_unigram(path: str) -> np.ndarray | None:
     with np.load(path) as z:
         if "unigram" not in z:
@@ -97,6 +109,146 @@ def build_trigram_lm(
     counts[:, :, ~keep] = 1e-20
     logp = np.log(counts) - np.log(counts.sum(axis=2, keepdims=True))
     return logp.astype(np.float32)
+
+
+def parse_arpa(path: str) -> dict:
+    """Parse an ARPA-format n-gram LM file (the KenLM/SRILM interchange
+    format the wav2vec-U lineage ships its phoneme LMs in).
+
+    Returns {order: {(sym, ...): (log10_prob, log10_backoff)}} — backoff
+    is 0.0 when the entry carries none. Accepts the standard layout:
+    \\data\\ counts, \\N-grams: sections with tab- or space-separated
+    fields, \\end\\."""
+    ngrams: dict[int, dict] = {}
+    order = 0
+    with open(path) as f:
+        for raw in f:
+            line = raw.strip()
+            if not line or line.startswith("\\data\\"):
+                continue
+            if line.startswith("\\end\\"):
+                break
+            if line.startswith("\\") and line.endswith("-grams:"):
+                order = int(line[1:].split("-")[0])
+                ngrams[order] = {}
+                continue
+            if order == 0:  # still in the \data\ header ("ngram 1=N")
+                continue
+            parts = line.split()
+            if len(parts) < order + 1:
+                continue
+            lp = float(parts[0])
+            syms = tuple(parts[1 : 1 + order])
+            bo = (
+                float(parts[order + 1])
+                if len(parts) > order + 1 else 0.0
+            )
+            ngrams[order][syms] = (lp, bo)
+    if not ngrams:
+        raise ValueError(f"{path}: no n-gram sections found (not ARPA?)")
+    return ngrams
+
+
+def arpa_to_table(
+    ngrams: dict,
+    tokens: list[str],
+    order: int | None = None,
+    exclude: tuple[int, ...] = (),
+) -> tuple[np.ndarray, np.ndarray]:
+    """Evaluate an ARPA model's backoff chain into the dense decode
+    table (`ctc.lm_path` format): [V+1, V] for order 2 or
+    [V+1, V+1, V] for order 3, history index V = start-of-sequence
+    (the ARPA '<s>' context). Returns (logp_table, unigram).
+
+    Backoff semantics (Katz): P(w|h) = 10^lp(h,w) if the n-gram is
+    listed, else 10^bo(h) * P(w|h') with h' the shortened history; an
+    unlisted history backs off with weight 1. Rows are renormalized
+    over the DECODER's column space (real tokens; `exclude` columns —
+    the CTC blank — and ARPA-only symbols like </s>/<unk> drop out),
+    so table rows are proper distributions for shallow fusion.
+    Vocabulary tokens absent from the ARPA get the <unk> unigram when
+    present, else a floor — every transition stays finite/decodable."""
+    V = len(tokens)
+    if order is None:
+        order = min(max(ngrams), 3)
+    if order not in (2, 3):
+        raise ValueError(f"dense decode tables support order 2 or 3, "
+                         f"got {order}")
+    if order > max(ngrams):
+        raise ValueError(
+            f"requested order {order} but the ARPA file only has "
+            f"{max(ngrams)}-grams"
+        )
+    uni = ngrams.get(1, {})
+    unk_lp = uni.get(("<unk>",), (None, 0.0))[0]
+    tok2id = {t: i for i, t in enumerate(tokens)}
+    tok2id["<s>"] = V
+
+    # column probabilities + per-history backoff weights, by symbol
+    p1 = np.full((V,), 1e-12, np.float64)
+    for i, t in enumerate(tokens):
+        lp = uni.get((t,), (None, 0.0))[0]
+        if lp is None:
+            lp = unk_lp
+        if lp is not None:
+            p1[i] = 10.0 ** lp
+    # history axis: 0..V-1 = real tokens, V = '<s>'
+    hist = tokens + ["<s>"]
+    bo1 = np.ones((V + 1,), np.float64)
+    for h, sym in enumerate(hist):
+        ent = uni.get((sym,))
+        if ent is not None:
+            bo1[h] = 10.0 ** ent[1]
+
+    P2 = bo1[:, None] * p1[None, :]
+    for (s1, s2), (lp, _bo) in ngrams.get(2, {}).items():
+        h, w = tok2id.get(s1), tok2id.get(s2)
+        if h is None or w is None or w == V:
+            continue  # symbol outside the decoder vocabulary
+        P2[h, w] = 10.0 ** lp
+
+    keep = np.ones(V, bool)
+    for e in exclude:
+        if 0 <= e < V:
+            keep[e] = False
+
+    def norm(P):
+        P = P.copy()
+        P[..., ~keep] = 1e-20
+        return (np.log(P) - np.log(P.sum(-1, keepdims=True))).astype(
+            np.float32
+        )
+
+    unigram = (p1 * keep) / max((p1 * keep).sum(), 1e-12)
+    if order == 2:
+        return norm(P2), unigram.astype(np.float32)
+
+    bo2 = np.ones((V + 1, V + 1), np.float64)
+    for (s1, s2), (_lp, bo) in ngrams.get(2, {}).items():
+        h2, h1 = tok2id.get(s1), tok2id.get(s2)
+        if h2 is None or h1 is None:
+            continue
+        bo2[h2, h1] = 10.0 ** bo
+    # histories containing '<s>' in slot h1 never re-enter P2's start
+    # row except via the (V, V) = sentence-start context, which P2
+    # row V already is
+    P3 = bo2[:, :, None] * P2[None, :, :]
+    for (s1, s2, s3), (lp, _bo) in ngrams.get(3, {}).items():
+        h2, h1, w = tok2id.get(s1), tok2id.get(s2), tok2id.get(s3)
+        if h2 is None or h1 is None or w is None or w == V:
+            continue
+        P3[h2, h1, w] = 10.0 ** lp
+    return norm(P3), unigram.astype(np.float32)
+
+
+def load_arpa(
+    path: str,
+    tokens: list[str],
+    order: int | None = None,
+    exclude: tuple[int, ...] = (),
+) -> tuple[np.ndarray, np.ndarray]:
+    """ARPA file -> (dense decode table, unigram). See arpa_to_table."""
+    return arpa_to_table(parse_arpa(path), tokens, order, exclude)
 
 
 def sequence_logprob(logp: np.ndarray, seq) -> float:

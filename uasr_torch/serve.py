@@ -36,7 +36,11 @@ Beam mode (``ctc.use_beam``): the exact prefix beam state is carried
 across chunks (kernel K4 fed the region's log-probs from the carried
 state, ``beam_advance``) with each beam's prefix materialised, so
 ``finish()`` returns the complete best transcript, equal to the offline
-beam decode. ``step()`` still emits greedy partials.
+beam decode. ``step()`` still emits greedy partials. With ``ctc.lm_path``
+the beam fuses a bigram or trigram table (loaded onto the device once);
+the carried state holds each beam's last two symbols, so a trigram's
+history crosses chunk boundaries. Greedy streaming ignores the LM, as the
+JAX package's does.
 
 ``approx_context=True`` streams an unbounded-context encoder
 (``conv_bigru``, the BiGRU through kernel K2) on the rolling window only:
@@ -50,10 +54,6 @@ over the raw frame argmaxes that drops blanks without resetting the
 carried id (a run's pooled posterior keeps the run's argmax), so blank-
 separated repeats emit once. It is greedy only, and refuses
 ``gan.segmenter=kmeans`` (segment pooling needs the whole utterance).
-
-Not ported, raising ``NotImplementedError`` that names its slice: the
-beam with ``ctc.lm_path`` (greedy streaming ignores the LM, as the JAX
-package's).
 
 The dynamic-batching primitives (``masked_step``, ``masked_step_and_finish``,
 ``finish_and_reset``, ``reset_slots``, ``set_valid_samples``) step,
@@ -85,6 +85,7 @@ from uasr_torch.models.models import (
 from uasr_torch.ops.cuda_beam import (
     BeamState, _logaddexp, ancestor_maps, beam_init, compact_left, ctc_beam_steps,
 )
+from uasr_torch.ops.lm import load_decode_table
 
 _OPEN = 1 << 30  # frame cap of an open-ended stream
 
@@ -154,9 +155,12 @@ class BeamRecurrentState(NamedTuple):
 
 
 def beam_advance(beam: BeamState, prefix: torch.Tensor, prefix_len: torch.Tensor,
-                 logp: torch.Tensor, lengths: torch.Tensor, blank_id: int = 0):
+                 logp: torch.Tensor, lengths: torch.Tensor, blank_id: int = 0,
+                 lm_table: torch.Tensor | None = None, lm_order: int = 0,
+                 lm_weight: float = 1.0, lm_bonus: float = 0.0):
     """Advance a carried beam state AND the materialised per-beam prefixes
-    over one chunk of log-probs [B, K, V].
+    over one chunk of log-probs [B, K, V], with the LM table [H, V]
+    (``ctc_beam_steps``' layout) fused when ``lm_order`` is 2 or 3.
 
     A chunk-local traceback from ALL W beams recovers each surviving beam's
     ancestor at the chunk start and its tokens emitted within the chunk,
@@ -165,6 +169,7 @@ def beam_advance(beam: BeamState, prefix: torch.Tensor, prefix_len: torch.Tensor
     B, K, V = logp.shape
     W, L = prefix.shape[1], prefix.shape[2]
     parents, chars, new_beam = ctc_beam_steps(logp.contiguous(), lengths, W, blank_id,
+                                              lm_table, lm_order, lm_weight, lm_bonus,
                                               state=beam)
     maps = ancestor_maps(parents)  # [K, B, W]
     cs = chars.gather(2, maps).permute(1, 2, 0)  # [B, W, K] chars along each path
@@ -243,10 +248,6 @@ class StreamingRecognizer:
                     "checkpoint's train-eval representation is the merged stream — use "
                     "greedy streaming (exact) or offline beam decode")
             self.collapse = "merge"
-        if cfg.ctc.use_beam and cfg.ctc.lm_path:
-            raise NotImplementedError(
-                "ctc.lm_path needs ops/lm.py::load_lm, not ported yet (ROADMAP.md Queue 1, "
-                "slice 3: LM and HMM decode)")
         # causal recurrent encoders carry their own state: no window, no
         # receptive-field bound; lc_bigru emits num_gru_layers chunks late
         self.recurrent = cfg.model.encoder in ("uni_gru", "lc_bigru")
@@ -299,6 +300,14 @@ class StreamingRecognizer:
         self.use_beam = cfg.ctc.use_beam
         self.beam_width = cfg.ctc.beam_width
         self.max_tokens = cfg.data.max_label_len
+        self.lm_table, self.lm_order = None, 0
+        if self.use_beam and cfg.ctc.lm_path:
+            V = cfg.dim_output
+            lm = load_decode_table(cfg.ctc.lm_path, V, lambda shape: (
+                f"ctc.lm_path table shape {shape} does not match vocab ({V} tokens): "
+                f"expected {(V + 1, V)} (bigram) or {(V + 1, V + 1, V)} (trigram)"))
+            self.lm_order = lm.ndim
+            self.lm_table = torch.as_tensor(lm.reshape(-1, V), device=self.device)
         self.chunk_samples = C * cfg.frontend.frame_shift
         self._templates: dict[int, RecognizerState] = {}
 
@@ -536,7 +545,8 @@ class StreamingRecognizer:
         vlog = (state.valid_frames + s - 1) // s  # frame cap -> logits cap
         lengths = torch.where(can, torch.clamp(vlog - region_logit_start, 0, K), 0)
         return beam_advance(state.beam, state.prefix, state.prefix_len, logp, lengths,
-                            self.blank)
+                            self.blank, self.lm_table, self.lm_order, self.cfg.ctc.lm_weight,
+                            self.cfg.ctc.lm_bonus)
 
     def _region(self, state, buf, n, start, can):
         """Decode one region: (region logits, ids, counts, prev)."""

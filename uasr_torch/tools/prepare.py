@@ -13,7 +13,9 @@ rounding):
   python -m uasr_torch.tools.prepare ngrams --text phones.txt --vocab vocab.txt \\
       --orders 2,3 --top-k 1000 --out ngrams.npz     # eodm.ngram_path
   python -m uasr_torch.tools.prepare lm --text phones.txt --vocab vocab.txt \\
-      [--order 2|3] --out lm.npz                     # gan.select_lm_path
+      [--order 2|3] --out lm.npz          # ctc.lm_path, gan.select_lm_path
+  python -m uasr_torch.tools.prepare import-arpa --arpa lm.arpa --vocab vocab.txt \\
+      [--order 2|3] --out lm.npz          # an ARPA (KenLM/SRILM) LM as the same table
   python -m uasr_torch.tools.prepare kmeans --config recipe.yaml --list train.tsv \\
       --vocab vocab.txt --out kmeans.npz [--device cuda|cpu]   # gan.centroids_path
 
@@ -24,8 +26,8 @@ wav_path) and text (utt_id tokens...) into the TSV utterance lists the
 datasets read; ``synth`` writes the synthetic corpus to disk (wavs,
 ``train.tsv`` / ``dev.tsv`` with their sidecars, ``vocab.txt``,
 ``text.txt``). The other subcommands of the JAX tool are not ported yet
-(ROADMAP.md Queue 1: ``import-arpa`` item 8; ``import-features`` and
-``export-kaldi`` item 10; ``import-ali`` and ``synth --align`` item 6).
+(ROADMAP.md Queue 1: ``import-features`` and ``export-kaldi`` item 10;
+``import-ali`` and ``synth --align`` item 6).
 """
 
 from __future__ import annotations
@@ -164,6 +166,20 @@ def cmd_lm(args):
     print(f"wrote {args.order}-gram LM {list(logp.shape)} + unigram -> {args.out}")
 
 
+def cmd_import_arpa(args):
+    """An ARPA n-gram LM as the dense decode table ``ctc.lm_path`` and
+    ``gan.select_lm_path`` read (row V = '<s>'), blank column excluded."""
+    from uasr_torch.ops.lm import load_arpa, save_lm
+    from uasr_torch.vocab import BLK, load_vocab
+
+    vocab = load_vocab(args.vocab)
+    blank = vocab.tokens.index(BLK) if BLK in vocab.tokens else 0
+    logp, uni = load_arpa(args.arpa, vocab.tokens, order=args.order, exclude=(blank,))
+    save_lm(args.out, logp, unigram=uni)
+    print(f"imported ARPA {args.arpa} -> {list(logp.shape)} decode table + unigram -> "
+          f"{args.out}")
+
+
 def cmd_kmeans(args):
     """Centroids fitted on the frames of the first ``--max-utts``
     utterances of ``--list``, one utterance at a time through the
@@ -252,6 +268,15 @@ def main(argv=None):
     lm.add_argument("--add-k", type=float, default=0.5)
     lm.add_argument("--out", required=True)
     lm.set_defaults(fn=cmd_lm)
+
+    ia = sub.add_parser("import-arpa",
+                        help="ARPA n-gram LM (KenLM/SRILM) -> dense decode table npz")
+    ia.add_argument("--arpa", required=True)
+    ia.add_argument("--vocab", required=True)
+    ia.add_argument("--order", type=int, default=None, choices=[2, 3],
+                    help="default: highest available order, capped at 3")
+    ia.add_argument("--out", required=True)
+    ia.set_defaults(fn=cmd_import_arpa)
 
     km = sub.add_parser("kmeans")
     km.add_argument("--list")
