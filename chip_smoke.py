@@ -93,6 +93,13 @@ and prints no result line):
    (reproducible: trained twice, bit-equal) to dev PER below 0.65 with
    greedy and K4 beam decode, and that checkpoint streamed with the
    merged-stream collapse (K7), equal to the offline merged greedy decode;
+   then self-training from the demo's generator through
+   ``uasr_torch.tools.selftrain`` and ``tools.sweep`` (phase_selftrain): two
+   rounds of frame-CE students on forced-aligned pseudo-labels from the
+   teacher's weights, a CTC student on Viterbi-refined labels (a ``prepare
+   lm`` bigram of the train split's transcripts), a two-seed sweep with
+   label-free selection and a round from the winner's best_ckpt, each
+   with its PERs, kept fraction, confidence, rates, frame_acc and wall;
    phase 2 also prints K1's and K7's distance from the same formula in f64;
 13. training and decode straight from utterance lists on disk: a seeded
    corpus of 256 PCM16 wavs (64 each in the 4, 8, 12 and 16 s buckets,
@@ -127,7 +134,15 @@ and prints no result line):
    ``uasr_torch.tools.align`` on phase 13's librispeech_ctc_bigru
    checkpoint (1 K1 and 3 K2 a batch), every alignment that fits its
    frames collapsing to its transcript;
-15. one JSON line listing every ported kernel with its check, times and
+15. frame-CE training (phase_frame_ce): ``tools.align`` over phase 13's
+   256-wav train list, ``--set train.mode=frame_ce`` through the CLI on the
+   aligned list at librispeech_ctc_bigru's full width for 8 steps (1 K1, 3
+   K2, 3 K2-bwd each, with its wall and frame_acc), the frame-CE and the
+   CTC step on one batch in turns with a profile of each, the first
+   batch's kernel path against
+   the plain path, ``--mode infer`` of the frame-CE checkpoint and
+   ``tools.align`` on it, every fitting alignment collapsing;
+16. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -2347,7 +2362,109 @@ def phase_unsup_stream(torch, np, model_dir: str) -> None:
                    rec.chunk_samples / cfg.frontend.sample_rate)
 
 
-def phase_unsup(torch, np) -> None:
+# the self-training phase: student steps per round, and the sweep's steps
+SELF_STEPS, SWEEP_STEPS = 100, 20
+
+
+def phase_selftrain(torch, np, demo: str, launches: dict) -> None:
+    """Self-training from the unsupervised demo's generator (phase 12's
+    checkpoint under ``demo``, dev PER below DEMO_PER_BAR) as the teacher,
+    through ``tools.selftrain`` and ``tools.sweep`` on
+    configs/synthetic_unsup_demo.yaml: (a) two rounds of frame-CE students
+    on forced-aligned pseudo-labels, round 0 from the teacher's weights;
+    (b) one round of a CTC student on HMM-refined labels (Viterbi over a
+    ``prepare lm`` bigram of the train split's transcripts, its rates
+    calibrated on the teacher); (c) a two-seed sweep with label-free
+    selection, then one round from the winner's ``best_ckpt``. Each run's
+    teacher and student PER, kept fraction, mean confidence, rates,
+    frame_acc at the first and last logged step, wall and launches; the
+    gates: finite PERs, frame_acc logged by every aligned round, a
+    checkpoint in every ``selftrain_r*``."""
+    import re
+
+    from uasr_torch import cli
+    from uasr_torch.config import load_config
+    from uasr_torch.tools import prepare, selftrain, sweep
+
+    t_phase = time.perf_counter()
+    recipe = os.path.join(REPO, "configs", "synthetic_unsup_demo.yaml")
+    root = os.path.dirname(demo)
+    (_, examples), vocab = cli._load_source(load_config(recipe), "train")
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab.tokens) + "\n")
+    write_text(os.path.join(root, "train_text.txt"),
+               [[vocab.tokens[i] for i in ids] for _, ids in examples])
+    lm = os.path.join(root, "train_lm2.npz")
+    prepare_quiet(prepare, ["lm", "--text", os.path.join(root, "train_text.txt"), "--vocab",
+                            os.path.join(root, "vocab.txt"), "--out", lm])
+
+    def run(main, argv):
+        out, err = io.StringIO(), io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(["-c", recipe, *argv])
+        torch.cuda.synchronize()
+        check(rc == 0, f"{argv[:6]}: exit {rc}")
+        counts = read_launches()
+        launches["K1"] += counts["K1"]
+        return out.getvalue(), err.getvalue(), time.perf_counter() - t0, counts
+
+    def student(what, argv, rounds, aligned):
+        model_dir = os.path.join(root, what)
+        out, err, wall, counts = run(selftrain.main, [*argv, "--rounds", str(rounds), "--set",
+                                                      f"model_dir={model_dir}", "--set",
+                                                      f"train.log_every={max(SELF_STEPS // 10, 1)}"])
+        hit = re.search(r"teacher PER=(\S+) student PER=(\S+)", out)
+        check(hit is not None, f"{what}: printed {out!r}")
+        pers = float(hit.group(1)), float(hit.group(2))
+        check(all(np.isfinite(pers)), f"{what}: PERs {pers}")
+        check(counts["K1"] > 0, f"{what}: launches {counts}")
+        kept = re.findall(r"round (\d+): kept (\d+)/(\d+) \(mean conf ([0-9.]+)\)", out)
+        check(len(kept) == rounds, f"{what}: {out!r}")
+        rates = re.search(r"Viterbi rates (.*)", err)
+        parts = []
+        for r, a, n, conf in kept:
+            rdir = os.path.join(model_dir, f"selftrain_r{r}")
+            check(any(fn.endswith(".pt") for fn in os.listdir(os.path.join(rdir, "ckpt"))),
+                  f"{rdir}: no checkpoint")
+            with open(os.path.join(rdir, "metrics.jsonl")) as f:
+                accs = [json.loads(ln).get("frame_acc") for ln in f if '"train"' in ln]
+            accs = [x for x in accs if x is not None]
+            check(bool(accs) == aligned, f"{rdir}: frame_acc logged {accs}")
+            parts.append(f"round {r} kept {int(a) / int(n):.4f} of {n}, mean conf {conf}"
+                         + (f", frame_acc {accs[0]:.4f} -> {accs[-1]:.4f}" if accs else ""))
+        print(f"  {what}: teacher PER {pers[0]:.4f}, student PER {pers[1]:.4f}; "
+              + "; ".join(parts) + (f"; rates {rates.group(1)}" if rates else "")
+              + f"; wall {wall:.2f} s; launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+
+    print(f"selftrain: teacher {demo} (the demo's generator), {len(examples)} train "
+          f"utterances, bigram {tuple(np.load(lm)['logp'].shape)}", flush=True)
+    steps = ["--student-steps", str(SELF_STEPS)]
+    student("aligned", ["--teacher-dir", demo, "--teacher-mode", "gan", "--align-pseudo-labels",
+                        "--init-from-teacher", *steps], 2, True)
+    student("viterbi", ["--teacher-dir", demo, "--teacher-mode", "gan", *steps, "--set",
+                        "ctc.use_viterbi=true", "--set", f"ctc.lm_path={lm}"], 1, False)
+    out, _, wall, counts = run(sweep.main, ["--seeds", "2", "--set",
+                                            f"model_dir={root}/sweep", "--set",
+                                            f"train.total_steps={SWEEP_STEPS}", "--set",
+                                            "train.eval_every=10", "--set",
+                                            f"gan.select_lm_path={lm}"])
+    with open(os.path.join(root, "sweep", "sweep.json")) as f:
+        rec = json.load(f)
+    check(json.loads(out.strip().splitlines()[-1]) == rec["winner"], f"sweep printed {out!r}")
+    print(f"  sweep: 2 seeds x {SWEEP_STEPS} steps in {wall:.2f} s, scores "
+          + ", ".join(f"seed {r['seed']} {r['score']:.4f}" for r in rec["ranking"])
+          + f"; winner seed {rec['winner']['seed']}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    student("restore_best", ["--teacher-dir", rec["winner"]["model_dir"], "--teacher-mode",
+                             "gan", "--restore-best", "--student-steps", str(SWEEP_STEPS)],
+            1, False)
+    print(f"  self-training phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def phase_unsup(torch, np, launches: dict) -> None:
     import tempfile
 
     phase_unsup_full(torch, np)
@@ -2356,6 +2473,7 @@ def phase_unsup(torch, np) -> None:
         demo = os.path.join(tmp, "demo")
         phase_unsup_demo(torch, np, demo)
         phase_unsup_stream(torch, np, demo)
+        phase_selftrain(torch, np, demo, launches)
 
 
 # the data phase: DATA_PER_BUCKET utterances of random audio in each of the
@@ -2963,6 +3081,54 @@ def phase_lm_viterbi(torch, np, root: str) -> None:
               flush=True)
 
 
+def collapsed_alignments(utts, vocab, total: int = 4, max_label: int = 256) -> tuple[int, int]:
+    """(utterances whose transcript fits its logits frames, those of them
+    whose alignment collapses back to the transcript). ``total`` is the
+    frames per logits frame (frontend.downsample 1 x two stride-2 convs)."""
+    fits = ok = 0
+    for u in utts:
+        lab = vocab.encode(u.tokens)[:max_label]
+        track = vocab.encode(u.align_tokens)
+        check(len(track) % total == 0, f"{u.utt_id}: {len(track)} frames")
+        frames = track[::total]
+        if len(frames) < len(lab) + sum(a == b for a, b in zip(lab, lab[1:])):
+            continue
+        fits += 1
+        merged = [t for i, t in enumerate(frames) if t != 0 and (i == 0 or t != frames[i - 1])]
+        ok += merged == lab
+    return fits, ok
+
+
+def run_align(torch, argv: list) -> tuple[float, list, str]:
+    """``python -m uasr_torch.tools.align``'s main in process, each batch's
+    ``ctc_forced_align`` timed alone (synchronised around it): (wall,
+    [(seconds, logits shape, labels shape)] a batch, the tool's last
+    line on stderr)."""
+    from uasr_torch.ops import viterbi
+    from uasr_torch.tools import align
+
+    forced, fa = viterbi.ctc_forced_align, []
+
+    def timed_align(logits, lengths, labels, label_lengths, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = forced(logits, lengths, labels, label_lengths, **kw)
+        torch.cuda.synchronize()
+        fa.append((time.perf_counter() - t, tuple(logits.shape), tuple(labels.shape)))
+        return out
+
+    viterbi.ctc_forced_align = timed_align
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            rc = align.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        viterbi.ctc_forced_align = forced
+    check(rc == 0, f"align exit {rc}")
+    return time.perf_counter() - t0, fa, err.getvalue().strip().splitlines()[-1]
+
+
 def phase_lm_cli(torch, np, root: str) -> None:
     """Path 3 through the CLI and path 4: configs/timit_ctc_mini.yaml's
     checkpoint from the data phase decoded by `--mode infer --set
@@ -2976,8 +3142,7 @@ def phase_lm_cli(torch, np, root: str) -> None:
     import re
 
     from uasr_torch.data.io import read_utterance_list
-    from uasr_torch.ops import viterbi
-    from uasr_torch.tools import align, prepare
+    from uasr_torch.tools import prepare
     from uasr_torch.vocab import load_vocab
 
     timit_lst = os.path.join(root, "timit.tsv")
@@ -3014,54 +3179,24 @@ def phase_lm_cli(torch, np, root: str) -> None:
     test_lst = os.path.join(root, "test.tsv")
     chars = os.path.join(root, "chars.txt")
     out_lst = os.path.join(root, "test_aligned.tsv")
-    forced, fa = viterbi.ctc_forced_align, []
-
-    def timed_align(logits, lengths, labels, label_lengths, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = forced(logits, lengths, labels, label_lengths, **kw)
-        torch.cuda.synchronize()
-        fa.append((time.perf_counter() - t, tuple(logits.shape), tuple(labels.shape)))
-        return out
-
     reset_launches()
-    viterbi.ctc_forced_align = timed_align
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stderr(io.StringIO()) as err:
-            rc = align.main(["-c", libri, "--split", "test", "--out", out_lst, "--set",
-                             f"data.test_list={test_lst}", "--set", f"data.vocab_path={chars}",
-                             "--set", f"model_dir={os.path.join(root, 'libri')}"])
-        torch.cuda.synchronize()
-    finally:
-        viterbi.ctc_forced_align = forced
-    wall = time.perf_counter() - t0
+    wall, fa, last = run_align(torch, ["-c", libri, "--split", "test", "--out", out_lst, "--set",
+                                       f"data.test_list={test_lst}", "--set",
+                                       f"data.vocab_path={chars}", "--set",
+                                       f"model_dir={os.path.join(root, 'libri')}"])
     counts = read_launches()
-    check(rc == 0, f"align exit {rc}")
     utts = read_utterance_list(out_lst)
     nb = -(-len(utts) // 32)
     want = dict.fromkeys(counts, 0)
     want.update({"K1": nb, "K2": 3 * nb})
     check(counts == want, f"align launches {counts}, expected {want}")
     check(len(fa) == nb, f"{len(fa)} forced alignments for {nb} batches")
-    vocab = load_vocab(chars)
-    total = 4  # frontend.downsample 1 x two stride-2 convs
-    fits = ok = 0
-    for u in utts:
-        lab = vocab.encode(u.tokens)[:256]
-        track = vocab.encode(u.align_tokens)
-        check(len(track) % total == 0, f"{u.utt_id}: {len(track)} frames")
-        frames = track[::total]
-        if len(frames) < len(lab) + sum(a == b for a, b in zip(lab, lab[1:])):
-            continue
-        fits += 1
-        merged = [t for i, t in enumerate(frames) if t != 0 and (i == 0 or t != frames[i - 1])]
-        ok += merged == lab
+    fits, ok = collapsed_alignments(utts, load_vocab(chars))
     print(f"lm align: tools.align on librispeech_ctc_bigru (the data phase's step-"
           f"{DATA_STEPS} checkpoint), {len(utts)} utterances in {nb} batches of 32 at 16 s in "
           f"{wall:.2f} s (ctc_forced_align " + ", ".join(
               f"{ms * 1e3:.2f} ms on logits {lg} labels {lb}" for ms, lg, lb in fa)
-          + f"); {err.getvalue().strip().splitlines()[-1]}; {fits} fit their frames, "
+          + f"); {last}; {fits} fit their frames, "
           f"{ok} of them collapse to their transcript; launches {counts}", flush=True)
     check(fits > 0 and ok == fits, f"alignments: {ok} of {fits} collapse to the transcript")
 
@@ -3110,6 +3245,173 @@ def phase_lm_decode(torch, np, root: str) -> None:
     print(f"  lm decode phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# the frame-CE phase: steps of librispeech_ctc_bigru's frame-CE training
+# through the CLI on the data phase's aligned train list
+FCE_STEPS = 8
+# F C C F turns of the frame-CE and the CTC step on one batch
+FCE_TURNS = 3
+
+
+def phase_frame_ce(torch, np, root: str, launches: dict) -> None:
+    """Frame-CE training at full width (after phase_lm_decode, on the data
+    phase's directory): ``tools.align`` over the 256-wav train list with
+    the data phase's librispeech_ctc_bigru checkpoint; ``--set
+    train.mode=frame_ce`` through the CLI on the aligned list for
+    FCE_STEPS steps from a fresh model_dir (each step's wall, launches and
+    frame_acc; 1 K1, 3 K2, 3 K2-bwd); the frame-CE step and the recipe's
+    CTC step on the CLI's first batch, in turns, and a profile of each;
+    that batch's loss and
+    gradients on the kernel path against the plain path; ``--mode infer``
+    of the frame-CE checkpoint; and ``tools.align`` on the frame-CE
+    checkpoint, every alignment that fits its frames collapsing to its
+    transcript."""
+    from uasr_torch import cli, train
+    from uasr_torch.config import load_config
+    from uasr_torch.data.io import read_utterance_list
+    from uasr_torch.vocab import load_vocab
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    libri = os.path.join(REPO, "configs", "librispeech_ctc_bigru.yaml")
+    chars = os.path.join(root, "chars.txt")
+    vocab = load_vocab(chars)
+    train_al = os.path.join(root, "train_aligned.tsv")
+    reset_launches()
+    wall, fa, last = run_align(torch, ["-c", libri, "--split", "train", "--out", train_al,
+                                       "--set", f"data.train_list={root}/train.tsv", "--set",
+                                       f"data.vocab_path={chars}", "--set",
+                                       f"model_dir={root}/libri"])
+    counts = read_launches()
+    utts = read_utterance_list(train_al)
+    nb = -(-len(utts) // 32)
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1": nb, "K2": 3 * nb})
+    check(counts == want and len(fa) == nb, f"align launches {counts}, expected {want}")
+    fits, ok = collapsed_alignments(utts, vocab)
+    print(f"frame-ce: tools.align over the data phase's {len(utts)}-wav train list (its step-"
+          f"{DATA_STEPS} librispeech_ctc_bigru checkpoint): {nb} batches of 32 at 16 s in "
+          f"{wall:.2f} s with the restore, {wall / nb * 1e3:.1f} ms a batch; ctc_forced_align "
+          f"alone {np.mean([f[0] for f in fa]) * 1e3:.2f} ms a batch (min "
+          f"{min(f[0] for f in fa) * 1e3:.2f}, max {max(f[0] for f in fa) * 1e3:.2f}); {last}; "
+          f"{ok} of {fits} fitting alignments collapse; launches {counts}", flush=True)
+    check(fits > 0 and ok == fits, f"alignments: {ok} of {fits} collapse to the transcript")
+
+    model_dir = os.path.join(root, "fce")
+    lists = ["--set", f"data.train_list={train_al}", "--set",
+             f"data.dev_list={root}/test_aligned.tsv", "--set", f"data.test_list={root}/test.tsv",
+             "--set", f"data.vocab_path={chars}", "--set", f"model_dir={model_dir}", "--set",
+             "train.mode=frame_ce"]
+    record = dict(steps=[], waits=[], requests=[])
+    reset_launches()
+    t0 = time.perf_counter()
+    with traced_data_path(torch, record):
+        run_cli(torch, ["-c", libri, "--mode", "train", *lists, "--set",
+                        f"train.total_steps={FCE_STEPS}", "--set", "train.log_every=1"])
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f if '"train"' in ln]
+    steps = record["steps"]
+    check(len(steps) == FCE_STEPS and len(recs) == FCE_STEPS,
+          f"{len(steps)} steps ran, {len(recs)} logged")
+    print(f"  frame-CE through the CLI (librispeech_ctc_bigru, bf16, H=512 x3, B=32, every "
+          f"batch padded to 16 s): {FCE_STEPS} steps in {wall:.2f} s (start-up and the read of "
+          f"the lists included)", flush=True)
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1": 1, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3})
+    for i, (st, r) in enumerate(zip(steps, recs)):
+        print(f"  step {i + 1} {st['shape'][1] / 16000:5.2f} s batch: wall {st['wall'] * 1e3:.2f} "
+              f"ms, loss {r['loss']:.4f}, frame_acc {r['frame_acc']:.4f}, launches "
+              f"{ {k: v for k, v in st['launches'].items() if v} }", flush=True)
+        check(st["launches"] == want, f"step {i + 1}: launches {st['launches']}, expected {want}")
+        check(np.isfinite(r["loss"]) and 0.0 <= r["frame_acc"] <= 1.0, f"step {i + 1}: {r}")
+    check(counts == {k: v * FCE_STEPS for k, v in want.items()}, f"train launches {counts}")
+    for k in ("K1", "K2", "K2-bwd"):
+        launches[k] += counts[k]
+
+    # the frame-CE step beside the recipe's CTC step (K3, K3-bwd) on the
+    # CLI's first batch, in turns F C C F after one step of each, each from
+    # the same initial weights; then one profiled step of each
+    cfg = load_config(libri)
+    cli.apply_overrides(cfg, lists[1::2])
+    cfg = cfg.replace(vocab_size=len(vocab))
+    source, _ = cli._load_source(cfg, "train")
+    it = cli._batches(cfg, source, seed=cfg.train.seed)
+    first = next(it)
+    it.close()
+    trainers = {"frame_ce": train.CTCTrainer(cfg, device=dev),
+                "ctc": train.CTCTrainer(cfg.replace(train=dataclasses.replace(cfg.train,
+                                                                               mode="ctc")),
+                                        device=dev)}
+    init = {k: v.detach().clone() for k, v in trainers["ctc"].init_state().params.items()}
+    db = trainers["frame_ce"].to_device(first)
+    states = {k: t.init_state() for k, t in trainers.items()}
+    walls: dict = {k: [] for k in trainers}
+
+    def step(name):
+        states[name], aux = trainers[name].train_step(states[name], db)
+        return aux
+
+    for i in range(2 + 4 * FCE_TURNS):
+        name = ("frame_ce", "ctc", "ctc", "frame_ce")[i % 4] if i >= 2 else ("frame_ce", "ctc")[i]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = step(name)
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls[name].append(time.perf_counter() - t0)
+        counts = {k: v for k, v in read_launches().items() if v}
+        want = {"K1": 1, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3}
+        if name == "ctc":
+            want.update({"K3": 1, "K3-bwd": 1})
+        check(counts == want and np.isfinite(float(aux["loss"])),
+              f"{name} step: launches {counts}, loss {aux['loss']}")
+    print(f"  {FCE_TURNS} x (F C C F) steps on the CLI's first batch ("
+          f"{first.audio.shape[1] / 16000:.1f} s, B={len(first.audio)}), after one of each: "
+          + "; ".join(f"{k} wall median {np.median(w) * 1e3:.2f} ms (min {min(w) * 1e3:.2f}, "
+                      f"max {max(w) * 1e3:.2f})" for k, w in walls.items())
+          + f"; card {card_line()}", flush=True)
+    for name in trainers:
+        profile_call(torch, lambda: step(name), f"one {name} step on that batch")
+    compare_first_step(torch, cfg, init, db, "frame-CE step")
+
+    record = dict(steps=[], waits=[], requests=[])
+    reset_launches()
+    t0 = time.perf_counter()
+    with traced_data_path(torch, record):
+        out = run_cli(torch, ["-c", libri, "--mode", "infer", *lists])
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    reqs = record["requests"]
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1": 1, "K2": 3, "K4": 1})
+    expect_each(reqs, want, "frame-CE infer")
+    check(len(reqs) > 0 and counts == {k: v * len(reqs) for k, v in want.items()},
+          f"frame-CE infer launches {counts}")
+    check(out.startswith(f"step {FCE_STEPS}: PER="), f"infer printed {out!r}")
+    print(f"  --mode infer of the frame-CE checkpoint (beam {cfg.ctc.beam_width}), {len(reqs)} "
+          f"requests in {wall:.2f} s: {out.strip()}", flush=True)
+    for k in ("K1", "K2", "K4"):
+        launches[k] += counts[k]
+
+    out_lst = os.path.join(root, "test_aligned_fce.tsv")
+    reset_launches()
+    wall, fa, last = run_align(torch, ["-c", libri, "--split", "test", "--out", out_lst, *lists])
+    counts = read_launches()
+    utts = read_utterance_list(out_lst)
+    nb = -(-len(utts) // 32)
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1": nb, "K2": 3 * nb})
+    check(counts == want and len(fa) == nb, f"align launches {counts}, expected {want}")
+    fits, ok = collapsed_alignments(utts, vocab)
+    print(f"  tools.align on the frame-CE checkpoint: {len(utts)} utterances in {nb} batches in "
+          f"{wall:.2f} s; {last}; {fits} fit their frames, {ok} of them collapse to their "
+          f"transcript", flush=True)
+    check(fits > 0 and ok == fits, f"frame-CE alignments: {ok} of {fits} collapse")
+    print(f"  frame-CE phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3144,12 +3446,13 @@ def main() -> int:
     phase_attention(torch, np, launches)
     phase_train_k5_k6(torch, np, results)
     phase_encoder_train(torch, np, launches)
-    phase_unsup(torch, np)
+    phase_unsup(torch, np, launches)
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         phase_data(torch, np, tmp)
         phase_lm_decode(torch, np, tmp)
+        phase_frame_ce(torch, np, tmp, launches)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",

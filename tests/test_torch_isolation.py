@@ -17,6 +17,9 @@ UNSUP = ("uasr_torch/ops/wgan.py", "uasr_torch/ops/eodm.py", "uasr_torch/ops/seg
 DATA = ("uasr_torch/data/loader.py", "uasr_torch/native/__init__.py")
 # the LM and HMM decode slice's: Viterbi and forced alignment, the align tool
 LM = ("uasr_torch/ops/viterbi.py", "uasr_torch/tools/align.py")
+# the frame-CE and self-training slice's
+SELFTRAIN = ("uasr_torch/ops/frame_ce.py", "uasr_torch/data/kaldi.py", "uasr_torch/selftrain.py",
+             "uasr_torch/tools/selftrain.py", "uasr_torch/tools/sweep.py")
 
 
 def _port_files():
@@ -32,6 +35,7 @@ def _module_name(path: pathlib.Path) -> str:
 def test_imports_pull_in_no_jax_flax_or_uasr():
     files = {str(p.relative_to(REPO)) for p in _port_files()}
     assert set(UNSUP) <= files and set(DATA) <= files and set(LM) <= files
+    assert set(SELFTRAIN) <= files
     mods = [_module_name(p) for p in _port_files()]
     code = (
         "import importlib, sys\n"

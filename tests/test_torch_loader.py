@@ -321,8 +321,16 @@ def test_prepare_synth_matches_jax(tmp_path):
                       for p in sorted(base.rglob("*")) if p.is_file()}
     assert len(files["port"]) == 24 + 6
     assert files["port"] == files["jax"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        prepare.main(["synth", "--out-dir", str(tmp_path / "align"), "--align", *args])
+    # --align: the fourth column of per-frame phone labels, the same bytes
+    _run_both(["synth", "--out-dir", str(tmp_path / "port_al"), "--align", *args],
+              ["synth", "--out-dir", str(tmp_path / "jax_al"), "--align", *args])
+    for tag in ("port_al", "jax_al"):
+        base = tmp_path / tag
+        files[tag] = {str(p.relative_to(base)): p.read_bytes().replace(str(base).encode(), b"D")
+                      for p in sorted(base.rglob("*")) if p.is_file()}
+    assert files["port_al"] == files["jax_al"]
+    assert files["port_al"]["train.tsv"] != files["port"]["train.tsv"]
+    assert all(ln.count(b"\t") == 3 for ln in files["port_al"]["train.tsv"].splitlines())
 
 
 @pytest.mark.parametrize("recipe", ["synthetic_smoke", "timit_ctc_mini"])

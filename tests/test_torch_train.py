@@ -221,7 +221,6 @@ def test_dropout_acts_in_train_mode_only():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(train=dict(mode="frame_ce")), "slice 3"),
     (dict(train=dict(mode="ssl")), "item 10"),
     (dict(train=dict(grad_accum=2)), "slice 5"),
     (dict(parallel=dict(model_parallel=2)), "slice 5"),

@@ -2,8 +2,9 @@
 --mode train|infer [--set key=value ...] [--device cuda|cpu]``
 (counterpart of ``uasr.cli``).
 
-``--mode train`` runs ``train.mode: ctc`` through ``run_ctc_training``,
-``gan`` and ``gan+eodm`` through ``run_gan_training`` and ``eodm``
+``--mode train`` runs ``train.mode: ctc`` (and ``frame_ce``, frame-level
+CE on the lists' fourth column of per-frame labels) through
+``run_ctc_training``, ``gan`` and ``gan+eodm`` through ``run_gan_training`` and ``eodm``
 through ``run_eodm_training`` (the unpaired text from ``data.text_path``,
 or the split's own transcripts), resuming from the newest checkpoint
 under ``model_dir/ckpt``. ``--mode infer`` restores the newest
@@ -20,9 +21,10 @@ the plain PyTorch versions of the kernels.
 Data: the synthetic corpora, and utterance lists (``prepare lists`` or
 ``synth``) streamed from disk one batch at a time by
 ``data.loader.StreamingASRDataset`` (``data.streaming``, the default) or
-read into memory (``--set data.streaming=false``). Feature caches are not
-ported yet; ``frame_ce`` and ``ssl`` raise ``NotImplementedError`` naming
-their ROADMAP.md item.
+read into memory (``--set data.streaming=false``). ``frame_ce`` reads its
+train and dev splits into memory with their alignment tracks (the
+synthetic corpora with theirs). Feature caches are not ported yet;
+``ssl`` raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -40,7 +42,10 @@ def _load_source(cfg, split: str):
     and test are held out) or an utterance list read into memory; or
     ``("stream", StreamingASRDataset)``: an utterance list under
     ``data.streaming``, decoded one batch at a time. The labeled mix-in
-    split is always read into memory."""
+    split is always read into memory, and so are ``frame_ce``'s train and
+    dev splits, as (audio, ids, frame labels) triples: alignment tracks
+    are consumed by the frame-CE step only, so the test split decodes
+    plain examples."""
     from uasr_torch.data.dataset import ASRDataset, make_synthetic_dataset
     from uasr_torch.vocab import load_vocab
 
@@ -48,9 +53,13 @@ def _load_source(cfg, split: str):
                  "test": cfg.data.test_feature_cache,
                  "labeled": cfg.data.labeled_feature_cache}.get(split)
     if cache_dir:
+        if cfg.train.mode == "frame_ce" and split != "test":
+            raise SystemExit("train.mode=frame_ce needs per-frame alignments; feature caches "
+                             "carry none")
         raise NotImplementedError(
             "data feature caches are not ported yet (ROADMAP.md Queue 1, item 10: SSL and "
             "feature caches)")
+    aligned = cfg.train.mode == "frame_ce" and split != "test"
     if cfg.data.synthetic:
         n_utts = cfg.data.synthetic_num_utts
         if split in ("dev", "test") and cfg.data.synthetic_dev_utts:
@@ -62,6 +71,7 @@ def _load_source(cfg, split: str):
             syntax=cfg.data.synthetic_syntax,
             min_len=cfg.data.synthetic_min_len,
             max_len=cfg.data.synthetic_max_len,
+            with_alignments=aligned,
             style=cfg.data.synthetic_style,
         )
         if split == "labeled":
@@ -73,17 +83,25 @@ def _load_source(cfg, split: str):
     path = getattr(cfg.data, f"{split}_list")
     if path is None:
         raise SystemExit(f"recipe has no data.{split}_list")
-    if cfg.data.streaming and split != "labeled":
+    if cfg.data.streaming and not aligned and split != "labeled":
         from uasr_torch.data.loader import StreamingASRDataset
 
         return ("stream", StreamingASRDataset.from_file(path, vocab,
                                                         cfg.frontend.sample_rate)), vocab
+    if aligned:
+        from uasr_torch.data.dataset import ASRAlignDataset
+
+        ads = ASRAlignDataset.from_file(path, vocab, cfg.frontend.sample_rate)
+        return ("examples", [ads.example_with_alignment(i) for i in range(len(ads))]), vocab
     ds = ASRDataset.from_file(path, vocab, cfg.frontend.sample_rate)
     return ("examples", [ds.example(i) for i in range(len(ds))]), vocab
 
 
 def _batches(cfg, source, num_epochs="cfg", seed=0, drop_remainder=True, limit=None):
-    from uasr_torch.data.dataset import batch_iterator, prefetch
+    """Prefetched batches of a source: bucketed ``Batch``es, or for (audio,
+    ids, frame labels) triples ``AlignedBatch``es padded to the cap, their
+    tracks to the cap's frame count."""
+    from uasr_torch.data.dataset import aligned_batch_iterator, batch_iterator, prefetch
 
     if num_epochs == "cfg":
         num_epochs = cfg.data.num_epochs  # None = cycle forever
@@ -97,6 +115,11 @@ def _batches(cfg, source, num_epochs="cfg", seed=0, drop_remainder=True, limit=N
     if kind == "stream":
         it = payload.batches(shuffle_buffer=cfg.data.shuffle_buffer,
                              decode_threads=cfg.data.loader_threads, **kw)
+    elif payload and len(payload[0]) == 3:
+        fl, fs = cfg.frontend.frame_length, cfg.frontend.frame_shift
+        del kw["bucket_boundaries"]
+        it = aligned_batch_iterator(payload, max_frames=max(1 + (kw["max_audio_samples"] - fl)
+                                                            // fs, 1), **kw)
     else:
         it = batch_iterator(payload, **kw)
     if limit is not None:
@@ -185,7 +208,7 @@ def _lift_caps_for_split(cfg, source):
             max_sec = max(max_sec, float(max(payload.num_samples)) / cfg.frontend.sample_rate)
             max_lab = max(max_lab, max(len(ids) for ids in payload.labels))
     else:
-        for a, ids in payload:
+        for a, ids, *_ in payload:
             max_sec = max(max_sec, len(a) / cfg.frontend.sample_rate)
             max_lab = max(max_lab, len(ids))
     bounds = ()
@@ -343,14 +366,11 @@ def main(argv=None):
     apply_overrides(cfg, args.set)
     device = resolve_device(args.device)
     mode = cfg.train.mode
-    if mode == "frame_ce":
-        raise NotImplementedError(
-            "train.mode frame_ce is not ported yet (ROADMAP.md Queue 1, slice 3: frame-CE)")
     if mode == "ssl":
         raise NotImplementedError(
             "train.mode ssl is not ported yet (ROADMAP.md Queue 1, item 10: SSL and feature "
             "caches)")
-    if mode not in ("ctc", "gan", "gan+eodm", "eodm"):
+    if mode not in ("ctc", "frame_ce", "gan", "gan+eodm", "eodm"):
         raise SystemExit(f"unknown train.mode {mode!r}")
     source, vocab = _load_source(cfg, "train" if args.mode == "train" else "test")
     if cfg.vocab_size is None:

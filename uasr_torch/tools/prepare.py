@@ -9,7 +9,9 @@ rounding):
   python -m uasr_torch.tools.prepare cmvn --list train.tsv --vocab vocab.txt \\
       --config recipe.yaml --out cmvn.npz    # frontend.cmvn_stats_path
   python -m uasr_torch.tools.prepare synth --out-dir data/synth --num-utts 128 \\
-      [--num-phones 16 --seed 0 --syntax iid|markov --style tone|formant]
+      [--num-phones 16 --seed 0 --syntax iid|markov --style tone|formant --align]
+  python -m uasr_torch.tools.prepare import-ali --ali ali.ark|ali.scp --list train.tsv \\
+      --vocab vocab.txt [--phone-map phones.txt] --out train_aligned.tsv
   python -m uasr_torch.tools.prepare ngrams --text phones.txt --vocab vocab.txt \\
       --orders 2,3 --top-k 1000 --out ngrams.npz     # eodm.ngram_path
   python -m uasr_torch.tools.prepare lm --text phones.txt --vocab vocab.txt \\
@@ -25,9 +27,11 @@ trainer quantises in: the recipe's frontend (the raw pre-CMVN view with
 wav_path) and text (utt_id tokens...) into the TSV utterance lists the
 datasets read; ``synth`` writes the synthetic corpus to disk (wavs,
 ``train.tsv`` / ``dev.tsv`` with their sidecars, ``vocab.txt``,
-``text.txt``). The other subcommands of the JAX tool are not ported yet
-(ROADMAP.md Queue 1: ``import-features`` and ``export-kaldi`` item 10;
-``import-ali`` and ``synth --align`` item 6).
+``text.txt``; with ``--align`` a fourth column of per-frame phone labels).
+``import-ali`` merges Kaldi per-frame phone alignments into a list as that
+fourth column, which ``train.mode: frame_ce`` reads. The other
+subcommands of the JAX tool are not ported yet (ROADMAP.md Queue 1, item
+10: ``import-features`` and ``export-kaldi``).
 """
 
 from __future__ import annotations
@@ -105,20 +109,20 @@ def cmd_synth(args):
     from uasr_torch.data.io import write_wav
     from uasr_torch.data.loader import write_length_sidecar
 
-    if args.align:
-        raise NotImplementedError(
-            "synth --align (the per-frame alignment track of train.mode frame_ce) is not "
-            "ported yet (ROADMAP.md Queue 1, item 6: frame-CE)")
     examples, vocab = make_synthetic_dataset(
         num_utts=args.num_utts, num_phones=args.num_phones, seed=args.seed,
-        syntax=args.syntax, style=args.style, min_len=args.min_len, max_len=args.max_len,
+        with_alignments=args.align, syntax=args.syntax, style=args.style,
+        min_len=args.min_len, max_len=args.max_len,
     )
     wav_dir = os.path.join(args.out_dir, "wav")
     lines = []
-    for i, (audio, ids) in enumerate(examples):
+    for i, (audio, ids, *align) in enumerate(examples):
         path = os.path.join(wav_dir, f"utt{i:05d}.wav")
         write_wav(path, audio, 16000)
-        lines.append(f"utt{i:05d}\t{path}\t{' '.join(vocab.tokens[j] for j in ids)}")
+        line = f"utt{i:05d}\t{path}\t{' '.join(vocab.tokens[j] for j in ids)}"
+        if align:  # 4th column: per-10 ms-frame phone labels
+            line += "\t" + " ".join(vocab.tokens[j] for j in align[0])
+        lines.append(line)
     n_dev = max(args.num_utts // 8, 1)
     for split, part in (("train.tsv", lines[n_dev:]), ("dev.tsv", lines[:n_dev])):
         with open(os.path.join(args.out_dir, split), "w") as f:
@@ -127,8 +131,49 @@ def cmd_synth(args):
     with open(os.path.join(args.out_dir, "vocab.txt"), "w") as f:
         f.write("\n".join(vocab.tokens) + "\n")
     with open(os.path.join(args.out_dir, "text.txt"), "w") as f:
-        f.write("\n".join(" ".join(vocab.tokens[j] for j in ids) for _, ids in examples) + "\n")
+        f.write("\n".join(" ".join(vocab.tokens[j] for j in ex[1]) for ex in examples) + "\n")
     print(f"wrote {args.num_utts} wavs + lists + vocab -> {args.out_dir}")
+
+
+def cmd_import_ali(args):
+    """Merge Kaldi per-frame alignments (``ali-to-phones --per-frame``
+    output, ark or scp) into an utterance list as the fourth column that
+    ``train.mode: frame_ce`` reads. Frame ids map to symbols through
+    ``--phone-map`` (Kaldi phones.txt, '<symbol> <id>' lines); without it
+    they index the ``--vocab`` table."""
+    from uasr_torch.data.kaldi import iter_ali
+    from uasr_torch.vocab import load_vocab
+
+    vocab = load_vocab(args.vocab)
+    if args.phone_map:
+        id2sym = {}
+        with open(args.phone_map) as f:
+            for ln in f:
+                parts = ln.split()
+                if len(parts) >= 2:
+                    id2sym[int(parts[1])] = parts[0]
+    else:
+        id2sym = dict(enumerate(vocab.tokens))
+    ali = {}
+    for utt, ids in iter_ali(args.ali):
+        try:
+            ali[utt] = " ".join(id2sym[int(i)] for i in ids)
+        except KeyError as e:
+            raise SystemExit(f"{utt}: alignment id {e.args[0]} has no symbol (wrong "
+                             "--phone-map? alignments must be per-frame phone ids, not "
+                             "transition-ids)") from None
+    out_lines = []
+    with open(args.list) as f:
+        for ln in f:
+            parts = ln.rstrip("\n").split("\t")
+            if not parts or not parts[0]:
+                continue
+            if parts[0] not in ali:
+                raise SystemExit(f"no alignment for list utterance {parts[0]!r}")
+            out_lines.append("\t".join(parts[:3]) + "\t" + ali[parts[0]])
+    with open(args.out, "w") as f:
+        f.write("\n".join(out_lines) + "\n")
+    print(f"wrote {len(out_lines)} aligned utterances -> {args.out}")
 
 
 def _text(args):
@@ -296,13 +341,25 @@ def main(argv=None):
     km.add_argument("--out", required=True)
     km.set_defaults(fn=cmd_kmeans)
 
+    ial = sub.add_parser("import-ali")
+    ial.add_argument("--ali", required=True,
+                     help="Kaldi per-frame phone alignments (.ark or .scp)")
+    ial.add_argument("--list", required=True,
+                     help="TSV utterance list to merge the 4th column into")
+    ial.add_argument("--vocab", required=True)
+    ial.add_argument("--phone-map", default=None,
+                     help="Kaldi phones.txt mapping '<symbol> <id>'")
+    ial.add_argument("--out", required=True)
+    ial.set_defaults(fn=cmd_import_ali)
+
     s = sub.add_parser("synth")
     s.add_argument("--out-dir", required=True)
     s.add_argument("--num-utts", type=int, default=128)
     s.add_argument("--num-phones", type=int, default=16)
     s.add_argument("--seed", type=int, default=0)
     s.add_argument("--align", action="store_true",
-                   help="per-frame phone labels as a 4th column (not ported yet)")
+                   help="write a 4th column of per-frame phone labels (forced-alignment "
+                        "track for train.mode=frame_ce)")
     s.add_argument("--syntax", choices=["iid", "markov"], default="iid",
                    help="markov = phonotactic grammar (needed for unsupervised identifiability)")
     s.add_argument("--style", choices=["tone", "formant"], default="tone",

@@ -9,9 +9,11 @@ One training step: frontend (K1 for CUDA tensors) -> optional SpecAugment
 -> encoder (the BiGRU through K2 forward / K2-bwd backward; the GRU layers
 of ``uni_gru`` and ``lc_bigru`` through K5 / K5-bwd or K8; the attention of
 ``transformer`` and ``conformer`` through K6 / K6-bwd) -> CTC loss
-(K3 / K3-bwd with ``ctc.use_pallas``, else the scan loss) -> gradients ->
-global-norm clip -> Adam, all on one device. Eval decodes greedily (or
-with the prefix beam) and scores the edit distance.
+(K3 / K3-bwd with ``ctc.use_pallas``, else the scan loss), or with
+``train.mode: frame_ce`` the masked frame-level CE against an
+``AlignedBatch``'s per-frame labels (``ops.frame_ce``, plain PyTorch) ->
+gradients -> global-norm clip -> Adam, all on one device. Eval decodes
+greedily (or with the prefix beam) and scores the edit distance.
 
 Parity with the JAX package, which uses optax:
 
@@ -52,9 +54,8 @@ both nets, both optimizer states and the step; dropout
 never passes flax a dropout key.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md Queue 1 item: ``train.mode: frame_ce`` and ``ssl``,
-``grad_accum > 1``, meshes and several devices, and batches of
-precomputed 3-D features.
+ROADMAP.md Queue 1 item: ``train.mode: ssl``, ``grad_accum > 1``, meshes
+and several devices, and batches of precomputed 3-D features.
 """
 
 from __future__ import annotations
@@ -80,12 +81,13 @@ from uasr_torch.data.dataset import Batch
 from uasr_torch.frontend.features import compute_features, frontend_state_from_config
 from uasr_torch.frontend.specaugment import spec_augment
 from uasr_torch.metrics import MetricWriter, log_stdout
-from uasr_torch.models.models import build_discriminator, build_model
+from uasr_torch.models.models import build_discriminator, build_model, encoder_time_subsample
 from uasr_torch.ops.ctc import ctc_loss
 from uasr_torch.ops.cuda_ctc import ctc_loss_kernel
 from uasr_torch.ops.decode import ctc_beam_search_decode, ctc_greedy_decode
 from uasr_torch.ops.edit_distance import batch_edit_distance
 from uasr_torch.ops.eodm import device_ngram_tables, eodm_loss
+from uasr_torch.ops.frame_ce import frame_accuracy, frame_ce_loss
 from uasr_torch.ops.wgan import bce_d_loss_fn, bce_g_loss_fn, d_loss_fn, g_loss_fn
 
 
@@ -189,13 +191,14 @@ def make_optimizer(cfg: Config, lr=None, b1: float = 0.9, b2: float = 0.999,
 
 
 def _to_device(batch, device) -> list[torch.Tensor]:
-    """A numpy ``Batch`` as tensors on ``device`` (audio f32, the rest int64)."""
-    b = Batch(*(np.asarray(x) for x in batch[:4]))
-    if b.audio.ndim == 3:
+    """A numpy ``Batch`` (or ``AlignedBatch``, whose fifth field is the
+    frame labels) as tensors on ``device`` (audio f32, the rest int64)."""
+    b = [np.asarray(x) for x in batch]
+    if b[0].ndim == 3:
         raise NotImplementedError(
             "batches of precomputed [B, T, D] features are not ported yet (ROADMAP.md "
             "Queue 1, item 10: SSL and feature caches)")
-    return [torch.as_tensor(b.audio, dtype=torch.float32).to(device)] + [
+    return [torch.as_tensor(b[0], dtype=torch.float32).to(device)] + [
         torch.as_tensor(x, dtype=torch.long).to(device) for x in b[1:]]
 
 
@@ -214,17 +217,15 @@ def _apply_updates(params: dict, updates: dict) -> None:
 
 
 class CTCTrainer:
-    """Supervised CTC training and eval on one device."""
+    """Supervised training and eval on one device: CTC, or with
+    ``train.mode: frame_ce`` frame-level CE on forced alignments."""
 
     def __init__(self, cfg: Config, device="cuda"):
-        if cfg.train.mode == "frame_ce":
-            raise NotImplementedError(
-                "train.mode frame_ce is not ported yet (ROADMAP.md Queue 1, slice 3: frame-CE)")
         if cfg.train.mode in ("gan", "gan+eodm", "eodm"):
             raise ValueError(
                 f"train.mode {cfg.train.mode!r} trains the generator through GANTrainer / "
                 "EODMTrainer (run_gan_training, run_eodm_training), not CTCTrainer")
-        if cfg.train.mode != "ctc":
+        if cfg.train.mode not in ("ctc", "frame_ce"):
             raise NotImplementedError(
                 f"train.mode {cfg.train.mode!r} is not ported yet (ROADMAP.md Queue 1, "
                 "item 10: SSL and feature caches)")
@@ -239,6 +240,7 @@ class CTCTrainer:
                                  device=self.device)
         self.optimizer = make_optimizer(cfg)
         self._frontend_state = None
+        self.frame_ce = cfg.train.mode == "frame_ce"
 
     @property
     def frontend_state(self):
@@ -248,7 +250,8 @@ class CTCTrainer:
         return self._frontend_state
 
     def to_device(self, batch) -> list[torch.Tensor]:
-        """A numpy ``Batch`` as tensors on the trainer's device."""
+        """A numpy ``Batch`` or ``AlignedBatch`` as tensors on the trainer's
+        device."""
         return _to_device(batch, self.device)
 
     def step_generator(self, step: int) -> torch.Generator:
@@ -265,19 +268,40 @@ class CTCTrainer:
 
     def _loss(self, params: dict, db: list[torch.Tensor], generator: torch.Generator):
         cfg = self.cfg
-        audio, alen, labels, llen = db
+        audio, alen, labels, llen = db[:4]
         with torch.no_grad():  # the frontend has no parameters
             feats, flen = compute_features(audio, alen, self.frontend_state, cfg.frontend)
             if cfg.frontend.specaug_time_masks or cfg.frontend.specaug_freq_masks:
                 feats = spec_augment(generator, feats, flen, cfg.frontend)
         logits, out_len = functional_call(self.model, params, (feats, flen))
+        if self.frame_ce:
+            return self._frame_ce_loss(logits, out_len, db)
         loss_fn = ctc_loss_kernel if cfg.ctc.use_pallas else ctc_loss
         loss = loss_fn(logits, out_len, labels, llen, cfg.ctc.blank_id).mean()
         return loss, {"ctc_loss": loss.detach(), "loss": loss.detach()}
 
+    def _frame_ce_loss(self, logits, out_len, db: list[torch.Tensor]):
+        """Frame-level CE against the batch's frame labels, which arrive at
+        the model-input frame rate (10 ms frames): taken every frontend
+        downsample x encoder stride frames from frame 0 (no centring, as in
+        the JAX package) and padded with -1 up to the logits' T."""
+        if len(db) != 5:
+            raise TypeError("train.mode=frame_ce needs AlignedBatch batches (list files with "
+                            "an alignment column)")
+        total = encoder_time_subsample(self.cfg.model) * self.cfg.frontend.downsample
+        labels = db[4][:, ::total]
+        T = logits.shape[1]
+        if labels.shape[1] < T:
+            labels = torch.nn.functional.pad(labels, (0, T - labels.shape[1]), value=-1)
+        loss = frame_ce_loss(logits, out_len, labels)
+        with torch.no_grad():
+            acc = frame_accuracy(logits, out_len, labels)
+        return loss, {"loss": loss.detach(), "frame_acc": acc}
+
     def loss_and_grads(self, params: dict, batch, generator: torch.Generator):
-        """(aux, grads) of the mean CTC loss at ``params`` in train mode;
-        ``batch`` is a numpy ``Batch`` or its tensors on the device."""
+        """(aux, grads) of the mean CTC loss (or frame-level CE) at
+        ``params`` in train mode; ``batch`` is a numpy ``Batch`` /
+        ``AlignedBatch`` or its tensors on the device."""
         self.model.train()
         params = _leaves(params)
         db = batch if isinstance(batch, list) else self.to_device(batch)
@@ -287,7 +311,8 @@ class CTCTrainer:
 
     def train_step(self, state: TrainState, batch, generator: torch.Generator | None = None):
         """One update. Returns (new state, aux) with aux's values as 0-d
-        tensors on the device (``loss``, ``ctc_loss``, ``grad_norm``)."""
+        tensors on the device (``loss``, ``grad_norm`` and ``ctc_loss``, or
+        with frame-CE ``frame_acc``)."""
         aux, grads = self.loss_and_grads(state.params, batch,
                                          generator or self.step_generator(state.step))
         updates, opt_state, g_norm = self.optimizer.update(grads, state.opt_state)
@@ -300,7 +325,7 @@ class CTCTrainer:
         """Decode + edit distance -> (errors, reference tokens), summed over
         the batch. PER = sum(err) / sum(ref)."""
         self.model.eval()
-        audio, alen, labels, llen = self.to_device(batch)
+        audio, alen, labels, llen = self.to_device(batch[:4])
         feats, flen = compute_features(audio, alen, self.frontend_state, self.cfg.frontend)
         logits, out_len = functional_call(self.model, params, (feats, flen))
         ctc = self.cfg.ctc
@@ -808,8 +833,9 @@ def run_ctc_training(
             sync(trainer.device)
             dt = time.time() - t0
             loss = float(aux["loss"])
+            extra = {"frame_acc": float(aux["frame_acc"])} if "frame_acc" in aux else {}
             writer.write(step, "train", loss=loss, grad_norm=float(aux["grad_norm"]),
-                         audio_sec_per_sec=audio_sec_acc / max(dt, 1e-9))
+                         audio_sec_per_sec=audio_sec_acc / max(dt, 1e-9), **extra)
             log_stdout(step, "train", loss=loss,
                        audio_sec_per_sec=audio_sec_acc / max(dt, 1e-9))
             t0, audio_sec_acc = time.time(), 0.0
