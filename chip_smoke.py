@@ -142,7 +142,22 @@ and prints no result line):
    batch's kernel path against
    the plain path, ``--mode infer`` of the frame-CE checkpoint and
    ``tools.align`` on it, every fitting alignment collapsing;
-16. one JSON line listing every ported kernel with its check, times and
+16. SSL pretraining and the feature-cache path (phase_ssl): K5 and K5-bwd
+   at the context GRU's shape (G = 1, T = 600, B = 16, H = 512, f32)
+   against their plain versions; configs/formant39_ssl.yaml at full width
+   through the CLI on a 360-utterance formant corpus from ``prepare
+   synth`` with ``ssl.context_pallas=true``: 20 steps (1 K5, 1 K5-bwd and
+   its coefficient kernel each; the median wall of the last 10, nce_acc,
+   a profile), 4 with ``ssl.input_type=fbank`` (1 K1 more) and 4 with
+   ``ssl.fused_loss=true``, each first step on the kernel path against the
+   plain path; ``tools.featurize --cmvn --pca 512 --pool-kmeans 128`` of
+   the train split and, through its transforms, the dev split; ``prepare
+   kmeans --feature-cache``; configs/wav2vecu_pod_stretch.yaml's gan+eodm
+   over the cache from the device-resident corpus at its widths (B = 256,
+   bf16; 8 alternations, the corpus's bytes and upload, each batch's issue
+   and one gather on the card), ``--mode infer`` from the dev cache and
+   one self-training round over the cached features;
+17. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -3412,6 +3427,371 @@ def phase_frame_ce(torch, np, root: str, launches: dict) -> None:
     print(f"  frame-CE phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# SSL pretraining and the feature-cache path (configs/formant39_ssl.yaml and
+# configs/wav2vecu_pod_stretch.yaml): the formant corpus is cut from the
+# recipe's 2048 utterances to SSL_UTTS (a train list of 7/8 of them, B=256
+# GAN batches drawn from it with repeats across epochs)
+SSL_UTTS = 360
+SSL_STEPS = 20  # pretraining steps at full width; the step wall is the last 10's median
+SSL_SHORT = 4  # steps with input_type fbank and with the fused loss
+SSL_T, SSL_B, SSL_H = 600, 16, 512  # K5 / K5-bwd at the context GRU's shape (6 s, 100 Hz)
+SSL_SAMPLE_FRAMES = 2048  # featurize's pooling k-means reservoir (host k-means cost)
+SSL_KMEANS_UTTS = 8  # cached utterances the segmenter's 128 centroids are fit on
+GAN_ALTS = 8  # gan+eodm alternations over the cache
+W2V_SELF_STEPS = 4  # student steps of the self-training round over the cache
+
+
+@contextlib.contextmanager
+def traced_methods(torch, methods: list, record: dict):
+    """Wrap each (class, method name) so that every call's wall (ending in a
+    synchronise) and launches are recorded under the method's name."""
+    saved = [(cls, name, getattr(cls, name)) for cls, name in methods]
+
+    def wrap(name, orig):
+        def fn(*a, **k):
+            before = read_launches()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = read_launches()
+            record.setdefault(name, []).append(
+                dict(wall=wall, launches={k: after[k] - before[k] for k in after if
+                                          after[k] != before[k]}))
+            return out
+        return fn
+
+    for cls, name, orig in saved:
+        setattr(cls, name, wrap(name, orig))
+    try:
+        yield
+    finally:
+        for cls, name, orig in saved:
+            setattr(cls, name, orig)
+
+
+@contextlib.contextmanager
+def timed_gathers(torch, record: list):
+    """The host time of each batch of ``data.cache.device_feature_batches``
+    (the first one also builds and uploads the corpus; the others issue the
+    row gathers, which the card runs in stream order behind the training
+    step's kernels, so no synchronise: the prefetch thread issues them
+    while the step runs)."""
+    from uasr_torch.data import cache
+
+    orig = cache.device_feature_batches
+
+    def batches(*a, **k):
+        it = orig(*a, **k)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                return
+            record.append(time.perf_counter() - t0)
+            yield b
+
+    cache.device_feature_batches = batches
+    try:
+        yield
+    finally:
+        cache.device_feature_batches = orig
+
+
+def ssl_kernels(torch, np) -> None:
+    """K5 forward at the SSL context GRU's shape (G = 1, T = 600, B = 16,
+    H = 512, f32; larger than any earlier K5 case), ragged and every row
+    live, against its plain version, timed beside cuDNN's GRU; and K5-bwd /
+    K8 at the same shape (gru_bwd_case)."""
+    from uasr_torch.models import cuda_gru as k5
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    T, rows, H = SSL_T, SSL_B, SSL_H
+    gru = torch.nn.GRU(H, H).to(dev)
+    gru.flatten_parameters()
+    x = torch.randn(T, rows, H, device=dev, generator=gen)
+    with torch.inference_mode():
+        lib = cuda_ms(torch, lambda: gru(x), 20)
+    for full in (False, True):
+        (xp, wh, bh), tmask, _, lengths = _gru_problem(torch, gen, T, rows, H, torch.float32,
+                                                       full)
+        args = (xp, wh, bh, tmask)
+        got = k5.gru_scan_cuda(*args)
+        plan = (k5.LAST_GRU_WH, *k5.LAST_GRU_PLAN)
+        ref = k5.gru_scan_reference(*args)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        tag = "ssl:full" if full else "ssl"
+        check(bool(torch.isfinite(got).all()), f"K5 {tag}: non-finite output")
+        check(err <= 1e-4, f"K5 {tag}: max|d| {err:.3e} > 1e-4")
+        check(not bool(got[:, 0, lengths == 0].any()), f"K5 {tag}: a zero-length row moved")
+        ms = cuda_ms(torch, lambda: k5.gru_scan_cuda(*args), 20)
+        plain = cuda_ms(torch, lambda: k5.gru_scan_reference(*args), 2)
+        steps = int(lengths.sum())
+        nbytes = 4 * (T * rows * 3 * H + H * 3 * H + 3 * H + T * rows * H) + 4 * T * rows
+        bms, by = bound(nbytes, 2 * steps * H * 3 * H, "float32")
+        print(f"K5 gru     {tag:12s} T={T} B={rows} H={H} (wh, units/CTA, splits)={plan}: "
+              f"max|d| {err:.3e} (tol 1e-4) kernel {ms:.4f} ms plain {plain:.4f} ms cuDNN GRU "
+              f"{lib:.4f} ms bound {bms:.4f} ms ({by})", flush=True)
+    gru_bwd_case(torch, gen, "ssl", T, rows, H, "float32")
+
+
+def ssl_first_step(torch, cfg, batch, what: str):
+    """The first SSL step's loss, grad norm and worst gradient tensor on the
+    kernel path against the plain path, from the same initial weights,
+    batch and negatives, at the training-step bars (f32: loss and grad norm
+    rel 1e-4, worst tensor |dg|/|g| 1e-3). Returns (trainer, its initial
+    parameters, the batch on the card)."""
+    from uasr_torch import pretrain, train
+
+    t = pretrain.SSLTrainer(cfg, device=torch.device(DEVICE))
+    params = t.init_state().params
+    db = t.to_device(batch)
+    aux_k, g_k = t.loss_and_grads(params, db, t.step_generator(0))
+    with plain_versions():
+        aux_p, g_p = t.loss_and_grads(params, db, t.step_generator(0))
+    lk, lp = float(aux_k["nce_loss"]), float(aux_p["nce_loss"])
+    nk, npl = (float(train.global_norm(g.values())) for g in (g_k, g_p))
+    worst = max((float(torch.linalg.vector_norm(g_k[k] - g_p[k])
+                       / torch.linalg.vector_norm(g_p[k]).clamp_min(1e-30)), k) for k in g_p)
+    print(f"  {what}, kernel path vs plain path (f32): loss {lk:.6f} vs {lp:.6f} (rel "
+          f"{_rel(lk, lp):.3e}, tol 1e-4), grad norm {nk:.6f} vs {npl:.6f} (rel "
+          f"{_rel(nk, npl):.3e}, tol 1e-4), worst tensor |dg|/|g| {worst[0]:.3e} ({worst[1]}, "
+          f"tol 1e-3), nce_acc {float(aux_k['nce_acc']):.4f} vs {float(aux_p['nce_acc']):.4f}",
+          flush=True)
+    check(math.isfinite(lk) and _rel(lk, lp) <= 1e-4, f"{what}: loss {lk} vs plain {lp}")
+    check(math.isfinite(nk) and _rel(nk, npl) <= 1e-4, f"{what}: grad norm {nk} vs {npl}")
+    check(worst[0] <= 1e-3, f"{what}: gradient of {worst[1]} off by {worst[0]:.3e}")
+    return t, params, db
+
+
+def _sets(pairs) -> list:
+    return [a for kv in pairs for a in ("--set", kv)]
+
+
+def phase_ssl(torch, np, root: str, launches: dict) -> None:
+    """SSL pretraining and the feature-cache path on the card (after
+    phase_frame_ce, in the same directory): K5 / K5-bwd at the context
+    GRU's shape; configs/formant39_ssl.yaml at full width through the CLI
+    with ``ssl.context_pallas=true`` on a formant corpus written by
+    ``prepare synth`` (SSL_STEPS steps, each 1 K5, 1 K5-bwd chain and its
+    coefficient kernel; the first step's kernel path against the plain
+    path), SSL_SHORT steps with ``ssl.input_type=fbank`` (1 K1 more) and
+    with ``ssl.fused_loss=true``; ``tools.featurize --cmvn --pca 512
+    --pool-kmeans 128`` of the train split (and the dev split with
+    ``--transforms-from``), ``prepare kmeans --feature-cache`` with 128
+    clusters; configs/wav2vecu_pod_stretch.yaml's gan+eodm over the cache
+    from the device-resident corpus (GAN_ALTS alternations), ``--mode
+    infer`` from the cache and one self-training round over it."""
+    from uasr_torch import cli, pretrain, train
+    from uasr_torch.config import load_config
+    from uasr_torch.data import cache as fcache
+    from uasr_torch.data.loader import StreamingASRDataset
+    from uasr_torch.tools import featurize, prepare
+    from uasr_torch.tools import selftrain as st_tool
+    from uasr_torch.vocab import load_vocab
+
+    t_phase = time.perf_counter()
+    ssl_kernels(torch, np)
+    corpus = os.path.join(root, "formant")
+    prepare_quiet(prepare, ["synth", "--out-dir", corpus, "--num-utts", str(SSL_UTTS),
+                            "--num-phones", "39", "--syntax", "markov", "--style", "formant",
+                            "--min-len", "20", "--max-len", "45"])
+    recipe = os.path.join(REPO, "configs", "formant39_ssl.yaml")
+    ssl_dir = os.path.join(root, "ssl")
+    data = [f"data.train_list={corpus}/train.tsv", f"data.dev_list={corpus}/dev.tsv",
+            f"data.vocab_path={corpus}/vocab.txt", "data.synthetic=false",
+            "ssl.context_pallas=true", "train.log_every=1", "train.eval_every=1000000"]
+    want = {"K5": 1, "K5-bwd": 1, "K5-bwd:coeffs": 1}
+    print(f"ssl: formant39_ssl (patch 20, conv 256/256/512, context GRU 512 through K5, K=8, "
+          f"100 negatives, B=16 x 6 s, f32) on a {SSL_UTTS}-utterance formant corpus; card "
+          f"{card_line()}", flush=True)
+    for tag, extra, steps, more in (("waveform", [], SSL_STEPS, {}),
+                                    ("fbank", ["ssl.input_type=fbank"], SSL_SHORT, {"K1": 1}),
+                                    ("fused", ["ssl.fused_loss=true"], SSL_SHORT, {})):
+        model_dir = ssl_dir if tag == "waveform" else os.path.join(root, f"ssl_{tag}")
+        sets = [*data, *extra, f"model_dir={model_dir}", f"train.total_steps={steps}",
+                f"train.save_every={steps}"]
+        record: dict = {}
+        reset_launches()
+        t0 = time.perf_counter()
+        with traced_methods(torch, [(pretrain.SSLTrainer, "train_step")], record):
+            run_cli(torch, ["-c", recipe, "--mode", "train", *_sets(sets)])
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        with open(os.path.join(model_dir, "metrics.jsonl")) as f:
+            recs = [json.loads(ln) for ln in f if '"train"' in ln]
+        st = record["train_step"]
+        check(len(st) == steps and len(recs) == steps, f"ssl {tag}: {len(st)} steps, "
+              f"{len(recs)} logged")
+        step_want = dict(want, **more)
+        for i, (s_, r) in enumerate(zip(st, recs)):
+            check(s_["launches"] == step_want, f"ssl {tag} step {i + 1}: launches "
+                  f"{s_['launches']}, expected {step_want}")
+            check(np.isfinite(r["nce_loss"]) and 0.0 <= r["nce_acc"] <= 1.0
+                  and np.isfinite(r["grad_norm"]), f"ssl {tag} step {i + 1}: {r}")
+        walls = [s_["wall"] for s_ in st]
+        tail = walls[-10:] if tag == "waveform" else walls[1:]
+        print(f"  {tag}: {steps} steps through the CLI in {wall:.2f} s (start-up included); "
+              f"step wall median {np.median(tail) * 1e3:.2f} ms over steps "
+              f"{steps - len(tail) + 1}-{steps} (min {min(tail) * 1e3:.2f}, max "
+              f"{max(tail) * 1e3:.2f}; first {walls[0] * 1e3:.2f}); {16 * 6 / np.median(tail):.1f} "
+              f"audio-s/s; nce_acc {recs[0]['nce_acc']:.4f} at step 1 -> "
+              f"{recs[-1]['nce_acc']:.4f} at step {steps}, nce_loss {recs[0]['nce_loss']:.4f} "
+              f"-> {recs[-1]['nce_loss']:.4f}; launches a step {step_want}", flush=True)
+        for k in ("K1", "K5", "K5-bwd"):
+            launches[k] = launches.get(k, 0) + counts[k]
+        cfg = load_config(recipe)
+        cli.apply_overrides(cfg, sets)
+        source, _ = cli._load_source(cfg, "train")
+        it = cli._batches(cfg, source, seed=cfg.train.seed)
+        first = next(it)
+        it.close()
+        t, params, db = ssl_first_step(torch, cfg, first, f"ssl {tag} first step")
+        if tag == "waveform":
+            profile_call(torch, lambda: t.train_step(train.TrainState(0, params,
+                                                                      t.optimizer.init(params)),
+                                                     db), "one SSL step")
+
+    # ---- featurize: the train split (fit PCA and the pooling k-means), then
+    # the dev split through the train split's transforms
+    feats, feats_dev = os.path.join(root, "w2v_train"), os.path.join(root, "w2v_dev")
+    fsets = _sets([*data, f"model_dir={ssl_dir}"])
+    vocab = load_vocab(f"{corpus}/vocab.txt")
+    ds = StreamingASRDataset.from_file(f"{corpus}/train.tsv", vocab, 16000)
+    raw = 0
+    for n in ds.num_samples:
+        n = -(-min(int(n), 96000) // 20)
+        for s_ in (4, 2, 1):
+            n = -(-n // s_)
+        raw += n
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        featurize.main(["-c", recipe, *fsets, "--split", "train", "--out", feats, "--cmvn",
+                        "--pca", "512", "--pool-kmeans", "128", "--sample-frames",
+                        str(SSL_SAMPLE_FRAMES)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    cache = fcache.FeatureCache(feats)
+    pooled = sum(len(f) for _, f, _ in cache)
+    nb = -(-len(ds) // 16)
+    check(len(cache) == len(ds) and cache.dim == 512, f"featurize wrote {len(cache)} utts of "
+          f"dim {cache.dim}")
+    check(counts["K5"] == 2 * nb and counts["K5-bwd"] == 0, f"featurize launches {counts}")
+    launches["K5"] += counts["K5"]
+    print(f"  featurize --cmvn --pca 512 --pool-kmeans 128 (reservoir {SSL_SAMPLE_FRAMES}): "
+          f"{len(cache)} utterances in {wall:.2f} s with the restore and both passes, "
+          f"{len(cache) / wall:.1f} utt/s; {raw} frames -> {pooled} after pooling "
+          f"({pooled / raw:.3f}); {counts['K5']} K5 launches ({nb} batches x 2 passes)",
+          flush=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        featurize.main(["-c", recipe, *fsets, "--split", "dev", "--out", feats_dev, "--cmvn",
+                        "--pca", "512", "--pool-kmeans", "128", "--transforms-from", feats])
+    print(f"  featurize of the dev split through the train split's transforms: "
+          f"{len(fcache.FeatureCache(feats_dev))} utterances in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    km = os.path.join(root, "kmeans128.npz")
+    stretch = os.path.join(REPO, "configs", "wav2vecu_pod_stretch.yaml")
+    t0 = time.perf_counter()
+    prepare_quiet(prepare, ["kmeans", "--config", stretch, "--feature-cache", feats,
+                            "--clusters", "128", "--max-utts", str(SSL_KMEANS_UTTS), "--out", km])
+    print(f"  prepare kmeans --feature-cache, 128 clusters on {SSL_KMEANS_UTTS} utterances: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # ---- gan+eodm over the cache at wav2vecu_pod_stretch's widths
+    w2v = os.path.join(root, "w2v")
+    gsets = ["parallel.model_parallel=1", f"data.feature_cache={feats}",
+             f"data.dev_feature_cache={feats_dev}", f"data.test_feature_cache={feats_dev}",
+             f"gan.centroids_path={km}", f"data.vocab_path={corpus}/vocab.txt",
+             "data.text_path=none", "train.log_every=1"]
+    record, gathers = {}, []
+    reset_launches()
+    t0 = time.perf_counter()
+    with traced_methods(torch, [(train.GANTrainer, "d_step"), (train.GANTrainer, "g_step")],
+                        record), timed_gathers(torch, gathers):
+        run_cli(torch, ["-c", stretch, "--mode", "train", *_sets(
+            [*gsets, f"model_dir={w2v}", f"train.total_steps={GAN_ALTS}",
+             f"train.save_every={GAN_ALTS}"])])
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in read_launches().items() if v}
+    corpus_info = dict(fcache.LAST_DEVICE_CORPUS)
+    with open(os.path.join(w2v, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f if '"train"' in ln]
+    d, g = record["d_step"], record["g_step"]
+    check(len(d) == len(g) == GAN_ALTS == len(recs), f"gan: {len(d)} d, {len(g)} g steps")
+    check(all(np.isfinite(r["d_loss"]) and np.isfinite(r["eodm_loss"]) for r in recs),
+          f"gan: non-finite losses {recs[-1]}")
+    check(not counts.get("K1"), f"gan over the cache ran the frontend: {counts}")
+    alt = [a["wall"] + b["wall"] for a, b in zip(d, g)]
+    # one batch's row gather alone on the card, at the corpus's shape
+    rows = torch.zeros(corpus_info["shape"], device=torch.device(DEVICE))
+    idx = torch.randperm(rows.shape[0], device=rows.device)[:256]
+    g_ms = cuda_ms(torch, lambda: rows.index_select(0, idx), 20)
+    g_bound = bound(2 * 256 * rows[0].numel() * 4, 0, "float32")[0]
+    del rows
+    print(f"  gan+eodm over the cache (classifier 1024 x 3, critic 512 x 4, bf16, B=256, "
+          f"max_frames 800, kmeans-128 segmentation): {GAN_ALTS} alternations through the CLI "
+          f"in {wall:.2f} s (start-up included); alternation wall median "
+          f"{np.median(alt[1:]) * 1e3:.2f} ms (first {alt[0] * 1e3:.2f}; critic step "
+          f"{np.median([a['wall'] for a in d[1:]]) * 1e3:.2f}, generator step "
+          f"{np.median([b['wall'] for b in g[1:]]) * 1e3:.2f}); device corpus "
+          f"{corpus_info['shape']} {corpus_info['bytes'] / 1e6:.1f} MB uploaded in "
+          f"{corpus_info['upload_s'] * 1e3:.1f} ms; {len(gathers)} batches: the first (corpus "
+          f"build from the cache and upload) {gathers[0] * 1e3:.1f} ms on the host, then "
+          f"median {np.median(gathers[1:]) * 1e3:.3f} ms to issue (max "
+          f"{max(gathers[1:]) * 1e3:.3f}); a B=256 gather on the card {g_ms:.4f} ms (bound "
+          f"{g_bound:.4f}, bytes); "
+          f"d_loss {recs[-1]['d_loss']:.4f} eodm_loss {recs[-1]['eodm_loss']:.4f}; launches "
+          f"{counts}", flush=True)
+    # one alternation profiled, from a fresh trainer on the same device corpus
+    from uasr_torch.data.dataset import text_batch_iterator
+    from uasr_torch.ops.eodm import device_ngram_tables
+
+    gcfg = load_config(stretch)
+    cli.apply_overrides(gcfg, [*gsets, f"model_dir={w2v}"])
+    source, gvocab = cli._load_source(gcfg, "train")
+    gcfg = gcfg.replace(vocab_size=len(gvocab))
+    text = cli._load_text(gcfg, source, gvocab)
+    dev = torch.device(DEVICE)
+    it = cli._batches(gcfg, source, seed=gcfg.train.seed, device=dev)
+    gt = train.GANTrainer(gcfg, device=dev, tables=device_ngram_tables(gcfg.eodm, text, dev))
+    gstate = [gt.init_state()]
+    text_it = text_batch_iterator(text, gcfg.data.batch_size, gcfg.data.max_label_len, seed=0)
+
+    def alternation_step():
+        gstate[0], _ = gt.d_step(gstate[0], next(it), next(text_it))
+        gstate[0], _ = gt.g_step(gstate[0], next(it))
+
+    alternation_step()
+    alternation_step()
+    profile_call(torch, alternation_step, "one gan+eodm alternation over the cache (B=256)")
+    it.close()
+    t0 = time.perf_counter()
+    out = run_cli(torch, ["-c", stretch, "--mode", "infer",
+                          *_sets([*gsets, f"model_dir={w2v}"])])
+    check(out.startswith(f"step {GAN_ALTS}: PER="), f"infer printed {out!r}")
+    print(f"  --mode infer from the dev cache (greedy; ctc.use_beam is off in the recipe): "
+          f"{out.strip()} in {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = st_tool.main(["-c", stretch, *_sets([*gsets, f"model_dir={root}/w2v_st"]),
+                           "--teacher-dir", w2v, "--teacher-mode", "gan", "--student-steps",
+                           str(W2V_SELF_STEPS)])
+    torch.cuda.synchronize()
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and lines and lines[-1].startswith("teacher PER="), f"selftrain: {lines[-3:]}")
+    print(f"  self-training round over the cache ({W2V_SELF_STEPS} student steps from the "
+          f"device-resident student corpus): {lines[-1]} in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    print(f"  ssl phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3453,6 +3833,7 @@ def main() -> int:
         phase_data(torch, np, tmp)
         phase_lm_decode(torch, np, tmp)
         phase_frame_ce(torch, np, tmp, launches)
+        phase_ssl(torch, np, tmp, launches)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",

@@ -20,6 +20,10 @@ LM = ("uasr_torch/ops/viterbi.py", "uasr_torch/tools/align.py")
 # the frame-CE and self-training slice's
 SELFTRAIN = ("uasr_torch/ops/frame_ce.py", "uasr_torch/data/kaldi.py", "uasr_torch/selftrain.py",
              "uasr_torch/tools/selftrain.py", "uasr_torch/tools/sweep.py")
+# the SSL and feature-cache slice's
+SSL = ("uasr_torch/ops/infonce.py", "uasr_torch/models/ssl.py", "uasr_torch/pretrain.py",
+       "uasr_torch/data/cache.py", "uasr_torch/data/transforms.py",
+       "uasr_torch/tools/featurize.py")
 
 
 def _port_files():
@@ -35,7 +39,7 @@ def _module_name(path: pathlib.Path) -> str:
 def test_imports_pull_in_no_jax_flax_or_uasr():
     files = {str(p.relative_to(REPO)) for p in _port_files()}
     assert set(UNSUP) <= files and set(DATA) <= files and set(LM) <= files
-    assert set(SELFTRAIN) <= files
+    assert set(SELFTRAIN) <= files and set(SSL) <= files
     mods = [_module_name(p) for p in _port_files()]
     code = (
         "import importlib, sys\n"

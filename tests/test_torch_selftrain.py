@@ -194,8 +194,13 @@ def test_one_self_train_round_matches_jax(teachers, tmp_path, flavour, monkeypat
     for k, v in want.items():
         np.testing.assert_allclose(state.params[k].detach().numpy(), v.numpy(), atol=1e-4,
                                    rtol=0, err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        selftrain.self_train(pc, pfn, [(np.zeros((5, 16), np.float32), [1])], device="cpu")
+    # [T, D] feature examples (an SSL feature cache's): the same labeller with
+    # the frontend bypassed, then one student step over them
+    feats = [(np.random.RandomState(i).randn(40, 16).astype(np.float32), [1]) for i in range(B)]
+    _, fstate, fh = selftrain.self_train(pc.replace(model_dir=str(tmp_path / "feats")), pfn,
+                                         feats, steps_per_round=1, log=lambda *_: None,
+                                         device="cpu")
+    assert fstate.step == 1 and fh[0]["total"] == B and fh[0]["labeled"] > 0
 
 
 # the port's tools on tiny recipes trained through the port's CLI

@@ -221,25 +221,41 @@ def test_dropout_acts_in_train_mode_only():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(train=dict(mode="ssl")), "item 10"),
-    (dict(train=dict(grad_accum=2)), "slice 5"),
-    (dict(parallel=dict(model_parallel=2)), "slice 5"),
+    (dict(train=dict(mode="ssl")), "SSLTrainer"),
+    (dict(train=dict(grad_accum=2)), "item 14"),
+    (dict(parallel=dict(model_parallel=2)), "item 14"),
 ])
 def test_unported_training_options_raise(change, match):
     cfg = _port_cfg(8)
     for section, kw in change.items():
         cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section),
                                                                        **kw)})
+    if cfg.train.mode == "ssl":
+        # ported: CTCTrainer points at SSLTrainer, which takes a step of it
+        from uasr_torch.pretrain import SSLTrainer
+
+        with pytest.raises(ValueError, match=match):
+            train.CTCTrainer(cfg, device="cpu")
+        cfg = dataclasses.replace(cfg, ssl=tc.SSLConfig(
+            conv_channels=(8, 8), conv_kernels=(8, 4), conv_strides=(8, 4), context_hidden=8,
+            predict_steps=2, num_negatives=3))
+        ssl = SSLTrainer(cfg, device="cpu")
+        batches, _ = _batches(1)
+        state, aux = ssl.train_step(ssl.init_state(), batches[0])
+        assert state.step == 1 and np.isfinite(float(aux["nce_loss"]))
+        return
     with pytest.raises(NotImplementedError, match=match):
         train.CTCTrainer(cfg, device="cpu")
 
 
 def test_feature_batches_raise_and_cuda_needs_a_card():
+    """[B, T, D] feature batches (once refused) train: the frontend is
+    bypassed and the lengths count frames."""
     trainer = train.CTCTrainer(_port_cfg(8), device="cpu")
-    feats = (np.zeros((2, 10, 16), np.float32), np.array([10, 4]), np.zeros((2, 3), np.int32),
-             np.array([3, 1]))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        trainer.train_step(trainer.init_state(), feats)
+    feats = (np.random.RandomState(0).randn(2, 10, 16).astype(np.float32), np.array([10, 4]),
+             np.array([[1, 2, 3], [4, 0, 0]], np.int32), np.array([3, 1]))
+    state, aux = trainer.train_step(trainer.init_state(), feats)
+    assert state.step == 1 and np.isfinite(float(aux["loss"])) and float(aux["grad_norm"]) > 0
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device does not raise")
     with pytest.raises(RuntimeError, match="device='cpu'"):

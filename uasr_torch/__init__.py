@@ -24,7 +24,7 @@ def resolve_device(device) -> torch.device:
     if isinstance(device, (list, tuple)):
         raise NotImplementedError(
             "several devices (multi-device decode or training) are not ported "
-            "yet (ROADMAP.md Queue 1, slice 5: serving and scale); pass one device"
+            "yet (ROADMAP.md Queue 1, item 14: distribution and scale); pass one device"
         )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -6,8 +6,9 @@
 CE on the lists' fourth column of per-frame labels) through
 ``run_ctc_training``, ``gan`` and ``gan+eodm`` through ``run_gan_training`` and ``eodm``
 through ``run_eodm_training`` (the unpaired text from ``data.text_path``,
-or the split's own transcripts), resuming from the newest checkpoint
-under ``model_dir/ckpt``. ``--mode infer`` restores the newest
+or the split's own transcripts), and ``ssl`` (contrastive pretraining on
+raw audio) through ``pretrain.run_ssl_pretraining``, resuming from the
+newest checkpoint under ``model_dir/ckpt``. ``--mode infer`` restores the newest
 checkpoint (or the average of the newest ``train.average_checkpoints``,
 or ``best_ckpt`` with ``train.restore_best``) and decodes the test split
 with ``run_inference`` (greedy, ``ctc.use_beam`` with an optional
@@ -23,8 +24,12 @@ Data: the synthetic corpora, and utterance lists (``prepare lists`` or
 ``data.loader.StreamingASRDataset`` (``data.streaming``, the default) or
 read into memory (``--set data.streaming=false``). ``frame_ce`` reads its
 train and dev splits into memory with their alignment tracks (the
-synthetic corpora with theirs). Feature caches are not ported yet;
-``ssl`` raises ``NotImplementedError`` naming its ROADMAP.md item.
+synthetic corpora with theirs). A split with a feature cache
+(``data.feature_cache``, ``data.{dev,test,labeled}_feature_cache``: the
+``tools.featurize`` or ``prepare import-features`` dumps) gives [B, T, D]
+feature batches that bypass the frontend: on one CUDA device with
+``data.device_cache`` (the default) from the corpus uploaded to the card
+once (``data.cache.device_feature_batches``), else read on the host.
 """
 
 from __future__ import annotations
@@ -35,13 +40,17 @@ import itertools
 import os
 import sys
 
+import numpy as np
+import torch
+
 
 def _load_source(cfg, split: str):
     """(source, vocab) of a split. The source is ``("examples", list)``:
     the synthetic corpus (seed 0 for train, 1 for dev, 2 for test, so dev
-    and test are held out) or an utterance list read into memory; or
+    and test are held out) or an utterance list read into memory;
     ``("stream", StreamingASRDataset)``: an utterance list under
-    ``data.streaming``, decoded one batch at a time. The labeled mix-in
+    ``data.streaming``, decoded one batch at a time; or ``("features",
+    FeatureCache)`` for a split with a feature cache. The labeled mix-in
     split is always read into memory, and so are ``frame_ce``'s train and
     dev splits, as (audio, ids, frame labels) triples: alignment tracks
     are consumed by the frame-CE step only, so the test split decodes
@@ -56,9 +65,12 @@ def _load_source(cfg, split: str):
         if cfg.train.mode == "frame_ce" and split != "test":
             raise SystemExit("train.mode=frame_ce needs per-frame alignments; feature caches "
                              "carry none")
-        raise NotImplementedError(
-            "data feature caches are not ported yet (ROADMAP.md Queue 1, item 10: SSL and "
-            "feature caches)")
+        from uasr_torch.data.cache import FeatureCache
+
+        if cfg.data.vocab_path is None:
+            raise SystemExit(f"data.{'' if split == 'train' else split + '_'}feature_cache "
+                             "needs data.vocab_path (tokens for text/scoring)")
+        return ("features", FeatureCache(cache_dir)), load_vocab(cfg.data.vocab_path)
     aligned = cfg.train.mode == "frame_ce" and split != "test"
     if cfg.data.synthetic:
         n_utts = cfg.data.synthetic_num_utts
@@ -97,10 +109,15 @@ def _load_source(cfg, split: str):
     return ("examples", [ds.example(i) for i in range(len(ds))]), vocab
 
 
-def _batches(cfg, source, num_epochs="cfg", seed=0, drop_remainder=True, limit=None):
+def _batches(cfg, source, num_epochs="cfg", seed=0, drop_remainder=True, limit=None,
+             device=None):
     """Prefetched batches of a source: bucketed ``Batch``es, or for (audio,
     ids, frame labels) triples ``AlignedBatch``es padded to the cap, their
-    tracks to the cap's frame count."""
+    tracks to the cap's frame count. A feature cache gives [B, max_frames,
+    D] batches, from the corpus resident on ``device`` when that is a CUDA
+    device and ``data.device_cache`` is set, else read on the host.
+    In-memory [T, D] feature examples (self-training over a cache) are
+    batched up to ``data.max_frames`` without buckets."""
     from uasr_torch.data.dataset import aligned_batch_iterator, batch_iterator, prefetch
 
     if num_epochs == "cfg":
@@ -112,9 +129,22 @@ def _batches(cfg, source, num_epochs="cfg", seed=0, drop_remainder=True, limit=N
               max_label_len=cfg.data.max_label_len, seed=seed, drop_remainder=drop_remainder,
               num_epochs=num_epochs,
               bucket_boundaries=[int(s * sr) for s in cfg.data.bucket_boundaries])
-    if kind == "stream":
+    if kind == "features":
+        from uasr_torch.data.cache import device_feature_batches, feature_batch_iterator
+
+        fkw = dict(batch_size=cfg.data.batch_size, max_frames=cfg.data.max_frames,
+                   max_label_len=cfg.data.max_label_len, seed=seed, num_epochs=num_epochs,
+                   drop_remainder=drop_remainder)
+        if cfg.data.device_cache and device is not None and torch.device(device).type == "cuda":
+            it = device_feature_batches(payload, device=device, **fkw)
+        else:
+            it = feature_batch_iterator(payload, **fkw)
+    elif kind == "stream":
         it = payload.batches(shuffle_buffer=cfg.data.shuffle_buffer,
                              decode_threads=cfg.data.loader_threads, **kw)
+    elif payload and np.ndim(payload[0][0]) == 2:
+        it = batch_iterator(payload, **dict(kw, max_audio_samples=cfg.data.max_frames,
+                                            bucket_boundaries=()))
     elif payload and len(payload[0]) == 3:
         fl, fs = cfg.frontend.frame_length, cfg.frontend.frame_shift
         del kw["bucket_boundaries"]
@@ -200,10 +230,16 @@ def _lift_caps_for_split(cfg, source):
     (train.dev_full_length): dev eval sees whole utterances; the recipe's
     bucket boundaries below the cap stay and the cap is the catch-all
     bucket. A stream's maxima come from its scanned lengths and encoded
-    labels, so nothing is decoded."""
+    labels, so nothing is decoded; a feature cache lifts
+    ``data.max_frames``."""
     max_sec, max_lab = cfg.data.max_audio_seconds, cfg.data.max_label_len
+    max_frames = cfg.data.max_frames
     kind, payload = source
-    if kind == "stream":
+    if kind == "features":
+        for _, f, ids in payload:
+            max_frames = max(max_frames, len(f))
+            max_lab = max(max_lab, len(ids))
+    elif kind == "stream":
         if len(payload):
             max_sec = max(max_sec, float(max(payload.num_samples)) / cfg.frontend.sample_rate)
             max_lab = max(max_lab, max(len(ids) for ids in payload.labels))
@@ -215,11 +251,13 @@ def _lift_caps_for_split(cfg, source):
     if cfg.data.bucket_boundaries:
         bounds = tuple(sorted(b for b in cfg.data.bucket_boundaries if b < max_sec)) + (max_sec,)
     return cfg.replace(data=dataclasses.replace(
-        cfg.data, max_audio_seconds=max_sec, max_label_len=max_lab, bucket_boundaries=bounds))
+        cfg.data, max_frames=max_frames, max_audio_seconds=max_sec, max_label_len=max_lab,
+        bucket_boundaries=bounds))
 
 
-def _dev_batches_fn(cfg):
-    if cfg.data.dev_list is None and not cfg.data.synthetic:
+def _dev_batches_fn(cfg, device=None):
+    if (cfg.data.dev_list is None and cfg.data.dev_feature_cache is None
+            and not cfg.data.synthetic):
         return None
     dev_source, _ = _load_source(cfg, "dev")
     if cfg.train.dev_full_length:
@@ -227,7 +265,7 @@ def _dev_batches_fn(cfg):
 
     def fn():
         return _batches(cfg, dev_source, num_epochs=1, drop_remainder=False,
-                        limit=cfg.train.dev_eval_batches)
+                        limit=cfg.train.dev_eval_batches, device=device)
 
     return fn
 
@@ -235,8 +273,21 @@ def _dev_batches_fn(cfg):
 def _train_ctc(cfg, source, device):
     from uasr_torch.train import run_ctc_training
 
-    run_ctc_training(cfg, _batches(cfg, source, seed=cfg.train.seed),
-                     dev_batches_fn=_dev_batches_fn(cfg), device=device)
+    run_ctc_training(cfg, _batches(cfg, source, seed=cfg.train.seed, device=device),
+                     dev_batches_fn=_dev_batches_fn(cfg, device), device=device)
+    return 0
+
+
+def _train_ssl(cfg, source, device):
+    """Contrastive pretraining over raw audio; ``tools.featurize`` then
+    dumps the features the unsupervised stage trains on."""
+    from uasr_torch.pretrain import run_ssl_pretraining
+
+    if source[0] == "features":
+        raise SystemExit("train.mode=ssl pretrains on RAW AUDIO; the split already has a "
+                         "feature cache configured")
+    run_ssl_pretraining(cfg, _batches(cfg, source, seed=cfg.train.seed),
+                        dev_batches_fn=_dev_batches_fn(cfg), device=device)
     return 0
 
 
@@ -250,6 +301,8 @@ def _load_text(cfg, source, vocab):
     kind, payload = source
     if kind == "stream":
         return [ids for ids in payload.labels if ids]
+    if kind == "features":
+        return [list(ids) for _, _, ids in payload if len(ids)]
     return [ids for _, ids in payload if ids]
 
 
@@ -257,18 +310,23 @@ def _train_gan(cfg, source, vocab, device, with_eodm=False):
     from uasr_torch.train import run_gan_training
 
     labeled = None
-    if cfg.gan.supervised_weight > 0 and (cfg.data.labeled_list or cfg.data.synthetic):
+    if cfg.gan.supervised_weight > 0 and (cfg.data.labeled_list or cfg.data.labeled_feature_cache
+                                          or cfg.data.synthetic):
         # the semi-supervised mix-in's own small paired stream, cycled; a
         # labeled set smaller than a batch wraps around to fill it
-        (_, ex), _ = _load_source(cfg, "labeled")
-        if not ex:
-            raise SystemExit("data.labeled_list is empty")
-        while len(ex) < cfg.data.batch_size:
-            ex = ex + ex
-        labeled = _batches(cfg, ("examples", ex), num_epochs=None, seed=cfg.train.seed + 1)
-    run_gan_training(cfg, _batches(cfg, source, seed=cfg.train.seed),
+        lab_source, _ = _load_source(cfg, "labeled")
+        if lab_source[0] == "examples":
+            ex = list(lab_source[1])
+            if not ex:
+                raise SystemExit("data.labeled_list is empty")
+            while len(ex) < cfg.data.batch_size:
+                ex = ex + ex
+            lab_source = ("examples", ex)
+        labeled = _batches(cfg, lab_source, num_epochs=None, seed=cfg.train.seed + 1,
+                           device=device)
+    run_gan_training(cfg, _batches(cfg, source, seed=cfg.train.seed, device=device),
                      _load_text(cfg, source, vocab), with_eodm=with_eodm,
-                     dev_batches_fn=_dev_batches_fn(cfg), labeled_batches=labeled,
+                     dev_batches_fn=_dev_batches_fn(cfg, device), labeled_batches=labeled,
                      device=device)
     return 0
 
@@ -276,9 +334,9 @@ def _train_gan(cfg, source, vocab, device, with_eodm=False):
 def _train_eodm(cfg, source, vocab, device):
     from uasr_torch.train import run_eodm_training
 
-    run_eodm_training(cfg, _batches(cfg, source, seed=cfg.train.seed),
-                      _load_text(cfg, source, vocab), dev_batches_fn=_dev_batches_fn(cfg),
-                      device=device)
+    run_eodm_training(cfg, _batches(cfg, source, seed=cfg.train.seed, device=device),
+                      _load_text(cfg, source, vocab),
+                      dev_batches_fn=_dev_batches_fn(cfg, device), device=device)
     return 0
 
 
@@ -286,9 +344,10 @@ def restore_trainer(cfg, device):
     """(trainer, step): a trainer whose ``model`` holds the newest
     checkpoint under ``model_dir/ckpt`` (the average of the newest
     ``train.average_checkpoints``, or ``best_ckpt`` with
-    ``train.restore_best``): a ``CTCTrainer``, or for ``train.mode`` gan,
+    ``train.restore_best``): a ``CTCTrainer``, for ``train.mode`` gan,
     gan+eodm and eodm a ``GeneratorInfer`` holding the generator (a
-    ``GANState``'s first tree). Exits when there is none."""
+    ``GANState``'s first tree), or for ``ssl`` an ``SSLTrainer`` holding the
+    ``CPCModel`` (``tools.featurize``). Exits when there is none."""
     from uasr_torch.checkpoint import CheckpointManager, restore_averaged
     from uasr_torch.train import CTCTrainer, GANState, GeneratorInfer, TrainState, make_optimizer
 
@@ -313,6 +372,11 @@ def restore_trainer(cfg, device):
             dp = dict(build_discriminator(cfg.model, cfg.dim_output,
                                           device=trainer.device).named_parameters())
             template = GANState(0, params, dp, opt.init(params), opt.init(dp))
+    elif mode == "ssl":
+        from uasr_torch.pretrain import SSLTrainer
+
+        trainer = SSLTrainer(cfg, device=device)
+        template = trainer.init_state()
     else:
         trainer = CTCTrainer(cfg, device=device)
         template = trainer.init_state()
@@ -331,11 +395,18 @@ def restore_trainer(cfg, device):
 def _infer(cfg, source, vocab, device):
     from uasr_torch.infer import run_inference
 
+    if cfg.train.mode == "ssl":
+        raise SystemExit("ssl checkpoints have no decode path; dump features with `python -m "
+                         "uasr_torch.tools.featurize` and train/infer a downstream recipe on "
+                         "the cache")
     trainer, step = restore_trainer(cfg, device)
     logits_fn = getattr(trainer, "logits_fn", None)
+    # a feature cache bypasses the frontend, whose state (global CMVN
+    # statistics, say) the recipe then need not provide
+    fstate = None if source[0] == "features" else trainer.frontend_state
     res = run_inference(
-        cfg, trainer.model, trainer.frontend_state,
-        _batches(cfg, source, num_epochs=1, drop_remainder=False),
+        cfg, trainer.model, fstate,
+        _batches(cfg, source, num_epochs=1, drop_remainder=False, device=device),
         vocab=vocab, hyp_path=f"{cfg.model_dir}/hyp.txt", device=device, logits_fn=logits_fn,
         fold_timit=cfg.ctc.fold_timit,
     )
@@ -366,11 +437,7 @@ def main(argv=None):
     apply_overrides(cfg, args.set)
     device = resolve_device(args.device)
     mode = cfg.train.mode
-    if mode == "ssl":
-        raise NotImplementedError(
-            "train.mode ssl is not ported yet (ROADMAP.md Queue 1, item 10: SSL and feature "
-            "caches)")
-    if mode not in ("ctc", "frame_ce", "gan", "gan+eodm", "eodm"):
+    if mode not in ("ctc", "frame_ce", "gan", "gan+eodm", "eodm", "ssl"):
         raise SystemExit(f"unknown train.mode {mode!r}")
     source, vocab = _load_source(cfg, "train" if args.mode == "train" else "test")
     if cfg.vocab_size is None:
@@ -382,6 +449,8 @@ def main(argv=None):
         return _train_gan(cfg, source, vocab, device, with_eodm="+eodm" in mode)
     if mode == "eodm":
         return _train_eodm(cfg, source, vocab, device)
+    if mode == "ssl":
+        return _train_ssl(cfg, source, device)
     return _train_ctc(cfg, source, device)
 
 

@@ -2,9 +2,7 @@
 
 The port keeps its own copy of the dataclasses it needs so that it never
 imports the JAX package. Field names and defaults are those of
-``uasr/config.py``. The SSL section is not ported yet (ROADMAP.md
-Queue 1, item 10) and is absent here, so a recipe that sets it fails to
-load with "unknown config keys".
+``uasr/config.py``, the ``ssl`` section (``SSLConfig``) included.
 
 ``yaml`` is imported inside ``load_config`` only: the port's runtime
 needs no PyYAML unless a recipe file is read.
@@ -204,6 +202,47 @@ class EODMConfig:
 
 
 @dataclass
+class SSLConfig:
+    """Self-supervised (CPC / wav2vec-style contrastive) pretraining (same
+    fields as ``uasr.config.SSLConfig``): raw audio -> contrastive
+    pretraining (``train.mode: ssl``) -> feature dump
+    (``uasr_torch.tools.featurize``) -> GAN / EODM from the feature cache.
+    The defaults give 16 kHz -> 100 Hz latents (a 10 ms hop)."""
+
+    # "waveform": strided convs over raw samples; "fbank": the log-mel
+    # frontend's 100 Hz features (K1 on the card) with frame-rate convs
+    input_type: str = "waveform"  # waveform | fbank
+    # waveform front: "conv" = an overlapping strided conv as layer 0;
+    # "patch" = a non-overlapping patch_size-sample Dense embed to
+    # conv_channels[0], then the conv stack at patch rate
+    front: str = "conv"  # conv | patch
+    patch_size: int = 20  # samples per patch (front=patch)
+    remat_encoder: bool = False  # recompute the conv encoder in the backward
+    conv_channels: tuple = (256, 256, 256, 256, 512)
+    conv_kernels: tuple = (10, 8, 4, 4, 2)
+    conv_strides: tuple = (5, 4, 2, 2, 2)  # product = total downsample
+    # frame-rate conv stack for input_type=fbank (strides usually 1)
+    fbank_conv_channels: tuple = (512, 512)
+    fbank_conv_kernels: tuple = (3, 3)
+    fbank_conv_strides: tuple = (1, 1)
+    context_hidden: int = 512  # causal GRU context network
+    context_pallas: bool = False  # the context GRU through K5 / K5-bwd on the card
+    predict_steps: int = 8  # InfoNCE horizon K (predict z_{t+1..t+K})
+    temperature: float = 0.1  # cosine-similarity softmax temperature
+    # in-utterance negatives per (t, k): 0 = exact softmax over every valid
+    # position ([B, T, K, T] scores: short utterances), > 0 = N sampled
+    num_negatives: int = 100
+    # what tools.featurize dumps: the causal context vectors or the conv latents
+    feature_layer: str = "context"  # context | latents
+    # the K prediction heads folded into a time-chunked InfoNCE loss
+    # (ops/infonce.py::info_nce_loss_fused): the [B, T, K, C] predictions
+    # exist one chunk at a time, recomputed in the backward; sampled
+    # negatives only
+    fused_loss: bool = False
+    loss_chunk: int = 128  # time frames per fused-loss chunk
+
+
+@dataclass
 class DataConfig:
     train_list: str | None = None
     dev_list: str | None = None
@@ -275,6 +314,7 @@ class Config:
     ctc: CTCConfig = field(default_factory=CTCConfig)
     gan: GANConfig = field(default_factory=GANConfig)
     eodm: EODMConfig = field(default_factory=EODMConfig)
+    ssl: SSLConfig = field(default_factory=SSLConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)

@@ -28,7 +28,12 @@ top-level ``"params"`` key); nothing here imports jax. Layouts:
   ``[H, D, k]``), ``fc{i}``, the unnamed ``LayerNorm_{i}`` -> ``norm{i}``,
   ``logits``;
 - the GAN critic (``critic_to_state_dict``, the second tree of a
-  ``GANState``): ``conv{i}`` (stride-2 1-D convs), ``fc``, ``score``.
+  ``GANState``): ``conv{i}`` (stride-2 1-D convs), ``fc``, ``score``;
+- the SSL ``CPCModel`` (``cpc_to_state_dict``): the encoder's
+  ``patch_embed`` / ``patch_norm`` (front ``patch``), ``conv{i}`` (``[k,
+  in, out]`` -> ``encoder.convs.{i}`` ``[out, in, k]``) and its unnamed
+  ``LayerNorm_{i}`` in creation order -> ``encoder.norms.{i}``; the
+  ``context`` GRU's ``wx``, ``wh``, ``bx``, ``bh``; the ``heads`` Dense.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from uasr_torch.config import Config, ModelConfig
+from uasr_torch.config import Config, ModelConfig, SSLConfig
 
 
 def _t(a) -> torch.Tensor:
@@ -197,4 +202,24 @@ def flax_to_state_dict(params: dict, cfg: ModelConfig | Config) -> dict[str, tor
         for k in ("wx", "wh", "bx", "bh"):
             out[f"bigru{i}.{k}"] = _t(p[f"bigru{i}"][k])
     _dense(out, "logits", p["logits"])
+    return out
+
+
+def cpc_to_state_dict(params: dict, cfg: SSLConfig | Config) -> dict[str, torch.Tensor]:
+    """Map a flax ``CPCModel`` tree (an ``SSLTrainer`` state's params) onto
+    ``uasr_torch.models.ssl.CPCModel``."""
+    if isinstance(cfg, Config):
+        cfg = cfg.ssl
+    p = params.get("params", params)
+    enc = p["encoder"]
+    out: dict[str, torch.Tensor] = {}
+    if "patch_embed" in enc:
+        _dense(out, "encoder.patch_embed", enc["patch_embed"])
+        _norm(out, "encoder.patch_norm", enc["patch_norm"])
+    n = len(cfg.fbank_conv_channels if cfg.input_type == "fbank" else cfg.conv_channels)
+    for i in range(n):
+        _conv1d(out, f"encoder.convs.{i}", enc[f"conv{i}"])
+        _norm(out, f"encoder.norms.{i}", enc[f"LayerNorm_{i}"])
+    _gru(out, "context", p["context"])
+    _dense(out, "heads", p["heads"])
     return out

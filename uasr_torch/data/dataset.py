@@ -19,9 +19,9 @@ Copies of the JAX package's host-side data layer, which is numpy only:
   - ``compute_cmvn_stats``: dataset-level feature mean and std for
     ``frontend.cmvn: global`` (``prepare cmvn``).
 
-The streaming loader is ``data.loader``, Kaldi alignment tables
-``data.kaldi``. Feature transforms and feature caches are not ported yet
-(ROADMAP.md Queue 1, item 10).
+The streaming loader is ``data.loader``, Kaldi tables ``data.kaldi``,
+feature caches ``data.cache`` and the feature-space transforms
+``data.transforms``.
 """
 
 from __future__ import annotations

@@ -36,6 +36,7 @@ from uasr_torch.frontend.features import FrontendState, compute_features
 from uasr_torch.ops.decode import ctc_beam_search_decode, ctc_greedy_decode
 from uasr_torch.ops.edit_distance import batch_edit_distance
 from uasr_torch.ops.lm import load_decode_table
+from uasr_torch.train import _audio_seconds, _to_device
 from uasr_torch.vocab import Vocab
 
 # which beam recursion the last run_inference ran: "cuda" (K4) or
@@ -77,7 +78,7 @@ def _decode_batch(cfg: Config, model, fstate: FrontendState, db: list[torch.Tens
 def run_inference(
     cfg: Config,
     model: torch.nn.Module,
-    frontend_state: FrontendState,
+    frontend_state: FrontendState | None,
     batches: Iterable[Batch],
     vocab: Vocab | None = None,
     hyp_path: str | None = None,
@@ -92,12 +93,14 @@ def run_inference(
     (default CUDA; raises when no card is present rather than running on
     the CPU). ``logits_fn(audio, lengths) -> (logits, lengths)``, when
     given, computes the logits in place of ``model`` over
-    ``compute_features``."""
+    ``compute_features``. Batches of [B, T, D] features bypass the
+    frontend (``frontend_state`` may then be None), and the RTF's audio
+    seconds count their frames by ``frontend.frame_shift_ms``."""
     global LAST_BEAM_IMPL
     LAST_BEAM_IMPL = None
     device = resolve_device(device)
     model = model.to(device).eval()
-    fstate = frontend_state.to(device)
+    fstate = frontend_state.to(device) if frontend_state is not None else None
     V = cfg.dim_output
     viterbi_fn = lm_table = None
     if cfg.ctc.use_viterbi:
@@ -118,7 +121,7 @@ def run_inference(
         batches = itertools.chain(probe, batches)
 
         def probe_fn(b):
-            audio, alen = _upload(b, device)[:2]
+            audio, alen = _to_device(b[:2], device)
             with torch.inference_mode():
                 return _logits(cfg, model, fstate, audio, alen, logits_fn)
 
@@ -139,8 +142,7 @@ def run_inference(
     hyp_f = open(hyp_path, "w") if hyp_path else None
     try:
         for b in batches:
-            b_np = Batch(*(np.asarray(x) for x in b))
-            db = _upload(b_np, device)
+            db = _to_device(b[:4], device)
             sync(device)
             t0 = time.perf_counter()
             with torch.inference_mode():
@@ -149,14 +151,11 @@ def run_inference(
             sync(device)
             wall += time.perf_counter() - t0
             hyps, hyp_len = hyps.cpu().numpy(), hyp_len.cpu().numpy()
-            if b_np.audio.ndim == 3:
-                # feature batches: lengths are frames
-                audio_sec += float(np.sum(b_np.audio_lengths)) * cfg.frontend.frame_shift_ms / 1000.0
-            else:
-                audio_sec += float(np.sum(b_np.audio_lengths)) / cfg.frontend.sample_rate
+            audio_sec += _audio_seconds(cfg, db)
             errs += int(e)
             total += int(t)
             if vocab is not None and (hyp_f is not None or fold_timit):
+                labels, label_len = db[2].cpu().numpy(), db[3].cpu().numpy()
                 for i in range(hyps.shape[0]):
                     toks = vocab.decode_for_scoring(hyps[i, : int(hyp_len[i])],
                                                     fold_timit=fold_timit)
@@ -164,8 +163,8 @@ def run_inference(
                         hyp_f.write(f"utt{n_utts}\t{' '.join(toks)}\n")
                     n_utts += 1
                     if fold_timit:
-                        ref = vocab.decode_for_scoring(
-                            b_np.labels[i, : int(b_np.label_lengths[i])], fold_timit=True)
+                        ref = vocab.decode_for_scoring(labels[i, : int(label_len[i])],
+                                                       fold_timit=True)
                         fold_pairs.append((ref, toks))
     finally:
         if hyp_f is not None:
@@ -180,12 +179,6 @@ def run_inference(
     if fold_pairs:
         out["per_folded"] = folded_per(fold_pairs)
     return out
-
-
-def _upload(b, device) -> list[torch.Tensor]:
-    """A batch's audio (f32) and lengths and labels (int64) on ``device``."""
-    return [torch.as_tensor(np.asarray(b[0]), dtype=torch.float32).to(device)] + [
-        torch.as_tensor(np.asarray(x), dtype=torch.long).to(device) for x in b[1:]]
 
 
 def folded_per(pairs: list[tuple[list[str], list[str]]]) -> float:

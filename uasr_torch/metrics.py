@@ -16,7 +16,7 @@ class MetricWriter:
     def __init__(self, directory: str, also_tensorboard: bool = False):
         if also_tensorboard:
             raise NotImplementedError(
-                "train.tensorboard is not ported yet (ROADMAP.md Queue 1, slice 5: aux); "
+                "train.tensorboard is not ported yet (ROADMAP.md Queue 1, item 15: aux); "
                 "metrics.jsonl holds the same scalars")
         os.makedirs(directory, exist_ok=True)
         self.path = os.path.join(directory, "metrics.jsonl")

@@ -23,13 +23,23 @@ import torch
 import torch.nn.functional as F
 
 
+def _sq_dists(feats: np.ndarray, centroids: np.ndarray, rows: int = 16) -> np.ndarray:
+    """[N, k] squared distances, ``rows`` points at a time: the [rows, k, D]
+    differences stay in cache, where all N at once (N * k * D elements) run
+    to gigabytes at wav2vec-U widths. Each row's sum is the same
+    reduction either way, so the values equal the one-shot expression's."""
+    return np.concatenate([((feats[i: i + rows, None, :] - centroids[None, :, :]) ** 2).sum(-1)
+                           for i in range(0, len(feats), rows)])
+
+
 def kmeans_fit(feats: np.ndarray, k: int, iters: int = 25, seed: int = 0) -> np.ndarray:
-    """Lloyd's algorithm on the host. feats [N, D] -> centroids [k, D]."""
+    """Lloyd's algorithm on the host (the JAX package's, its distances taken
+    in row blocks). feats [N, D] -> centroids [k, D]."""
     rng = np.random.RandomState(seed)
     n = len(feats)
     centroids = feats[rng.choice(n, size=k, replace=n < k)].copy()
     for _ in range(iters):
-        d = ((feats[:, None, :] - centroids[None, :, :]) ** 2).sum(-1)
+        d = _sq_dists(feats, centroids)
         assign = d.argmin(1)
         for j in range(k):
             sel = feats[assign == j]

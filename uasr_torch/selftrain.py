@@ -11,9 +11,12 @@ greedy collapse or an LM-HMM Viterbi, and forced alignment, which are
 plain PyTorch on the logits' device as the JAX package runs them outside
 Pallas.
 
-Not ported: students over precomputed-feature corpora (SSL feature
-caches, ``data.device_cache``), ROADMAP.md Queue 1 item 10; JAX's mesh
-replication of the teacher's weights (item 14).
+Over a precomputed-feature corpus (an SSL feature cache: [T, D]
+examples) the frontend is bypassed, and with ``data.device_cache`` on one
+CUDA device the student corpus is uploaded to the card once and each step
+gathers its rows there (``data.cache.device_feature_batches``), as in the
+JAX package. Not ported: JAX's mesh replication of the teacher's weights
+(ROADMAP.md Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -25,10 +28,11 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from uasr_torch import resolve_device
 from uasr_torch.checkpoint import CheckpointManager
 from uasr_torch.config import Config
+from uasr_torch.data.cache import device_feature_batches
 from uasr_torch.data.dataset import aligned_batch_iterator, batch_iterator, prefetch
-from uasr_torch.frontend.features import compute_features
 from uasr_torch.models.models import encoder_time_subsample
 from uasr_torch.ops.decode import ctc_greedy_decode
 from uasr_torch.ops.viterbi import ctc_forced_align, viterbi_lm_decode
@@ -76,18 +80,21 @@ def make_ctc_label_fn(ctc_trainer: CTCTrainer, params=None, hmm=None, align_fram
     ``make_gan_label_fn``.
 
     ``align_frames=True``: the alignment is forced at the logits rate and
-    repeated by the encoder's stride times the frontend's downsample, so
-    the track lands at the model-input frame rate (what a student of any
-    architecture consumes); its length is out_len x that factor."""
+    repeated by the encoder's stride times the frontend's downsample (the
+    stride alone for [B, T, D] feature batches, which bypass the
+    frontend), so the track lands at the model-input frame rate (what a
+    student of any architecture consumes); its length is out_len x that
+    factor."""
     cfg = ctc_trainer.cfg
-    stride = encoder_time_subsample(cfg.model) * cfg.frontend.downsample
 
     @torch.no_grad()
     def fn(batch):
         ctc_trainer.model.eval()
         db = batch if isinstance(batch, list) else ctc_trainer.to_device(batch)
-        feats, flen = compute_features(db[0], db[1], ctc_trainer.frontend_state, cfg.frontend)
-        logits, out_len = _apply(ctc_trainer.model, params, feats, flen)
+        logits, out_len = _apply(ctc_trainer.model, params, *ctc_trainer._feats(db[0], db[1]))
+        stride = encoder_time_subsample(cfg.model)
+        if db[0].ndim == 2:
+            stride *= cfg.frontend.downsample
         hyps, hyp_len = _decode(logits, out_len, cfg.ctc.blank_id, hmm)
         conf = _mean_max(torch.softmax(logits.float(), -1), out_len)
         if not align_frames:
@@ -192,14 +199,16 @@ def self_train(
 
     From a labeller built with ``align_frames=True`` the rounds train with
     ``train.mode: frame_ce`` on the forced-aligned tracks, else with CTC on
-    the transcripts. Dev eval decodes and scores PER either way. Returns
-    (the last student's trainer, its state, per-round stats)."""
-    if np.ndim(unlabeled[0][0]) == 2:
-        raise NotImplementedError(
-            "self-training over precomputed [T, D] features (an SSL feature cache, "
-            "data.device_cache) is not ported yet (ROADMAP.md Queue 1, item 10: SSL and "
-            "feature caches)")
-    max_samples = int(cfg.data.max_audio_seconds * cfg.frontend.sample_rate)
+    the transcripts. Dev eval decodes and scores PER either way.
+
+    Over [T, D] feature examples the caps are ``data.max_frames``, and with
+    ``data.device_cache`` on a CUDA ``device`` each round's corpus is
+    uploaded to the card once. Returns (the last student's trainer, its
+    state, per-round stats)."""
+    device = resolve_device(device)
+    feats_corpus = np.ndim(unlabeled[0][0]) == 2
+    max_samples = (cfg.data.max_frames if feats_corpus
+                   else int(cfg.data.max_audio_seconds * cfg.frontend.sample_rate))
     history = []
     trainer = state = None
     for r in range(rounds):
@@ -225,6 +234,10 @@ def self_train(
             batches = prefetch(aligned_batch_iterator(
                 labeled, cfg.data.batch_size, max_samples, cfg.data.max_label_len, max_track,
                 seed=cfg.train.seed + r))
+        elif feats_corpus and cfg.data.device_cache and device.type == "cuda":
+            batches = prefetch(device_feature_batches(
+                labeled, cfg.data.batch_size, max_samples, cfg.data.max_label_len,
+                seed=cfg.train.seed + r, device=device))
         else:
             batches = prefetch(batch_iterator(labeled, cfg.data.batch_size, max_samples,
                                               cfg.data.max_label_len, seed=cfg.train.seed + r))

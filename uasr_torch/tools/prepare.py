@@ -20,6 +20,11 @@ rounding):
       [--order 2|3] --out lm.npz          # an ARPA (KenLM/SRILM) LM as the same table
   python -m uasr_torch.tools.prepare kmeans --config recipe.yaml --list train.tsv \\
       --vocab vocab.txt --out kmeans.npz [--device cuda|cpu]   # gan.centroids_path
+  python -m uasr_torch.tools.prepare kmeans --config recipe.yaml \\
+      --feature-cache cache/ --out kmeans.npz      # in a feature cache's space
+  python -m uasr_torch.tools.prepare import-features --features feats/|feats.npz|feats.scp \\
+      --list train.tsv [--vocab vocab.txt] --out cache/      # data.feature_cache
+  python -m uasr_torch.tools.prepare export-kaldi --feature-cache cache/ --out feats
 
 ``kmeans`` fits the segmenter's centroids in the feature space the
 trainer quantises in: the recipe's frontend (the raw pre-CMVN view with
@@ -29,9 +34,14 @@ datasets read; ``synth`` writes the synthetic corpus to disk (wavs,
 ``train.tsv`` / ``dev.tsv`` with their sidecars, ``vocab.txt``,
 ``text.txt``; with ``--align`` a fourth column of per-frame phone labels).
 ``import-ali`` merges Kaldi per-frame phone alignments into a list as that
-fourth column, which ``train.mode: frame_ce`` reads. The other
-subcommands of the JAX tool are not ported yet (ROADMAP.md Queue 1, item
-10: ``import-features`` and ``export-kaldi``).
+fourth column, which ``train.mode: frame_ce`` reads. ``kmeans
+--feature-cache`` fits on a feature cache's frames, the arrays a recipe
+with ``data.feature_cache`` quantises. ``import-features`` writes
+externally computed features (a directory of ``<utt_id>.npy`` [T, D], one
+``.npz`` keyed by utterance id, or a Kaldi ``feats.scp`` / ``.ark``,
+compressed matrices included) into a feature cache, the labels from the
+list's transcripts; ``export-kaldi`` writes a cache as a binary ``FM``
+ark + scp.
 """
 
 from __future__ import annotations
@@ -228,7 +238,7 @@ def cmd_import_arpa(args):
 def cmd_kmeans(args):
     """Centroids fitted on the frames of the first ``--max-utts``
     utterances of ``--list``, one utterance at a time through the
-    recipe's frontend on ``--device``."""
+    recipe's frontend on ``--device``, or of ``--feature-cache``."""
     import torch
 
     from uasr_torch import resolve_device
@@ -241,11 +251,17 @@ def cmd_kmeans(args):
     cfg = load_config(args.config)
     clusters = args.clusters or cfg.gan.kmeans_clusters
     if args.feature_cache:
-        raise NotImplementedError(
-            "--feature-cache (data/cache.py feature caches) is not ported yet (ROADMAP.md "
-            "Queue 1, item 10: SSL and feature caches)")
+        from uasr_torch.data.cache import FeatureCache
+
+        cache = FeatureCache(args.feature_cache)
+        frames = [cache.example(i)[1] for i in range(min(len(cache), args.max_utts))]
+        feats = np.concatenate(frames, axis=0).astype(np.float32)
+        cents = kmeans_fit(feats, clusters, iters=args.iters, seed=args.seed)
+        np.savez(args.out, centroids=cents)
+        print(f"fit {clusters} centroids on {len(feats)} cached frames -> {args.out}")
+        return
     if not args.list or not args.vocab:
-        raise SystemExit("kmeans needs --list and --vocab")
+        raise SystemExit("kmeans needs --list and --vocab (or --feature-cache)")
     device = resolve_device(args.device)
     ds = ASRDataset.from_file(args.list, load_vocab(args.vocab), cfg.frontend.sample_rate)
     fcfg = cfg.frontend
@@ -265,6 +281,74 @@ def cmd_kmeans(args):
     cents = kmeans_fit(feats, clusters, iters=args.iters, seed=args.seed)
     np.savez(args.out, centroids=cents)
     print(f"fit {clusters} centroids on {len(feats)} frames -> {args.out}")
+
+
+def cmd_import_features(args):
+    """Externally computed features into a feature cache (the utterances
+    and transcripts of the TSV list, encoded with ``--vocab`` when given)."""
+    from uasr_torch.data.cache import write_cache
+    from uasr_torch.vocab import load_vocab
+
+    vocab = load_vocab(args.vocab) if args.vocab else None
+    utts: list[tuple[str, str]] = []
+    with open(args.list) as f:
+        for ln in f:
+            parts = ln.rstrip("\n").split("\t")
+            if parts and parts[0]:
+                utts.append((parts[0], parts[2] if len(parts) > 2 else ""))
+
+    if args.features.endswith((".scp", ".ark")):
+        from uasr_torch.data import kaldi
+
+        text = dict(utts)
+        it = (kaldi.iter_feats_scp(args.features) if args.features.endswith(".scp")
+              else kaldi.iter_feats_ark(args.features))
+
+        def gen_kaldi():
+            seen = set()
+            for utt, feat in it:
+                if utt not in text:
+                    continue  # the table may cover more splits than the list
+                seen.add(utt)
+                yield utt, feat, vocab.encode(text[utt].split()) if (vocab and text[utt]) else []
+            missing = [u for u, _ in utts if u not in seen]
+            if missing:
+                raise SystemExit(f"{len(missing)} list utterances absent from {args.features} "
+                                 f"(first: {missing[0]!r})")
+
+        write_cache(args.out, gen_kaldi(), shard_size=args.shard_size)
+        print(f"imported kaldi features for {len(utts)} utterances -> {args.out}")
+        return
+
+    npz = np.load(args.features) if os.path.isfile(args.features) else None
+
+    def gen():
+        for utt, txt in utts:
+            if npz is not None:
+                if utt not in npz.files:
+                    raise SystemExit(f"--features npz has no array for utterance {utt!r}")
+                feat = npz[utt]
+            else:
+                path = os.path.join(args.features, f"{utt}.npy")
+                if not os.path.exists(path):
+                    raise SystemExit(f"missing feature file {path}")
+                feat = np.load(path)
+            if feat.ndim != 2:
+                raise SystemExit(f"features for {utt!r} must be [T, D], got {feat.shape}")
+            yield utt, feat, vocab.encode(txt.split()) if (vocab and txt) else []
+
+    write_cache(args.out, gen(), shard_size=args.shard_size)
+    print(f"imported features for {len(utts)} utterances -> {args.out}")
+
+
+def cmd_export_kaldi(args):
+    """A feature cache as a Kaldi feats table (binary ``FM`` ark + scp)."""
+    from uasr_torch.data.cache import FeatureCache
+    from uasr_torch.data.kaldi import write_feats_ark
+
+    cache = FeatureCache(args.feature_cache)
+    ark, scp = write_feats_ark(args.out, ((utt, feat) for utt, feat, _ in cache))
+    print(f"wrote {len(cache)} utterances -> {ark} / {scp}")
 
 
 def main(argv=None):
@@ -327,7 +411,8 @@ def main(argv=None):
     km.add_argument("--list")
     km.add_argument("--vocab")
     km.add_argument("--feature-cache", default=None,
-                    help="fit on cached SSL features (not ported yet)")
+                    help="fit on cached SSL features instead of the frontend chain "
+                         "(--list/--vocab unused)")
     km.add_argument("--config", required=True)
     km.add_argument("--clusters", type=int, default=0,
                     help="0 -> recipe's gan.kmeans_clusters")
@@ -340,6 +425,25 @@ def main(argv=None):
                     help="cuda (K1; raises without a card) or cpu (its plain version)")
     km.add_argument("--out", required=True)
     km.set_defaults(fn=cmd_kmeans)
+
+    imp = sub.add_parser("import-features")
+    imp.add_argument("--features", required=True,
+                     help="directory of <utt_id>.npy [T, D] files, one .npz keyed by utterance "
+                          "id, or a Kaldi feats.scp/.ark table")
+    imp.add_argument("--list", required=True,
+                     help="TSV utterance list (utt_id\\twav\\ttranscript)")
+    imp.add_argument("--vocab", default=None,
+                     help="token table for encoding transcripts (omit for fully-unsupervised "
+                          "caches)")
+    imp.add_argument("--shard-size", type=int, default=512)
+    imp.add_argument("--out", required=True)
+    imp.set_defaults(fn=cmd_import_features)
+
+    ek = sub.add_parser("export-kaldi")
+    ek.add_argument("--feature-cache", required=True)
+    ek.add_argument("--out", required=True,
+                    help="output base path (writes <out>.ark + <out>.scp)")
+    ek.set_defaults(fn=cmd_export_kaldi)
 
     ial = sub.add_parser("import-ali")
     ial.add_argument("--ali", required=True,

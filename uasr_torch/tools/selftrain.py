@@ -92,13 +92,16 @@ def _invalidate_stale_students(cfg, teacher_ckpt_dir: str, teacher_step: int,
 
 
 def _materialize(cfg, source):
-    """The train split as (audio, ids) examples in memory: self-training
-    rereads the corpus every round."""
+    """The train split as (audio, ids) examples in memory, or (feats [T, D],
+    ids) from a feature cache: self-training rereads the corpus every
+    round."""
     from uasr_torch.cli import _batches
 
     kind, payload = source
     if kind == "examples":
         return [ex[:2] for ex in payload]
+    if kind == "features":
+        return [(f, list(ids)) for _, f, ids in payload]
     return [(b.audio[i, : b.audio_lengths[i]], b.labels[i, : b.label_lengths[i]].tolist())
             for b in _batches(cfg, source, num_epochs=1, drop_remainder=False)
             for i in range(len(b.audio_lengths))]
@@ -134,10 +137,9 @@ def run_selftrain(cfg, teacher_dir: str, teacher_mode: str = "gan", rounds: int 
     classifier`` for a GAN / EODM teacher). ``full_length`` (default) lifts
     ``data.max_audio_seconds`` to the corpus maximum, so a recipe trained
     on short windows does not truncate the utterances being labelled,
-    trained on and scored."""
+    trained on and scored (``data.max_frames`` for a feature cache)."""
     from uasr_torch import resolve_device
     from uasr_torch.cli import _batches, _load_source
-    from uasr_torch.frontend.features import compute_features
     from uasr_torch.selftrain import make_ctc_label_fn, make_gan_label_fn, self_train
 
     device = resolve_device(device)
@@ -147,7 +149,14 @@ def run_selftrain(cfg, teacher_dir: str, teacher_mode: str = "gan", rounds: int 
     if cfg.vocab_size is None:
         cfg = cfg.replace(vocab_size=len(vocab))
     examples = _materialize(cfg, source)
-    if full_length and examples:
+    if full_length and examples and source[0] == "features":
+        max_t = max(len(f) for f, _ in examples)
+        if cfg.data.max_frames < max_t:
+            print(f"selftrain: lifting data.max_frames {cfg.data.max_frames} -> {max_t} so "
+                  "labeling/training/eval see whole utterances (--no-full-length keeps the "
+                  "recipe's cap)", file=sys.stderr)
+            cfg = cfg.replace(data=dataclasses.replace(cfg.data, max_frames=max_t))
+    elif full_length and examples:
         max_s = max(len(a) for a, _ in examples)
         if int(cfg.data.max_audio_seconds * cfg.frontend.sample_rate) < max_s:
             secs = max_s / cfg.frontend.sample_rate
@@ -175,8 +184,7 @@ def run_selftrain(cfg, teacher_dir: str, teacher_mode: str = "gan", rounds: int 
             teacher.model.eval()
             db = teacher.to_device(b)
             with torch.no_grad():
-                return teacher.model(*compute_features(db[0], db[1], teacher.frontend_state,
-                                                       cfg.frontend))
+                return teacher.model(*teacher._feats(db[0], db[1]))
 
         label_maker = lambda hmm: make_ctc_label_fn(  # noqa: E731
             teacher, hmm=hmm, align_frames=align_pseudo_labels)
@@ -190,9 +198,10 @@ def run_selftrain(cfg, teacher_dir: str, teacher_mode: str = "gan", rounds: int 
 
     def dev_batches_fn():
         dev_source, _ = _load_source(cfg, "dev")
-        return _batches(cfg, dev_source, num_epochs=1, drop_remainder=False)
+        return _batches(cfg, dev_source, num_epochs=1, drop_remainder=False, device=device)
 
-    has_dev = cfg.data.synthetic or cfg.data.dev_list is not None
+    has_dev = (cfg.data.synthetic or cfg.data.dev_list is not None
+               or cfg.data.dev_feature_cache is not None)
     teacher_per = teacher_eval(dev_batches_fn()) if has_dev else float("nan")
 
     gold = []

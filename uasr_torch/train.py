@@ -53,9 +53,14 @@ both nets, both optimizer states and the step; dropout
 (``model.dropout``) acts in training here, while JAX's ``CTCTrainer``
 never passes flax a dropout key.
 
+Batches of precomputed [B, T, D] features (a feature cache, ``data.
+feature_cache``) bypass the frontend, their lengths counted in frames;
+the model's input width is then the cache's D (``model_input_dim``).
+``train.mode: ssl`` trains through ``uasr_torch.pretrain.SSLTrainer``.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md Queue 1 item: ``train.mode: ssl``, ``grad_accum > 1``, meshes
-and several devices, and batches of precomputed 3-D features.
+ROADMAP.md Queue 1 item: ``grad_accum > 1``, meshes and several devices
+(item 14).
 """
 
 from __future__ import annotations
@@ -183,7 +188,8 @@ def make_optimizer(cfg: Config, lr=None, b1: float = 0.9, b2: float = 0.999,
     schedule, a constant, or None for ``train.lr_schedule``)."""
     if cfg.train.grad_accum > 1:
         raise NotImplementedError(
-            "train.grad_accum > 1 is not ported yet (ROADMAP.md Queue 1, slice 5: scale)")
+            "train.grad_accum > 1 is not ported yet (ROADMAP.md Queue 1, item 14: "
+            "distribution and scale)")
     if lr is None:
         lr = make_schedule(cfg)
     sched = lr if callable(lr) else (lambda step: lr)
@@ -191,15 +197,36 @@ def make_optimizer(cfg: Config, lr=None, b1: float = 0.9, b2: float = 0.999,
 
 
 def _to_device(batch, device) -> list[torch.Tensor]:
-    """A numpy ``Batch`` (or ``AlignedBatch``, whose fifth field is the
-    frame labels) as tensors on ``device`` (audio f32, the rest int64)."""
-    b = [np.asarray(x) for x in batch]
-    if b[0].ndim == 3:
-        raise NotImplementedError(
-            "batches of precomputed [B, T, D] features are not ported yet (ROADMAP.md "
-            "Queue 1, item 10: SSL and feature caches)")
-    return [torch.as_tensor(b[0], dtype=torch.float32).to(device)] + [
-        torch.as_tensor(x, dtype=torch.long).to(device) for x in b[1:]]
+    """A ``Batch`` (or ``AlignedBatch``, whose fifth field is the frame
+    labels) of numpy arrays or tensors as tensors on ``device``: audio
+    [B, L] or precomputed features [B, T, D] f32, the rest int64. Tensors
+    already there in that dtype (a device-resident corpus's gathers) are
+    passed through."""
+    return [x.to(device=device, dtype=dt) if isinstance(x, torch.Tensor)
+            else torch.as_tensor(np.asarray(x), dtype=dt).to(device)
+            for x, dt in zip(batch, [torch.float32] + [torch.long] * (len(batch) - 1))]
+
+
+def _audio_seconds(cfg: Config, batch) -> float:
+    """Seconds of audio in a batch: its samples over the sample rate, or
+    for [B, T, D] features its frames times ``frontend.frame_shift_ms``."""
+    n = batch[1]
+    total = float(n.sum()) if isinstance(n, torch.Tensor) else float(np.sum(n))
+    if batch[0].ndim == 3:
+        return total * cfg.frontend.frame_shift_ms / 1000.0
+    return total / cfg.frontend.sample_rate
+
+
+def model_input_dim(cfg: Config) -> int:
+    """The width of the model's input frames: the feature cache's D where
+    the recipe reads one (``data.feature_cache``, else the test or dev
+    split's; the frontend is bypassed), else the frontend's ``dim_input``."""
+    cache = cfg.data.feature_cache or cfg.data.test_feature_cache or cfg.data.dev_feature_cache
+    if cache:
+        from uasr_torch.data.cache import FeatureCache
+
+        return FeatureCache(cache).dim
+    return cfg.frontend.dim_input
 
 
 def _leaves(params: dict) -> dict:
@@ -225,17 +252,18 @@ class CTCTrainer:
             raise ValueError(
                 f"train.mode {cfg.train.mode!r} trains the generator through GANTrainer / "
                 "EODMTrainer (run_gan_training, run_eodm_training), not CTCTrainer")
+        if cfg.train.mode == "ssl":
+            raise ValueError("train.mode 'ssl' pretrains through uasr_torch.pretrain.SSLTrainer "
+                             "(run_ssl_pretraining), not CTCTrainer")
         if cfg.train.mode not in ("ctc", "frame_ce"):
-            raise NotImplementedError(
-                f"train.mode {cfg.train.mode!r} is not ported yet (ROADMAP.md Queue 1, "
-                "item 10: SSL and feature caches)")
+            raise ValueError(f"unknown train.mode {cfg.train.mode!r}")
         if cfg.parallel.model_parallel > 1:
             raise NotImplementedError(
                 "parallel.model_parallel > 1 (a device mesh) is not ported yet (ROADMAP.md "
-                "Queue 1, slice 5: distribution)")
+                "Queue 1, item 14: distribution)")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.model = build_model(cfg.model, cfg.dim_output, cfg.frontend.dim_input,
+        self.model = build_model(cfg.model, cfg.dim_output, model_input_dim(cfg),
                                  generator=torch.Generator().manual_seed(cfg.train.seed),
                                  device=self.device)
         self.optimizer = make_optimizer(cfg)
@@ -266,11 +294,18 @@ class CTCTrainer:
         params = dict(self.model.named_parameters())
         return TrainState(0, params, self.optimizer.init(params))
 
+    def _feats(self, audio: torch.Tensor, alen: torch.Tensor):
+        """[B, L] audio through the frontend (K1 on the card); [B, T, D]
+        precomputed features pass through, ``alen`` counting frames."""
+        if audio.ndim == 3:
+            return audio, alen
+        return compute_features(audio, alen, self.frontend_state, self.cfg.frontend)
+
     def _loss(self, params: dict, db: list[torch.Tensor], generator: torch.Generator):
         cfg = self.cfg
         audio, alen, labels, llen = db[:4]
         with torch.no_grad():  # the frontend has no parameters
-            feats, flen = compute_features(audio, alen, self.frontend_state, cfg.frontend)
+            feats, flen = self._feats(audio, alen)
             if cfg.frontend.specaug_time_masks or cfg.frontend.specaug_freq_masks:
                 feats = spec_augment(generator, feats, flen, cfg.frontend)
         logits, out_len = functional_call(self.model, params, (feats, flen))
@@ -284,11 +319,14 @@ class CTCTrainer:
         """Frame-level CE against the batch's frame labels, which arrive at
         the model-input frame rate (10 ms frames): taken every frontend
         downsample x encoder stride frames from frame 0 (no centring, as in
-        the JAX package) and padded with -1 up to the logits' T."""
+        the JAX package; precomputed features bypass the frontend, so the
+        encoder stride alone) and padded with -1 up to the logits' T."""
         if len(db) != 5:
             raise TypeError("train.mode=frame_ce needs AlignedBatch batches (list files with "
                             "an alignment column)")
-        total = encoder_time_subsample(self.cfg.model) * self.cfg.frontend.downsample
+        total = encoder_time_subsample(self.cfg.model)
+        if db[0].ndim == 2:
+            total *= self.cfg.frontend.downsample
         labels = db[4][:, ::total]
         T = logits.shape[1]
         if labels.shape[1] < T:
@@ -326,8 +364,7 @@ class CTCTrainer:
         the batch. PER = sum(err) / sum(ref)."""
         self.model.eval()
         audio, alen, labels, llen = self.to_device(batch[:4])
-        feats, flen = compute_features(audio, alen, self.frontend_state, self.cfg.frontend)
-        logits, out_len = functional_call(self.model, params, (feats, flen))
+        logits, out_len = functional_call(self.model, params, self._feats(audio, alen))
         ctc = self.cfg.ctc
         if ctc.use_beam:
             hyps, hyp_len, _ = ctc_beam_search_decode(logits, out_len, ctc.beam_width,
@@ -479,7 +516,7 @@ class GeneratorBase:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.gen = build_model(dataclasses.replace(cfg.model, encoder="classifier"),
-                               cfg.dim_output, cfg.frontend.dim_input,
+                               cfg.dim_output, model_input_dim(cfg),
                                generator=torch.Generator().manual_seed(cfg.train.seed),
                                device=self.device)
         self._frontend_state = None
@@ -509,15 +546,19 @@ class GeneratorBase:
 
     @torch.no_grad()
     def _gen_feats(self, audio: torch.Tensor, alen: torch.Tensor):
-        """Features of a [B, L] audio batch (K1 on the card), segmented
-        with ``gan.segmenter=kmeans``."""
+        """Features of a [B, L] audio batch (K1 on the card), or a [B, T, D]
+        batch of precomputed features as it is, segmented with
+        ``gan.segmenter=kmeans``."""
         cfg = self.cfg
-        feats, flen = compute_features(audio, alen, self.frontend_state, cfg.frontend)
+        if audio.ndim == 3:
+            feats, flen = audio, alen
+        else:
+            feats, flen = compute_features(audio, alen, self.frontend_state, cfg.frontend)
         if self.centroids is not None:
             from uasr_torch.ops.segment import kmeans_segment_frontend
 
             quant = None
-            if cfg.gan.segment_on_raw:
+            if cfg.gan.segment_on_raw and audio.ndim == 2:
                 raw_cfg = dataclasses.replace(cfg.frontend, cmvn="none")
                 quant, _ = compute_features(audio, alen, self.frontend_state, raw_cfg)
             feats, flen = kmeans_segment_frontend(
@@ -827,7 +868,7 @@ def run_ctc_training(
                 log_stdout(step, "preempt", saving=1)
             break
         state, aux = trainer.train_step(state, batch)
-        audio_sec_acc += float(np.sum(batch[1]) / cfg.frontend.sample_rate)
+        audio_sec_acc += _audio_seconds(cfg, batch)
         step = state.step
         if step % cfg.train.log_every == 0:
             sync(trainer.device)
