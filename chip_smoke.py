@@ -157,7 +157,22 @@ and prints no result line):
    bf16; 8 alternations, the corpus's bytes and upload, each batch's issue
    and one gather on the card), ``--mode infer`` from the dev cache and
    one self-training round over the cached features;
-17. one JSON line listing every ported kernel with its check, times and
+17. the one-command unsupervised pipeline (phase_pipeline):
+   ``tools.pipeline`` over phase 16's formant corpus with its ssl stage
+   resuming phase 16's checkpoint, featurize ``--cmvn --pca 512``, the
+   bigram LM, two seeds of wav2vecu_pod_stretch's gan+eodm over the cache
+   and one self-training round, with each stage's seconds and the
+   teacher's and student's dev PER;
+18. the serving export (phase_export): ``tools.export`` with ``--check``
+   of phase 13's librispeech_ctc_bigru checkpoint (beam 16, B = 32 x 16 s),
+   of phase 17's winner through ``--compose-from-pipeline``, of
+   aishell_streaming's cnn ``--streaming`` in f32 and with ``--quantize
+   int8-compute`` and of a seeded conformer; each ``torch.export`` program
+   reloaded and bit-equal to the live forward on the card, its launches
+   a call (K1, K2, K4; K5; K7, K4; K1, K6, K4), size and call time; the
+   librispeech program also run in a fresh process that imports only
+   torch and ``uasr_torch.ops.library``;
+19. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -3792,6 +3807,239 @@ def phase_ssl(torch, np, root: str, launches: dict) -> None:
     print(f"  ssl phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+PIPE_SEEDS = 2  # seeds of the pipeline's sweep
+
+
+def phase_pipeline(torch, np, root: str, launches: dict) -> str:
+    """The one-command unsupervised pipeline on the card (after phase_ssl,
+    in the same directory): ``tools.pipeline.main`` over phase_ssl's formant
+    corpus, its ``ssl`` stage pointed at phase_ssl's checkpoint (it resumes
+    at its last step and falls through), featurize ``--cmvn --pca 512`` of
+    the train and dev splits, the bigram LM, PIPE_SEEDS seeds of
+    wav2vecu_pod_stretch's gan+eodm over the cache (GAN_ALTS alternations,
+    phase_ssl's 128 centroids, label-free selection) and one
+    self-training round from the winner. Returns the workdir."""
+    from uasr_torch.tools import pipeline
+
+    t_phase = time.perf_counter()
+    corpus = os.path.join(root, "formant")
+    wd = os.path.join(root, "pipe")
+    os.makedirs(wd)
+    os.symlink(os.path.join(root, "ssl"), os.path.join(wd, "ssl"))
+    ssl_sets = [f"data.train_list={corpus}/train.tsv", f"data.dev_list={corpus}/dev.tsv",
+                f"data.vocab_path={corpus}/vocab.txt", "data.synthetic=false",
+                "ssl.context_pallas=true", "train.log_every=1", "train.eval_every=1000000",
+                f"train.total_steps={SSL_STEPS}", f"train.save_every={SSL_STEPS}"]
+    unsup_sets = ["parallel.model_parallel=1", f"gan.centroids_path={root}/kmeans128.npz",
+                  f"data.vocab_path={corpus}/vocab.txt", "data.text_path=none",
+                  "train.log_every=1", f"train.total_steps={GAN_ALTS}",
+                  f"train.save_every={GAN_ALTS}", f"train.eval_every={GAN_ALTS}"]
+    argv = ["--workdir", wd, "--ssl-config", os.path.join(REPO, "configs", "formant39_ssl.yaml"),
+            "--unsup-config", os.path.join(REPO, "configs", "wav2vecu_pod_stretch.yaml"),
+            "--seeds", str(PIPE_SEEDS), "--cmvn", "--pca", "512", "--selftrain-rounds", "1",
+            "--student-steps", str(W2V_SELF_STEPS),
+            *[a for kv in ssl_sets for a in ("--set-ssl", kv)],
+            *[a for kv in unsup_sets for a in ("--set-unsup", kv)]]
+    reset_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pipeline.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in read_launches().items() if v}
+    with open(os.path.join(wd, "report.json")) as f:
+        report = json.load(f)
+    last = json.loads(buf.getvalue().strip().splitlines()[-1])
+    stages = report["stages"]
+    check(rc == 0 and set(stages) == {"ssl", "featurize", "lm", "sweep", "selftrain"},
+          f"pipeline: rc {rc}, stages {sorted(stages)}")
+    check(last["final_model"] == report["final_model"], f"pipeline: last line {last}")
+    check(all(os.path.exists(os.path.join(wd, f"export_{r}.yaml")) for r in ("winner", "student")),
+          "pipeline: export recipes missing")
+    t, st = report["teacher_per"], report["student_per"]
+    check(t is not None and st is not None and math.isfinite(t) and math.isfinite(st),
+          f"pipeline: PERs {t}, {st}")
+    feat = stages["featurize"]
+    check(counts.get("K5", 0) > 0 and not counts.get("K1"), f"pipeline launches {counts}")
+    launches["K5"] += counts["K5"]
+    ranking = ", ".join(f"seed {r['seed']} {r['score']:.4f}"
+                        for r in stages["sweep"]["ranking"])
+    print(f"pipeline: formant39_ssl (phase_ssl's step-{SSL_STEPS} checkpoint) -> featurize "
+          f"--cmvn --pca 512 ({feat['train_utts']} + {feat['dev_utts']} utterances) -> bigram "
+          f"LM -> {PIPE_SEEDS} seeds x {GAN_ALTS} gan+eodm alternations of wav2vecu_pod_stretch "
+          f"(label-free scores {ranking}) -> one self-training round ({W2V_SELF_STEPS} student "
+          f"steps): {wall:.1f} s; stage seconds "
+          f"{ {k: v['seconds'] for k, v in stages.items()} }; winner seed "
+          f"{report['winner']['seed']}; teacher dev PER {t:.4f}, student dev PER {st:.4f}; "
+          f"final model {os.path.relpath(report['final_model'], wd)}; launches {counts}; card "
+          f"{card_line()}", flush=True)
+    print(f"  pipeline phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return wd
+
+
+def seeded_checkpoint(torch, recipe: str, sets: list, model_dir: str) -> None:
+    """A step-0 checkpoint of the recipe's CTC model with the seeded
+    weights its trainer draws."""
+    from uasr_torch import cli
+    from uasr_torch.checkpoint import CheckpointManager
+    from uasr_torch.config import load_config
+    from uasr_torch.train import CTCTrainer
+
+    cfg = load_config(recipe)
+    cli.apply_overrides(cfg, sets)
+    CheckpointManager(os.path.join(model_dir, "ckpt")).save(
+        0, CTCTrainer(cfg, device=torch.device(DEVICE)).init_state())
+
+
+def program_inputs(torch, np, name: str, built, seed: int):
+    """Seeded inputs of an exported program: audio of random lengths for an
+    offline program, a random chunk from the initial state for ``step``,
+    the state after that chunk for ``finish``."""
+    rng = np.random.RandomState(seed)
+    if name == "model":
+        example = built.programs["model"][1]
+        B, L = example[0].shape
+        lens = np.maximum((L * rng.uniform(0.6, 1.0, B)).astype(np.int32), 1)
+        lens[0] = L
+        audio = (0.1 * rng.randn(B, L)).astype(np.float32)
+        audio[np.arange(L)[None, :] >= lens[:, None]] = 0.0
+        dev = example[0].device
+        return (torch.tensor(audio, device=dev), torch.tensor(lens, device=dev))
+    step, (state0, chunk0) = built.programs["step"]
+    chunk = torch.tensor((0.1 * rng.randn(*chunk0.shape)).astype(np.float32),
+                         device=chunk0.device)
+    if name == "step":
+        return (state0, chunk)
+    with torch.no_grad():
+        return (step(state0, chunk)[0],)
+
+
+def export_case(torch, np, what: str, argv: list, want: dict, reps: int = 5) -> dict:
+    """``tools.export.main`` with ``--check`` on the card (the reloaded
+    programs bit-equal to the live forward on random audio), then each
+    reloaded program against the live one rebuilt from the same checkpoint
+    on seeded inputs: bit-equal outputs, its launches in one call equal to
+    ``want[name]``, its size and call time beside the live forward's."""
+    from uasr_torch.tools import export
+
+    out = argv[argv.index("--out") + 1]
+    argv = [*argv, "--device", DEVICE]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = export.main([*argv, "--check"])
+    torch.cuda.synchronize()
+    t_export = time.perf_counter() - t0
+    check(rc == 0, f"export {what}: exit {rc}")
+    with open(os.path.join(out, "meta.json")) as f:
+        meta = json.load(f)
+    built = export.build_programs(export.parse_args(argv))
+    sizes = {}
+    for name, (prog_live, _) in built.programs.items():
+        path = os.path.join(out, f"{name}.pt2")
+        prog = torch.export.load(path).module()
+        args = program_inputs(torch, np, name, built, SEED + 31)
+        with torch.no_grad():
+            want_out = prog_live(*args)
+            torch.cuda.synchronize()
+            reset_launches()
+            got = prog(*args)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in read_launches().items() if v}
+            export.outputs_equal(got, want_out)
+            ms = cuda_ms(torch, lambda: prog(*args), reps)
+            live_ms = cuda_ms(torch, lambda: prog_live(*args), reps)
+        check(counts == want[name], f"export {what} {name}: launches {counts}, expected "
+              f"{want[name]}")
+        sizes[name] = os.path.getsize(path)
+        print(f"  export {what} [{name}.pt2]: {sizes[name] / 1e6:.2f} MB, operators "
+              f"{sorted(set(meta['operators'][name]))}; reloaded program bit-equal to the live "
+              f"forward; launches a call {counts}; call {ms:.3f} ms against the live "
+              f"forward's {live_ms:.3f} ms (CUDA events, {reps} calls)", flush=True)
+    print(f"  export {what}: main with --check {t_export:.1f} s; quantization "
+          f"{meta['quantization']}", flush=True)
+    return dict(sizes=sizes, out=out, built=built)
+
+
+def fresh_process_run(torch, np, out: str, built) -> None:
+    """Reload the offline program in a new ``python3 -c`` process that
+    imports only torch and uasr_torch.ops.library, run it there on seeded
+    inputs, and hold its outputs bit-equal to the live forward's."""
+    from uasr_torch.tools import export
+
+    prog_live = built.programs["model"][0]
+    args = program_inputs(torch, np, "model", built, SEED + 32)
+    inp, res = os.path.join(out, "inputs.pt"), os.path.join(out, "outputs.pt")
+    torch.save(args, inp)
+    code = (
+        "import sys, time, torch, uasr_torch.ops.library as L\n"
+        f"prog = torch.export.load({os.path.join(out, 'model.pt2')!r}).module()\n"
+        f"args = torch.load({inp!r})\n"
+        "t0 = time.perf_counter(); out = prog(*args); torch.cuda.synchronize()\n"
+        "wall = time.perf_counter() - t0\n"
+        f"torch.save(out, {res!r})\n"
+        "mods = sorted(m for m in sys.modules if m.split('.')[0] in ('uasr', 'jax'))\n"
+        "print(f'first call {wall:.2f} s (the kernels load at their first launch); launches '"
+        "f'K1 {L.cf.LAUNCHES} K2 {L.cg.LAUNCHES} K4 {L.cb.LAUNCHES}; jax or uasr modules {mods}')\n"
+    )
+    t0 = time.perf_counter()
+    proc = subprocess.run(["python3", "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=600)
+    check(proc.returncode == 0, f"fresh process: {proc.stderr[-2000:]}")
+    with torch.no_grad():
+        export.outputs_equal(torch.load(res), prog_live(*args))
+    print(f"  fresh process (imports torch and uasr_torch.ops.library only): "
+          f"{proc.stdout.strip()}; {time.perf_counter() - t0:.1f} s with start-up; outputs "
+          f"bit-equal to the live forward", flush=True)
+
+
+def phase_export(torch, np, root: str, wd: str) -> None:
+    """The serving export on the card at full width (after phase_pipeline,
+    in the same directory): ``tools.export`` of phase_data's
+    librispeech_ctc_bigru checkpoint (offline, beam 16, B = 32 x 16 s: 1 K1,
+    3 K2, 1 K4 a call), of the pipeline's winner through
+    ``--compose-from-pipeline`` (the SSL featurizer's context through K5,
+    CMVN, PCA, the classifier with k-means segmentation; B = 16 x 6 s), of
+    configs/aishell_streaming.yaml's cnn ``--streaming`` (64 streams, beam 8
+    over V = 4233: 1 K7 and 1 K4 a step) in f32 and with ``--quantize
+    int8-compute``, and of a conformer on librispeech_ctc_bigru's widths
+    (1 K1, 4 K6, 1 K4 a call), seeded weights where no phase trained them;
+    each reloaded and held to the live forward, and the librispeech program
+    run in a fresh process."""
+    t_phase = time.perf_counter()
+    print(f"export: torch.export programs on the card {card_line()}", flush=True)
+    libri = os.path.join(REPO, "configs", "librispeech_ctc_bigru.yaml")
+    chars = ["--set", f"data.vocab_path={root}/chars.txt"]
+    res = export_case(torch, np, "librispeech_ctc_bigru beam", [
+        "-c", libri, "--out", os.path.join(root, "exp_libri"), "--batch", str(K1_B),
+        "--seconds", str(K1_SECONDS), *chars, "--set", f"model_dir={root}/libri"],
+        {"model": {"K1": 1, "K2": 3, "K4": 1}})
+    fresh_process_run(torch, np, res["out"], res["built"])
+    export_case(torch, np, "pipeline winner (composed featurizer)", [
+        "-c", os.path.join(wd, "export_winner.yaml"), "--compose-from-pipeline", wd, "--out",
+        os.path.join(root, "exp_winner"), "--batch", "16", "--seconds", "6"],
+        {"model": {"K5": 1}})
+    aishell = os.path.join(REPO, "configs", "aishell_streaming.yaml")
+    a_sets = ["vocab_size=4233", f"model_dir={root}/aishell"]
+    seeded_checkpoint(torch, aishell, a_sets, os.path.join(root, "aishell"))
+    stream = ["-c", aishell, "--streaming", "--batch", str(STREAM_B), *_sets(a_sets)]
+    want = {"step": {"K7": 1, "K4": 1}, "finish": {"K4": 1}}
+    f32 = export_case(torch, np, "aishell_streaming --streaming",
+                      [*stream, "--out", os.path.join(root, "exp_stream")], want)
+    q8 = export_case(torch, np, "aishell_streaming --streaming --quantize int8-compute",
+                     [*stream, "--out", os.path.join(root, "exp_stream_q8"), "--quantize",
+                      "int8-compute"], want)
+    print(f"  step.pt2 f32 {f32['sizes']['step'] / 1e6:.2f} MB against int8 "
+          f"{q8['sizes']['step'] / 1e6:.2f} MB", flush=True)
+    c_sets = ["model.encoder=conformer", "model.attn_pallas=true", "vocab_size=32",
+              f"model_dir={root}/conformer"]
+    seeded_checkpoint(torch, libri, c_sets, os.path.join(root, "conformer"))
+    export_case(torch, np, "conformer beam", [
+        "-c", libri, "--out", os.path.join(root, "exp_conformer"), "--batch", str(K1_B),
+        "--seconds", str(K1_SECONDS), *_sets(c_sets)], {"model": {"K1": 1, "K6": 4, "K4": 1}})
+    print(f"  export phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3834,6 +4082,8 @@ def main() -> int:
         phase_lm_decode(torch, np, tmp)
         phase_frame_ce(torch, np, tmp, launches)
         phase_ssl(torch, np, tmp, launches)
+        wd = phase_pipeline(torch, np, tmp, launches)
+        phase_export(torch, np, tmp, wd)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",

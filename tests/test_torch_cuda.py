@@ -19,7 +19,9 @@ products of masked passes and warp tiles, wh streamed past shared memory
 (K5, K5-bwd, K8 at H = 1536 and 2304), input each kernel must refuse, and
 the encoder, one training step, the streaming recognizer, the HMM Viterbi
 decode (bigram and trigram) and CTC forced alignment on CUDA against the
-same weights or logits on the CPU.
+same weights or logits on the CPU; ``torch.library.opcheck`` of each
+``uasr::`` operator on CUDA tensors, and the padding of ``torch._int_mm``
+(int8_compute) against its plain version.
 
 Every test needs a CUDA card and skips without one. On the card, from the
 repository root (the package ``uasr`` and JAX are not needed there):
@@ -1321,3 +1323,78 @@ def test_encoder_training_step_on_card_matches_cpu(dev, encoder):
         assert float((g_card[k] - g).norm()) <= 1e-4 * max(float(g.norm()), 1e-2 * total), k
     for a, b in zip(s_card, s_cpu):
         assert abs(a - b) <= 1e-4 * abs(b)
+
+
+def _cuda_op_cases(dev):
+    """Each ``uasr::`` operator (ops/library.py) on CUDA tensors at shapes
+    its kernel takes."""
+    from uasr_torch.ops import library
+
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa: E731
+    st = make_frontend_state(FrontendConfig(num_mel_bins=40), device=dev)
+    audio = r(2, 4000) * 0.1
+    T, B, H = 5, 8, 64
+    wh, bh = r(2, H, 3 * H) * 0.1, r(2, 3 * H)
+    tm = torch.ones(T, 2, B, dtype=torch.bool, device=dev)
+    q, k, v = (r(2, 16, 64) for _ in range(3))
+    km = torch.ones(2, 1, 16, dtype=torch.int32, device=dev)
+    lp = torch.log_softmax(r(2, 6, 32), -1).contiguous()
+    s = cuda_beam.beam_init(2, 4, dev)
+    return {
+        "log_mel_fused": (library.log_mel_fused, (
+            audio, st.pre_cos, st.pre_sin, st.pre_bvec, st.mel_fb, st.pre_pack, st.mel_runs,
+            st.mel_w, 400, 160, 512, "highest", False)),
+        "log_mel_unfused": (library.log_mel_unfused, (
+            audio, st.window, st.cos_basis, st.sin_basis, st.mel_fb, st.dft_pack, st.mel_runs,
+            st.mel_w, 400, 160, 512, "highest", True)),
+        "bigru_scan": (library.bigru_scan, (r(T, B, 3 * H), r(T, B, 3 * H), wh, bh, tm)),
+        "gru_scan": (library.gru_scan, (r(T, 1, B, 3 * H), wh[:1].contiguous(),
+                                        bh[:1].contiguous(), tm[:, :1].contiguous(), False)),
+        "gru_scan_coeffs": (library.gru_scan, (r(T, 1, B, 3 * H), wh[:1].contiguous(),
+                                               bh[:1].contiguous(), tm[:, :1].contiguous(),
+                                               True)),
+        "mhsa_fwd": (library.mhsa_fwd, (q, k, v, r(2, 16, 16), km, 2)),
+        "ctc_beam": (library.ctc_beam, (lp, torch.tensor([6, 3], device=dev), None, *s, 4, 0, 0,
+                                        1.0, 0.0)),
+        "ctc_beam_lm": (library.ctc_beam, (lp, torch.tensor([6, 3], device=dev),
+                                           torch.log_softmax(r(33, 32), -1).contiguous(), *s, 4,
+                                           0, 2, 0.5, 0.1)),
+    }
+
+
+@pytest.mark.parametrize("case", ["log_mel_fused", "log_mel_unfused", "bigru_scan", "gru_scan",
+                                  "gru_scan_coeffs", "mhsa_fwd", "ctc_beam", "ctc_beam_lm"])
+def test_operator_opcheck_cuda(dev, case):
+    """``torch.library.opcheck`` of each operator on CUDA tensors: its
+    schema, its fake implementation against the kernel's outputs, and its
+    run under AOT dispatch; the CUDA implementation launches the kernel."""
+    from uasr_torch.ops import cuda_attention
+
+    op, args = _cuda_op_cases(dev)[case]
+    counters = {"log_mel_fused": (cuda_frontend, "LAUNCHES"),
+                "log_mel_unfused": (cuda_frontend, "LAUNCHES_UNFUSED"),
+                "bigru_scan": (cuda_gru, "LAUNCHES"), "gru_scan": (cuda_gru, "LAUNCHES_GRU"),
+                "mhsa_fwd": (cuda_attention, "LAUNCHES_ATTN"),
+                "ctc_beam": (cuda_beam, "LAUNCHES")}
+    mod, name = counters[op._name]
+    before = getattr(mod, name)
+    torch.library.opcheck(op, args)
+    torch.cuda.synchronize()
+    assert getattr(mod, name) > before
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 20, 5), (16, 13, 30), (17, 8, 8), (40, 100, 62)])
+def test_int_mm_padding_matches_plain(dev, M, K, N):
+    """``ops.quantize.int8_matmul`` pads what ``torch._int_mm`` refuses on
+    the card (M <= 16, K or N not a multiple of 8): its int32 product
+    equals the plain version's exactly."""
+    from uasr_torch.ops.quantize import int8_matmul, int8_matmul_reference
+
+    g = torch.Generator().manual_seed(M * K + N)
+    a = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8).to(dev)
+    b = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8).to(dev)
+    got = int8_matmul(a, b)
+    assert got.dtype == torch.int32 and got.shape == (M, N) and got.is_cuda
+    assert torch.equal(got, int8_matmul_reference(a, b))
+    assert torch.equal(got.cpu(), int8_matmul(a.cpu(), b.cpu()))

@@ -24,6 +24,9 @@ SELFTRAIN = ("uasr_torch/ops/frame_ce.py", "uasr_torch/data/kaldi.py", "uasr_tor
 SSL = ("uasr_torch/ops/infonce.py", "uasr_torch/models/ssl.py", "uasr_torch/pretrain.py",
        "uasr_torch/data/cache.py", "uasr_torch/data/transforms.py",
        "uasr_torch/tools/featurize.py")
+# the pipeline, quantization and serving-export slice's
+EXPORT = ("uasr_torch/ops/library.py", "uasr_torch/ops/quantize.py",
+          "uasr_torch/tools/export.py", "uasr_torch/tools/pipeline.py")
 
 
 def _port_files():
@@ -39,7 +42,7 @@ def _module_name(path: pathlib.Path) -> str:
 def test_imports_pull_in_no_jax_flax_or_uasr():
     files = {str(p.relative_to(REPO)) for p in _port_files()}
     assert set(UNSUP) <= files and set(DATA) <= files and set(LM) <= files
-    assert set(SELFTRAIN) <= files and set(SSL) <= files
+    assert set(SELFTRAIN) <= files and set(SSL) <= files and set(EXPORT) <= files
     mods = [_module_name(p) for p in _port_files()]
     code = (
         "import importlib, sys\n"

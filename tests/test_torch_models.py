@@ -2,6 +2,8 @@
 converted from flax (uasr_torch.convert) against the JAX package's encoders
 on the CPU."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -92,8 +94,9 @@ def test_seeded_init_and_families():
     cnn = ModelConfig(encoder="cnn", hidden_size=8, conv_kernel=5)
     assert encoder_time_subsample(cnn) == 2
     build_model(cnn, V, D, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        build_model(ModelConfig(encoder="cnn", int8_compute=True), V, D, device="cpu")
+    q8 = build_model(dataclasses.replace(cnn, int8_compute=True), V, D, device="cpu")
+    logits, n = q8(torch.randn(2, 20, D), torch.tensor([20, 9]))
+    assert logits.shape == (2, 10, V) and n.tolist() == [10, 5] and logits.isfinite().all()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             build_model(cfg, V, D)

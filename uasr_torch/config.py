@@ -338,3 +338,14 @@ def load_config(path: str) -> Config:
     with open(path) as f:
         raw = yaml.safe_load(f) or {}
     return _build(Config, raw)
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Write ``cfg`` as a YAML recipe that ``load_config`` reads back."""
+    import os
+
+    import yaml
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f, sort_keys=False)

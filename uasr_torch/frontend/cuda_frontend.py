@@ -10,10 +10,12 @@ kernel ``_log_mel_kernel``, ``_pallas_log_mel(fused=False)``): the input
 is already pre-emphasised (the streaming frontend's glued chunk) and the
 kernel multiplies the window in itself.
 
-``log_mel_fused`` and ``log_mel_unfused`` launch their kernels for CUDA
-tensors and run the plain versions for CPU tensors; nothing else
-chooses between them. The kernels read the state's packed bases
-(``pre_pack``, ``dft_pack``) and mel runs (``mel_runs``, ``mel_w``);
+``log_mel_fused`` and ``log_mel_unfused`` call the operators
+``uasr::log_mel_fused`` and ``uasr::log_mel_unfused`` (``ops/library.py``),
+which launch the kernels for CUDA tensors and run the plain versions for
+CPU tensors; nothing else chooses between them. The kernels read the
+state's packed bases (``pre_pack``, ``dft_pack``) and mel runs
+(``mel_runs``, ``mel_w``);
 ``launch_plan``, a pure function, picks their tile and raises on input
 that does not fit shared memory; ``log_mel_*_phases`` run the builds
 with phase stamps (``uasr_torch.tools.time_frontend`` reads them).
@@ -296,11 +298,14 @@ def log_mel_fused(
     """[B, L] raw audio -> [B, T, M] log-mel ([B, T, M+1] with the log
     total power column when ``want_energy``): K1 for CUDA tensors, the
     plain version for CPU tensors."""
+    from uasr_torch.ops import library
+
     if state.pre_cos is None:
         raise ValueError("fused log-mel needs a state with folded bases (make_frontend_state)")
-    fn = log_mel_fused_cuda if audio.is_cuda else log_mel_fused_reference
-    return fn(audio, state, cfg.frame_length, cfg.frame_shift, cfg.n_fft,
-              precision=precision, want_energy=want_energy)
+    return library.log_mel_fused(audio, state.pre_cos, state.pre_sin, state.pre_bvec,
+                                 state.mel_fb, state.pre_pack, state.mel_runs, state.mel_w,
+                                 cfg.frame_length, cfg.frame_shift, cfg.n_fft, precision,
+                                 want_energy)
 
 
 def log_mel_unfused(
@@ -311,8 +316,12 @@ def log_mel_unfused(
     want_energy: bool = False,
 ) -> torch.Tensor:
     """[B, L] pre-emphasised audio -> [B, T, M] log-mel ([B, T, M+1] with
-    the log total power column when ``want_energy``): K7 for CUDA
-    tensors, the plain version for CPU tensors."""
-    fn = log_mel_unfused_cuda if audio.is_cuda else log_mel_unfused_reference
-    return fn(audio, state, cfg.frame_length, cfg.frame_shift, cfg.n_fft,
-              precision=precision, want_energy=want_energy)
+    the log total power column when ``want_energy``): the operator
+    ``uasr::log_mel_unfused``, K7 for CUDA tensors, the plain version for
+    CPU tensors."""
+    from uasr_torch.ops import library
+
+    return library.log_mel_unfused(audio, state.window, state.cos_basis, state.sin_basis,
+                                   state.mel_fb, state.dft_pack, state.mel_runs, state.mel_w,
+                                   cfg.frame_length, cfg.frame_shift, cfg.n_fft, precision,
+                                   want_energy)

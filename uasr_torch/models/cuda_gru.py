@@ -3,7 +3,8 @@ K5-bwd and K8, the grouped GRU recurrence and its two backwards: wrappers of
 ``csrc/bigru_fwd.cu``, ``csrc/bigru_bwd.cu``, ``csrc/gru_fwd.cu``,
 ``csrc/gru_bwd.cu`` and ``csrc/gru_bwd_lin.cu``, their plain PyTorch
 versions, and the ``torch.autograd.Function``s that join each forward to
-its backward.
+its backward. The forwards go through the operators ``uasr::bigru_scan``
+and ``uasr::gru_scan`` (``ops/library.py``).
 
 Counterpart of ``uasr/models/pallas_gru.py::pallas_bigru_scan`` (TPU
 kernels ``_fwd2_kernel`` and ``_bwd2_kernel`` with the custom VJP
@@ -330,8 +331,9 @@ class BiGRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, p0, p1, wh, bh, tmask):
-        fn = bigru_scan_cuda if p0.is_cuda else bigru_scan_reference
-        out = fn(p0, p1, wh, bh, tmask)
+        from uasr_torch.ops import library
+
+        out = library.bigru_scan(p0, p1, wh, bh, tmask)
         ctx.save_for_backward(p0, p1, wh, bh, tmask, out)
         return out
 
@@ -346,8 +348,14 @@ class BiGRUScan(torch.autograd.Function):
 
 def bigru_scan(p0, p1, wh, bh, tmask):
     """Two-stream BiGRU recurrence, differentiable: K2 / K2-bwd for CUDA
-    tensors, their plain versions for CPU tensors."""
-    return BiGRUScan.apply(p0, p1, wh, bh, tmask)
+    tensors, their plain versions for CPU tensors. Without a gradient to
+    take, only the operator ``uasr::bigru_scan`` runs (the route of an
+    exported program)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (p0, p1, wh, bh)):
+        return BiGRUScan.apply(p0, p1, wh, bh, tmask)
+    from uasr_torch.ops import library
+
+    return library.bigru_scan(p0, p1, wh, bh, tmask)
 
 
 # ------------------------------------------------------- K5, K5-bwd, K8
@@ -678,13 +686,13 @@ class GRUScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xproj, wh, bh, tmask):
-        fn = gru_scan_cuda if xproj.is_cuda else gru_scan_reference
+        from uasr_torch.ops import library
+
         ctx.linear = BWD_IMPL == "linear"
+        ys, c4, ch = library.gru_scan(xproj, wh, bh, tmask, ctx.linear)
         if ctx.linear:
-            ys, c4, ch = fn(xproj, wh, bh, tmask, save_coeffs=True)
             ctx.save_for_backward(wh, bh, ys, c4, ch)
         else:
-            ys = fn(xproj, wh, bh, tmask)
             ctx.save_for_backward(xproj, wh, bh, tmask, ys)
         return ys
 
@@ -710,8 +718,10 @@ def gru_scan(xproj, wh, bh, tmask):
     """Grouped GRU recurrence (``pallas_gru_scan``): K5 for CUDA tensors,
     its plain version for CPU tensors; differentiable through ``GRUScan``
     (K5-bwd or K8, or their plain versions). Without a gradient to take,
-    only the forward runs, as under JAX's custom VJP."""
+    only the forward runs (the operator ``uasr::gru_scan``), as under JAX's
+    custom VJP."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xproj, wh, bh)):
         return GRUScan.apply(xproj, wh, bh, tmask)
-    fn = gru_scan_cuda if xproj.is_cuda else gru_scan_reference
-    return fn(xproj, wh, bh, tmask)
+    from uasr_torch.ops import library
+
+    return library.gru_scan(xproj, wh, bh, tmask, False)[0]

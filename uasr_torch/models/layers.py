@@ -50,10 +50,14 @@ def orthogonal_rows(rows: int, cols: int, generator: torch.Generator) -> torch.T
 
 
 class Dense(nn.Module):
-    """y = x @ weight.T + bias in the compute dtype (flax ``nn.Dense``)."""
+    """y = x @ weight.T + bias in the compute dtype (flax ``nn.Dense``).
+    With ``int8`` (``model.int8_compute``) the product is
+    ``ops.quantize.int8_linear``: an f32 result, to which the bias is
+    added in the compute dtype."""
 
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, out_dim: int, int8: bool = False):
         super().__init__()
+        self.int8 = int8
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
         self.bias = nn.Parameter(torch.empty(out_dim))
 
@@ -62,6 +66,10 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.int8:
+            from uasr_torch.ops.quantize import int8_linear
+
+            return int8_linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
         return F.linear(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype))
 
 
@@ -97,11 +105,15 @@ class Conv1d(nn.Module):
     smaller half: lo 1 / hi 2 for a stride-2, kernel-5 conv on an even
     length; (k-1)*d split lo/hi for a stride-1 dilated conv), or no padding
     with ``padding="VALID"``. ``groups`` is flax's ``feature_group_count``
-    (``groups = C_in`` makes it depthwise). Weight [out, in / groups, k]."""
+    (``groups = C_in`` makes it depthwise). Weight [out, in / groups, k].
+    With ``int8`` (``model.int8_compute``) an ungrouped conv's product is
+    ``ops.quantize.int8_conv1d``: an f32 result, to which the bias is
+    added in the compute dtype."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel: int, stride: int = 1,
-                 dilation: int = 1, groups: int = 1, padding: str = "SAME"):
+                 dilation: int = 1, groups: int = 1, padding: str = "SAME", int8: bool = False):
         super().__init__()
+        self.int8 = int8 and groups == 1
         self.kernel, self.stride, self.dilation = kernel, stride, dilation
         self.groups, self.padding = groups, padding
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim // groups, kernel))
@@ -115,6 +127,11 @@ class Conv1d(nn.Module):
         lo, hi = 0, 0
         if self.padding == "SAME":
             lo, hi = same_padding(x.shape[1], (self.kernel - 1) * self.dilation + 1, self.stride)
+        if self.int8:
+            from uasr_torch.ops.quantize import int8_conv1d
+
+            return int8_conv1d(x.to(dtype), self.weight.to(dtype), self.stride, self.dilation,
+                               (lo, hi)) + self.bias.to(dtype)
         y = F.conv1d(F.pad(x.to(dtype).transpose(1, 2), (lo, hi)), self.weight.to(dtype),
                      self.bias.to(dtype), stride=self.stride, dilation=self.dilation,
                      groups=self.groups)

@@ -173,25 +173,24 @@ class CNNEncoder(nn.Module):
     and 4, LayerNorm (eps 1e-6) + ReLU after each conv, f32 dense logits.
     Padding frames are zeroed after every block, so results do not depend
     on batch padding. ``norm{i}`` follow flax's ``LayerNorm_{i}`` in
-    creation order: the convs', then the dilated stack's."""
+    creation order: the convs', then the dilated stack's. With
+    ``model.int8_compute`` the convs and the logits run their products on
+    int8 (``ops/quantize.py``), for serving only."""
 
     def __init__(self, cfg: ModelConfig, vocab_size: int, input_dim: int):
         super().__init__()
-        if cfg.int8_compute:
-            raise NotImplementedError(
-                "model.int8_compute (int8 tensor-core GEMMs) is not ported yet "
-                "(ROADMAP.md Queue 1, slice 5: quantize and export)")
         self.cfg = cfg
-        H, k = cfg.hidden_size, cfg.conv_kernel
+        H, k, q8 = cfg.hidden_size, cfg.conv_kernel, cfg.int8_compute
         self.n_conv = max(cfg.num_conv_layers, 1)
         for i in range(self.n_conv):
             self.add_module(f"conv{i}", Conv1d(input_dim if i == 0 else H, H, k,
-                                               stride=cfg.conv_time_stride if i == 0 else 1))
+                                               stride=cfg.conv_time_stride if i == 0 else 1,
+                                               int8=q8))
         for i in range(2):
-            self.add_module(f"dil{i}", Conv1d(H, H, k, dilation=2 ** (i + 1)))
+            self.add_module(f"dil{i}", Conv1d(H, H, k, dilation=2 ** (i + 1), int8=q8))
         for i in range(self.n_conv + 2):
             self.add_module(f"norm{i}", LayerNorm(H))
-        self.logits = Dense(H, vocab_size)
+        self.logits = Dense(H, vocab_size, int8=q8)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for mod in self.children():
@@ -617,22 +616,20 @@ class PhoneClassifier(nn.Module):
     "SAME" conv of ``2 * classifier_context + 1`` frames, then
     ``classifier_layers - 1`` dense layers, LayerNorm (eps 1e-6) + ReLU
     after each, and f32 dense logits, masked past each length. ``norm{i}``
-    follow flax's ``LayerNorm_{i}``."""
+    follow flax's ``LayerNorm_{i}``. With ``model.int8_compute`` the conv
+    and dense products run on int8 (``ops/quantize.py``), for serving
+    only."""
 
     def __init__(self, cfg: ModelConfig, vocab_size: int, input_dim: int):
         super().__init__()
-        if cfg.int8_compute:
-            raise NotImplementedError(
-                "model.int8_compute (int8 tensor-core GEMMs) is not ported yet "
-                "(ROADMAP.md Queue 1, item 13: quantize and export)")
         self.cfg = cfg
-        H = cfg.classifier_hidden
-        self.context_conv = Conv1d(input_dim, H, 2 * cfg.classifier_context + 1)
+        H, q8 = cfg.classifier_hidden, cfg.int8_compute
+        self.context_conv = Conv1d(input_dim, H, 2 * cfg.classifier_context + 1, int8=q8)
         for i in range(cfg.classifier_layers - 1):
-            self.add_module(f"fc{i}", Dense(H, H))
+            self.add_module(f"fc{i}", Dense(H, H, int8=q8))
         for i in range(cfg.classifier_layers):
             self.add_module(f"norm{i}", LayerNorm(H))
-        self.logits = Dense(H, vocab_size)
+        self.logits = Dense(H, vocab_size, int8=q8)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _flax_init(self, generator)

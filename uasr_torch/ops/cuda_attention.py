@@ -222,8 +222,9 @@ class MHSAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, kmask, num_heads: int):
-        fn = mhsa_fwd_cuda if q.is_cuda else mhsa_fwd_reference
-        out, lse = fn(q, k, v, bias, kmask, num_heads)
+        from uasr_torch.ops import library
+
+        out, lse = library.mhsa_fwd(q, k, v, bias, kmask, num_heads)
         ctx.save_for_backward(q, k, v, bias, kmask, out, lse)
         ctx.num_heads = num_heads
         ctx.mark_non_differentiable(lse)
@@ -241,8 +242,14 @@ class MHSAttention(torch.autograd.Function):
 def attn_core(q, k, v, bias, kmask, num_heads: int):
     """Padded fused attention (``_attn_core``): (out, lse), K6 for CUDA
     tensors, its plain version for CPU tensors; differentiable through
-    ``MHSAttention`` (K6-bwd or its plain version)."""
-    return MHSAttention.apply(q, k, v, bias, kmask, num_heads)
+    ``MHSAttention`` (K6-bwd or its plain version). Without a gradient to
+    take, only the operator ``uasr::mhsa_fwd`` runs."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (q, k, v, bias)):
+        return MHSAttention.apply(q, k, v, bias, kmask, num_heads)
+    from uasr_torch.ops import library
+
+    return library.mhsa_fwd(q, k, v, bias, kmask, num_heads)
 
 
 def _pad_to(a, axis: int, size: int):

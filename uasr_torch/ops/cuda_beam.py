@@ -287,10 +287,16 @@ def ctc_beam_steps(logp, lengths, beam_width: int, blank_id: int = 0, lm_table=N
                    state: BeamState | None = None):
     """The beam recursion from ``state`` (fresh if None): K4 for CUDA
     tensors, the plain version for CPU tensors. Returns (parents, chars
-    [T, B, W], the state after the last step)."""
-    fn = ctc_beam_cuda if logp.is_cuda else ctc_beam_reference
-    return fn(logp, lengths, beam_width, blank_id, lm_table, lm_order, lm_weight, lm_bonus,
-              state)
+    [T, B, W], the state after the last step). The recursion is the
+    operator ``uasr::ctc_beam`` (``ops/library.py``)."""
+    from uasr_torch.ops import library
+
+    if state is None:
+        state = beam_init(logp.shape[0], beam_width, logp.device)
+    parents, chars, *new = library.ctc_beam(logp, lengths, lm_table, *state, beam_width,
+                                            blank_id, lm_order, float(lm_weight),
+                                            float(lm_bonus))
+    return parents, chars, BeamState(*new)
 
 
 def compact_left(values: torch.Tensor, keep: torch.Tensor, fill: int) -> torch.Tensor:

@@ -240,6 +240,16 @@ def _apply_updates(params: dict, updates: dict) -> None:
         params[k].add_(u)
 
 
+def refuse_int8_training(cfg: Config) -> None:
+    """``model.int8_compute`` serves only: its rounding has no gradient.
+    (JAX's trainers run it with a zero gradient through the rounding and
+    say nothing; ROADMAP.md, Deliberate divergences.)"""
+    if cfg.model.int8_compute:
+        raise ValueError("model.int8_compute is a serving path (int8 products, no gradient "
+                         "through the rounding); train with it off and export with "
+                         "--quantize int8-compute")
+
+
 # ---------------------------------------------------------- CTC trainer
 
 
@@ -340,6 +350,7 @@ class CTCTrainer:
         """(aux, grads) of the mean CTC loss (or frame-level CE) at
         ``params`` in train mode; ``batch`` is a numpy ``Batch`` /
         ``AlignedBatch`` or its tensors on the device."""
+        refuse_int8_training(self.cfg)
         self.model.train()
         params = _leaves(params)
         db = batch if isinstance(batch, list) else self.to_device(batch)
@@ -669,6 +680,7 @@ class GANTrainer(GeneratorBase):
     supervised CTC mix-in."""
 
     def __init__(self, cfg: Config, device="cuda", centroids=None, tables=None):
+        refuse_int8_training(cfg)
         self._init_generator(cfg, device, centroids)
         self.disc = build_discriminator(cfg.model, cfg.dim_output,
                                         generator=torch.Generator().manual_seed(
@@ -783,6 +795,7 @@ class EODMTrainer(GeneratorBase):
     apply here too."""
 
     def __init__(self, cfg: Config, text_sequences, device="cuda", centroids=None):
+        refuse_int8_training(cfg)
         self._init_generator(cfg, device, centroids)
         self.optimizer = make_optimizer(cfg)
         self.tables = device_ngram_tables(cfg.eodm, text_sequences, self.device)
