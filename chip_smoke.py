@@ -172,7 +172,18 @@ and prints no result line):
    a call (K1, K2, K4; K5; K7, K4; K1, K6, K4), size and call time; the
    librispeech program also run in a fresh process that imports only
    torch and ``uasr_torch.ops.library``;
-19. one JSON line listing every ported kernel with its check, times and
+19. distribution (phase_distributed): librispeech_ctc_bigru at full width
+   (B = 32 x 8 s, SpecAugment off) with ``train.grad_accum: 2`` over two
+   halves on a one-rank NCCL group against one step (twice the K2 and
+   K2-bwd launches, the first Adam moments at the first-step bars); two
+   ranks on cuda:0 over gloo (NCCL refuses two ranks a device), each
+   ``chip_smoke.py --dist-rank``: the data-parallel step on mesh (2, 1),
+   the transformer (d = 512, 8 x 64, 4 blocks) with ``sequence_shard`` on
+   mesh (1, 2), K6 and K6-bwd on each rank's 4 heads, and the beam-16
+   decode split over mesh (2, 1), ids bit-equal to one process, against
+   one process, with each step's collective time; the multichip dry run on
+   four ranks (mesh (2, 2));
+20. one JSON line listing every ported kernel with its check, times and
    bound, then the card line and the result line.
 
 It imports nothing of JAX or of the JAX package.
@@ -4040,10 +4051,374 @@ def phase_export(torch, np, root: str, wd: str) -> None:
     print(f"  export phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+DIST_TIMEOUT = 420  # join timeout of each rank group (seconds)
+DIST_B, DIST_SECONDS = 32, 8.0  # librispeech's 8 s bucket at the recipe's batch
+TP_B, TP_SECONDS = 8, 8.0  # the tensor-parallel transformer step's batch
+
+
+def dist_config():
+    """librispeech_ctc_bigru at full width with SpecAugment off: a step
+    whose batch is split must draw nothing, so that it is the step of the
+    whole batch (the CPU tests hold the split draws)."""
+    cfg = recipe_config(len(char_vocab()))
+    return cfg.replace(frontend=dataclasses.replace(cfg.frontend, specaug_freq_masks=0,
+                                                    specaug_time_masks=0))
+
+
+def tp_config(seq: bool, m: int):
+    """attention_config's transformer (d = 512, 8 heads of 64, 4 blocks,
+    bf16, attn_pallas) on ``model_parallel: m``, SpecAugment off."""
+    cfg = attention_config("transformer", len(char_vocab()))
+    return cfg.replace(frontend=dataclasses.replace(cfg.frontend, specaug_freq_masks=0,
+                                                    specaug_time_masks=0),
+                       model=dataclasses.replace(cfg.model, sequence_shard=seq),
+                       parallel=dataclasses.replace(cfg.parallel, model_parallel=m))
+
+
+def compare_moments(torch, what: str, mu: dict, ref_mu: dict, loss: float, ref_loss: float,
+                    norm: float, ref_norm: float, floor: float = 0.0) -> None:
+    """One step's first Adam moments (0.1 x the clipped gradient) against
+    the one-process step's, at compare_first_step's bf16 bars: loss 1e-3,
+    grad norm 1e-2, worst tensor 5e-2 of its norm (or of ``floor`` x the
+    largest tensor norm, for the rounding-floor key biases)."""
+    top = max(float(torch.linalg.vector_norm(v.float())) for v in ref_mu.values())
+    worst = max((float(torch.linalg.vector_norm(mu[k].float() - ref_mu[k].float())
+                       / torch.linalg.vector_norm(ref_mu[k].float()).clamp_min(
+                           max(floor * top, 1e-30))), k) for k in ref_mu)
+    print(f"  {what}: loss {loss:.6f} vs {ref_loss:.6f} (rel {_rel(loss, ref_loss):.3e}, tol "
+          f"1e-3), grad norm {norm:.6f} vs {ref_norm:.6f} (rel {_rel(norm, ref_norm):.3e}, "
+          f"tol 1e-2), worst moment |d|/|m| {worst[0]:.3e} ({worst[1]}, tol 5e-2)", flush=True)
+    check(set(mu) == set(ref_mu), f"{what}: leaves {sorted(set(mu) ^ set(ref_mu))[:4]}")
+    check(math.isfinite(loss) and _rel(loss, ref_loss) <= 1e-3, f"{what}: loss {loss}")
+    check(_rel(norm, ref_norm) <= 1e-2, f"{what}: grad norm {norm} vs {ref_norm}")
+    check(worst[0] <= 5e-2, f"{what}: moment of {worst[1]} off by {worst[0]:.3e}")
+
+
+def ids_equal(hyps, lens, ref_hyps, ref_lens) -> bool:
+    """The same lengths and, within them, the same ids."""
+    lens, ref_lens = lens.long(), ref_lens.long()
+    return lens.shape == ref_lens.shape and bool((lens == ref_lens).all()) and all(
+        bool((hyps[i, : int(n)].long() == ref_hyps[i, : int(n)].long()).all())
+        for i, n in enumerate(ref_lens))
+
+
+def _cpu(d: dict) -> dict:
+    return {k: v.detach().float().cpu().clone() for k, v in d.items()}
+
+
+@contextlib.contextmanager
+def timed_collectives(torch, record: dict):
+    """Wall seconds and calls of every ``all_reduce`` / ``all_gather`` the
+    port issues inside (synchronised before and after, so each is charged
+    its own time), by kind, into ``record``."""
+    import torch.distributed as dist
+
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def wrap(name, fn):
+        def timed(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync()
+            record[name] = record.get(name, 0.0) + time.perf_counter() - t0
+            record[f"{name} calls"] = record.get(f"{name} calls", 0) + 1
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(dist, n, wrap(n, fn))
+    try:
+        yield record
+    finally:
+        for n, fn in saved.items():
+            setattr(dist, n, fn)
+
+
+def timed_step(torch, step) -> tuple:
+    """(wall s, collectives' record) of ``step()``, which ends in a
+    synchronise."""
+    rec: dict = {}
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    with timed_collectives(torch, rec):
+        step()
+        sync()
+    return time.perf_counter() - t0, rec
+
+
+def collective_line(wall: float, rec: dict) -> str:
+    coll = sum(v for k, v in rec.items() if not k.endswith("calls"))
+    parts = ", ".join(f"{k} {rec[k] * 1e3:.2f} ms x{rec[k + ' calls']}"
+                      for k in ("all_reduce", "all_gather") if k in rec)
+    return (f"wall {wall * 1e3:.2f} ms, collectives {coll * 1e3:.2f} ms "
+            f"({coll / wall:.1%}; {parts or 'none'})")
+
+
+def dist_rank_main(spec_path: str, out_path: str) -> int:
+    """One rank of phase_distributed's two-rank group on cuda:0 over gloo:
+    the data-parallel librispeech step on mesh (2, 1), the transformer
+    step with sequence_shard on mesh (1, 2) (K6's heads per launch
+    recorded), and the beam-16 decode split over mesh (2, 1) (this rank's
+    ids and the gathered ids recorded); writes its results to
+    ``out_path.rank<r>``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from uasr_torch import infer, train
+    from uasr_torch.frontend.features import make_frontend_state
+    from uasr_torch.ops import cuda_attention
+    from uasr_torch.parallel import init_distributed, local_device, make_mesh, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(spec_path, weights_only=False)
+    init_distributed(spec["device"], backend="gloo")
+    dev = local_device(spec["device"])
+    meshes = {m: make_mesh(m, dev.type) for m in (1, 2)}
+    out: dict = {}
+
+    cfg = spec["dp_cfg"]
+    tr = train.CTCTrainer(cfg, device=dev, mesh=meshes[1])
+    tr.model.load_state_dict(spec["dp_weights"])
+    reset_launches()
+    rows = shard_batch(spec["dp_batch"], meshes[1])
+    state, aux = tr.train_step(tr.init_state(), rows)
+    out["dp"] = dict(launches=read_launches(), loss=float(aux["loss"]),
+                     grad_norm=float(aux["grad_norm"]), mu=_cpu(state.opt_state["mu"]))
+    out["dp"]["timed"] = timed_step(torch, lambda: tr.train_step(state, rows))
+
+    heads: list = []
+    fwd = cuda_attention.mhsa_fwd_cuda
+
+    def recorded(q, k, v, bias, kmask, num_heads):
+        heads.append(num_heads)
+        return fwd(q, k, v, bias, kmask, num_heads)
+
+    cuda_attention.mhsa_fwd_cuda = recorded
+    tp = train.CTCTrainer(spec["tp_cfg"], device=dev, mesh=meshes[2])
+    tp.model.load_state_dict(tp.plans[0].shard(spec["tp_weights"]))
+    reset_launches()
+    state, aux = tp.train_step(tp.init_state(), spec["tp_batch"])
+    out["tp"] = dict(launches=read_launches(), heads=list(heads), loss=float(aux["loss"]),
+                     grad_norm=float(aux["grad_norm"]),
+                     mu=_cpu(tp.plans[0].gather(state.opt_state["mu"])))
+    cuda_attention.mhsa_fwd_cuda = fwd
+    out["tp"]["timed"] = timed_step(torch, lambda: tp.train_step(state, spec["tp_batch"]))
+
+    own, gathered = [], []
+    decode, gather_hyps = infer._decode_batch, infer._gather_hyps
+
+    def rec_decode(*a, **k):
+        r = decode(*a, **k)
+        own.append((r[0].cpu(), r[1].cpu()))
+        return r
+
+    def rec_gather(*a, **k):
+        r = gather_hyps(*a, **k)
+        gathered.append((r[0].cpu(), r[1].cpu()))
+        return r
+
+    infer._decode_batch, infer._gather_hyps = rec_decode, rec_gather
+    model = tr.model
+    model.load_state_dict(spec["dp_weights"])
+    reset_launches()
+    res = infer.run_inference(cfg, model, make_frontend_state(cfg.frontend, device=dev),
+                              [spec["dp_batch"]], device=dev, mesh=meshes[1])
+    out["decode"] = dict(launches=read_launches(), own=own, gathered=gathered,
+                         impl=infer.LAST_BEAM_IMPL, errors=res["errors"],
+                         ref_tokens=res["ref_tokens"])
+    torch.save(out, f"{out_path}.rank{torch.distributed.get_rank()}")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_distributed(torch, np, root: str, launches: dict) -> None:
+    """Distribution and scale on the one card: ``train.grad_accum`` on a
+    one-rank NCCL group, a two-rank gloo group on cuda:0 (the data-parallel
+    librispeech step, the transformer with sequence_shard on two model
+    ranks, the split beam decode) against one process, and the multichip
+    dry run on four ranks. NCCL refuses two ranks on one device, so the
+    multi-rank paths run over gloo here: every collective crosses the
+    host, and no time of theirs is a multi-card figure."""
+    import torch.distributed as dist
+
+    from uasr_torch import infer, train
+    from uasr_torch.frontend.features import make_frontend_state
+    from uasr_torch.parallel import make_mesh
+    from uasr_torch.parallel.launch import free_port, launch
+    from uasr_torch.tools import dryrun_multichip
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    cfg = dist_config()
+    batch = make_request(np, np.random.RandomState(SEED + 22), cfg, DIST_B, DIST_SECONDS)
+    halves = [type(batch)(*(x[:DIST_B // 2] for x in batch)),
+              type(batch)(*(x[DIST_B // 2:] for x in batch))]
+
+    # 1. one-rank NCCL group: grad_accum 2 over two halves against one step
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group(backend, init_method="env://", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, dev.type)
+        probe = torch.ones(4, device=dev)
+        dist.all_reduce(probe, group=mesh.data_group)
+        check(bool((probe == 1).all()), f"NCCL all-reduce at world size 1: {probe}")
+        one = train.CTCTrainer(cfg, device=dev)
+        weights = {k: v.detach().clone() for k, v in one.model.state_dict().items()}
+        reset_launches()
+        s1, a1 = one.train_step(one.init_state(), batch)
+        c1 = read_launches()
+        acc = train.CTCTrainer(cfg.replace(train=dataclasses.replace(cfg.train, grad_accum=2)),
+                               device=dev, mesh=mesh)
+        acc.model.load_state_dict(weights)
+        # the norm of the gradient the clip sees: the accumulated mean's
+        clip_norms, inner = [], acc.optimizer._update
+
+        def recorded(grads, opt_state):
+            out = inner(grads, opt_state)
+            clip_norms.append(float(out[2]))
+            return out
+
+        acc.optimizer._update = recorded
+        s2 = acc.init_state()
+        reset_launches()
+        auxes = []
+        for h in halves:
+            before = {k: v.detach().clone() for k, v in s2.params.items()}
+            s2, a2 = acc.train_step(s2, h)
+            auxes.append(a2)
+        c2 = read_launches()
+    finally:
+        dist.destroy_process_group()
+    print(f"distributed: {cfg.name} B={DIST_B} x {DIST_SECONDS} s, SpecAugment off; "
+          f"{backend} group of 1, grad_accum 2 over two halves vs one step of the batch",
+          flush=True)
+    print(f"  launches one step {c1}; accumulated {c2}", flush=True)
+    check(s2.step == 2 and s2.opt_state["count"] == 1, f"grad_accum: step {s2.step}")
+    check(not any(torch.equal(before[k], s2.params[k]) for k in ("logits.weight",)),
+          "grad_accum: the second call did not update")
+    check(all(c2[k] == 2 * c1[k] and c1[k] > 0 for k in ("K2", "K2-bwd")),
+          f"grad_accum: K2 / K2-bwd launches {c2} not twice {c1}")
+    mean_loss = (float(auxes[0]["loss"]) + float(auxes[1]["loss"])) / 2
+    # the moments hold the clipped gradient and Adam's first step is about
+    # lr x its sign, so only the norm before the clip shows the scale
+    check(len(clip_norms) == 1, f"grad_accum: {len(clip_norms)} clips in two calls")
+    compare_moments(torch, "grad_accum 2 vs one step (grad norm: the accumulated mean's "
+                    "before the clip vs one step's)", s2.opt_state["mu"], s1.opt_state["mu"],
+                    mean_loss, float(a1["loss"]), clip_norms[0], float(a1["grad_norm"]))
+    # a first Adam step moves each entry by at most lr, so entries whose
+    # gradient sign differs part by up to 2 lr, plus the f32 rounding of
+    # the two additions
+    lr = one.optimizer.schedule(0)
+    dp_max = max(float((s2.params[k] - s1.params[k]).detach().abs().max()) for k in s1.params)
+    tol = 2 * lr + 2 * torch.finfo(torch.float32).eps * max(
+        float(v.abs().max()) for v in weights.values())
+    print(f"  parameters after the update: max|d| {dp_max:.3e} (tol 2 lr + 2 ulp = {tol:.3e})",
+          flush=True)
+    check(dp_max <= tol, f"grad_accum params off by {dp_max}")
+
+    # 2. two ranks on cuda:0 over gloo; the references in this process
+    tcfg = tp_config(True, 2)
+    tone = train.CTCTrainer(tp_config(False, 1), device=dev)
+    tweights = {k: v.detach().clone().cpu() for k, v in tone.model.state_dict().items()}
+    tbatch = make_request(np, np.random.RandomState(SEED + 23), tcfg, TP_B, TP_SECONDS)
+    spec = dict(device=dev.type, dp_cfg=cfg, dp_weights={k: v.cpu() for k, v in weights.items()}, dp_batch=batch,
+                tp_cfg=tcfg, tp_weights=tweights, tp_batch=tbatch)
+    spec_path, out_path = os.path.join(root, "dist_spec.pt"), os.path.join(root, "dist_out")
+    torch.save(spec, spec_path)
+    t0 = time.perf_counter()
+    launch([os.path.join(REPO, "chip_smoke.py"), "--dist-rank", spec_path, out_path], 2,
+           timeout=DIST_TIMEOUT, one_device=dev.type == "cuda", cwd=root)
+    group_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{out_path}.rank{r}", weights_only=False) for r in range(2)]
+    print(f"  two ranks on {dev} over gloo: {group_s:.1f} s for the group (start-up and "
+          f"three cases)", flush=True)
+    ts, ta = tone.train_step(tone.init_state(), tbatch)
+    # the references' moments, before the timed second steps move them in place
+    ref_dp, ref_tp = _cpu(s1.opt_state["mu"]), _cpu(ts.opt_state["mu"])
+    one_dp = timed_step(torch, lambda: one.train_step(s1, batch))
+    one_tp = timed_step(torch, lambda: tone.train_step(ts, tbatch))
+    print(f"  second steps, gloo over one card's host path (not NCCL, not a multi-card "
+          f"figure): one process, librispeech B={DIST_B}: {collective_line(*one_dp)}; "
+          f"transformer B={TP_B}: {collective_line(*one_tp)}", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"    rank {r}: data-parallel (2, 1) {collective_line(*res['dp']['timed'])}; "
+              f"tensor/sequence-parallel (1, 2) {collective_line(*res['tp']['timed'])}",
+              flush=True)
+    want_dp = {"K1": 1, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1}
+    for r, res in enumerate(ranks):
+        d = res["dp"]
+        print(f"  rank {r}, mesh (2, 1): librispeech step on its half, launches "
+              f"{d['launches']}", flush=True)
+        check(all(d["launches"][k] == n for k, n in want_dp.items()),
+              f"rank {r} dp launches {d['launches']}")
+        compare_moments(torch, f"rank {r} data-parallel step vs one process", d["mu"],
+                        ref_dp, d["loss"], float(a1["loss"]),
+                        d["grad_norm"], float(a1["grad_norm"]))
+        t = res["tp"]
+        L = tcfg.model.transformer_layers
+        print(f"  rank {r}, mesh (1, 2): transformer step with sequence_shard, K6 heads per "
+              f"launch {t['heads']}, launches {t['launches']}", flush=True)
+        check(t["launches"]["K6"] == L and t["launches"]["K6-bwd"] == L
+              and t["heads"] == [tcfg.model.num_heads // 2] * L,
+              f"rank {r} tp launches {t['launches']} heads {t['heads']}")
+        compare_moments(torch, f"rank {r} tensor/sequence-parallel transformer step vs one "
+                        "process", t["mu"], ref_tp, t["loss"],
+                        float(ta["loss"]), t["grad_norm"], float(ta["grad_norm"]), floor=1e-2)
+    fstate = make_frontend_state(cfg.frontend, device=dev)
+    one.model.load_state_dict(weights)  # the step above moved the module's own weights
+    singles = []
+    for h in halves:
+        with torch.inference_mode():
+            hy, hl, _, _ = infer._decode_batch(cfg, one.model.eval(), fstate,
+                                               train._to_device(h, dev))
+        singles.append((hy.cpu(), hl.cpu()))
+    whole = (torch.cat([singles[0][0], singles[1][0]]), torch.cat([singles[0][1], singles[1][1]]))
+    for r, res in enumerate(ranks):
+        d = res["decode"]
+        same = ids_equal(*d["own"][0], *singles[r])
+        same_all = ids_equal(*d["gathered"][0], *whole)
+        print(f"  rank {r}, mesh (2, 1): beam-16 decode of its half, ids bit-equal to one "
+              f"process: {same}; gathered equal to the concatenation: {same_all}; "
+              f"{d['impl']}, launches {d['launches']}", flush=True)
+        check(same and same_all, f"rank {r}: split decode differs from one process")
+        check(d["impl"] == "cuda_sharded" and d["launches"]["K4"] > 0
+              and d["launches"]["K1"] > 0 and d["launches"]["K2"] == 3,
+              f"rank {r} decode: {d['impl']} {d['launches']}")
+
+    # 3. the dry run, four ranks on cuda:0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip.main(["--ranks", "4", "--device", dev.type, "--backend", "gloo",
+                               "--timeout", str(DIST_TIMEOUT)])
+    line = buf.getvalue().strip().splitlines()[-1]
+    res = json.loads(line.split("ok: ", 1)[1])
+    print(f"  dry run, four ranks on {dev} (mesh (2, 2)) over gloo, "
+          f"{time.perf_counter() - t0:.1f} s: {line}", flush=True)
+    losses = [res[k] for k in ("ctc_loss", "d_loss", "g_loss", "eodm_loss",
+                               "transformer_ctc_loss", "nce_loss")]
+    check(all(math.isfinite(v) for v in losses), f"dry run losses {losses}")
+    check(all(res["launches"][k] > 0 for k in ("K1", "K2", "K2-bwd", "K3", "K3-bwd", "K5",
+                                               "K6", "K6-bwd")),
+          f"dry run launches {res['launches']}")
+    print(f"  phase_distributed: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
 
+    if sys.argv[1:2] == ["--dist-rank"]:  # a rank of phase_distributed's group
+        return dist_rank_main(*sys.argv[2:4])
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
     if not os.path.isfile(os.path.join(REPO, "uasr_torch", "_build.py")):
@@ -4084,6 +4459,7 @@ def main() -> int:
         phase_ssl(torch, np, tmp, launches)
         wd = phase_pipeline(torch, np, tmp, launches)
         phase_export(torch, np, tmp, wd)
+        phase_distributed(torch, np, tmp, launches)
 
     rows = [
         ("K1 fused log-mel", "uasr_torch/csrc/log_mel.cu",

@@ -1,6 +1,7 @@
-"""The port stands alone: importing every uasr_torch module and
-chip_smoke.py pulls in no jax, flax, optax or uasr module, and no source
-file of the port imports one, even inside a function."""
+"""The port stands alone: importing every uasr_torch module, chip_smoke.py
+and the rank-side module of the tests' process groups
+(tests/_torch_dist_worker.py) pulls in no jax, flax, optax or uasr module,
+and no source file of the port imports one, even inside a function."""
 
 import ast
 import pathlib
@@ -27,10 +28,16 @@ SSL = ("uasr_torch/ops/infonce.py", "uasr_torch/models/ssl.py", "uasr_torch/pret
 # the pipeline, quantization and serving-export slice's
 EXPORT = ("uasr_torch/ops/library.py", "uasr_torch/ops/quantize.py",
           "uasr_torch/tools/export.py", "uasr_torch/tools/pipeline.py")
+# the distribution and scale slice's, and the profiling aux
+PARALLEL = ("uasr_torch/parallel/__init__.py", "uasr_torch/parallel/mesh.py",
+            "uasr_torch/parallel/distributed.py", "uasr_torch/parallel/collectives.py",
+            "uasr_torch/parallel/launch.py", "uasr_torch/profiling.py",
+            "uasr_torch/tools/dryrun_multichip.py", "tests/_torch_dist_worker.py")
 
 
 def _port_files():
-    return sorted((REPO / "uasr_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted((REPO / "uasr_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                          REPO / "tests" / "_torch_dist_worker.py"]
 
 
 def _module_name(path: pathlib.Path) -> str:
@@ -43,6 +50,7 @@ def test_imports_pull_in_no_jax_flax_or_uasr():
     files = {str(p.relative_to(REPO)) for p in _port_files()}
     assert set(UNSUP) <= files and set(DATA) <= files and set(LM) <= files
     assert set(SELFTRAIN) <= files and set(SSL) <= files and set(EXPORT) <= files
+    assert set(PARALLEL) <= files
     mods = [_module_name(p) for p in _port_files()]
     code = (
         "import importlib, sys\n"

@@ -23,8 +23,9 @@ def resolve_device(device) -> torch.device:
     card is present (the port never drops to the CPU by itself)."""
     if isinstance(device, (list, tuple)):
         raise NotImplementedError(
-            "several devices (multi-device decode or training) are not ported "
-            "yet (ROADMAP.md Queue 1, item 14: distribution and scale); pass one device"
+            "one process drives one device: for multi-device decode or training launch one "
+            "process per device with torchrun and pass the entry points a mesh "
+            "(uasr_torch.parallel.init_distributed, make_mesh); pass one device here"
         )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -19,6 +19,14 @@ defaults to ``cuda`` and raises without a card; ``--device cpu`` runs
 the plain PyTorch versions of the kernels.
 ``--set`` casts each value to the field's type and rejects unknown keys.
 
+Several devices: one process per device under torchrun (``torchrun
+--nproc-per-node N -m uasr_torch.cli ...``). ``main`` joins the process
+group (``parallel.init_distributed``: NCCL on the card, gloo with
+``--device cpu``), takes ``cuda:LOCAL_RANK``, and
+runs training and decode over the mesh of
+``(N // parallel.model_parallel, parallel.model_parallel)``: every rank
+reads the same batches and keeps its data-group rows, and rank 0 writes.
+
 Data: the synthetic corpora, and utterance lists (``prepare lists`` or
 ``synth``) streamed from disk one batch at a time by
 ``data.loader.StreamingASRDataset`` (``data.streaming``, the default) or
@@ -270,15 +278,15 @@ def _dev_batches_fn(cfg, device=None):
     return fn
 
 
-def _train_ctc(cfg, source, device):
+def _train_ctc(cfg, source, device, mesh=None):
     from uasr_torch.train import run_ctc_training
 
     run_ctc_training(cfg, _batches(cfg, source, seed=cfg.train.seed, device=device),
-                     dev_batches_fn=_dev_batches_fn(cfg, device), device=device)
+                     dev_batches_fn=_dev_batches_fn(cfg, device), device=device, mesh=mesh)
     return 0
 
 
-def _train_ssl(cfg, source, device):
+def _train_ssl(cfg, source, device, mesh=None):
     """Contrastive pretraining over raw audio; ``tools.featurize`` then
     dumps the features the unsupervised stage trains on."""
     from uasr_torch.pretrain import run_ssl_pretraining
@@ -287,7 +295,7 @@ def _train_ssl(cfg, source, device):
         raise SystemExit("train.mode=ssl pretrains on RAW AUDIO; the split already has a "
                          "feature cache configured")
     run_ssl_pretraining(cfg, _batches(cfg, source, seed=cfg.train.seed),
-                        dev_batches_fn=_dev_batches_fn(cfg), device=device)
+                        dev_batches_fn=_dev_batches_fn(cfg), device=device, mesh=mesh)
     return 0
 
 
@@ -306,7 +314,7 @@ def _load_text(cfg, source, vocab):
     return [ids for _, ids in payload if ids]
 
 
-def _train_gan(cfg, source, vocab, device, with_eodm=False):
+def _train_gan(cfg, source, vocab, device, with_eodm=False, mesh=None):
     from uasr_torch.train import run_gan_training
 
     labeled = None
@@ -327,27 +335,29 @@ def _train_gan(cfg, source, vocab, device, with_eodm=False):
     run_gan_training(cfg, _batches(cfg, source, seed=cfg.train.seed, device=device),
                      _load_text(cfg, source, vocab), with_eodm=with_eodm,
                      dev_batches_fn=_dev_batches_fn(cfg, device), labeled_batches=labeled,
-                     device=device)
+                     device=device, mesh=mesh)
     return 0
 
 
-def _train_eodm(cfg, source, vocab, device):
+def _train_eodm(cfg, source, vocab, device, mesh=None):
     from uasr_torch.train import run_eodm_training
 
     run_eodm_training(cfg, _batches(cfg, source, seed=cfg.train.seed, device=device),
                       _load_text(cfg, source, vocab),
-                      dev_batches_fn=_dev_batches_fn(cfg, device), device=device)
+                      dev_batches_fn=_dev_batches_fn(cfg, device), device=device, mesh=mesh)
     return 0
 
 
-def restore_trainer(cfg, device):
+def restore_trainer(cfg, device, mesh=None):
     """(trainer, step): a trainer whose ``model`` holds the newest
     checkpoint under ``model_dir/ckpt`` (the average of the newest
     ``train.average_checkpoints``, or ``best_ckpt`` with
     ``train.restore_best``): a ``CTCTrainer``, for ``train.mode`` gan,
     gan+eodm and eodm a ``GeneratorInfer`` holding the generator (a
     ``GANState``'s first tree), or for ``ssl`` an ``SSLTrainer`` holding the
-    ``CPCModel`` (``tools.featurize``). Exits when there is none."""
+    ``CPCModel`` (``tools.featurize``). Exits when there is none. Over
+    ``mesh`` the model holds this rank's shards of the whole tensors the
+    checkpoint keeps."""
     from uasr_torch.checkpoint import CheckpointManager, restore_averaged
     from uasr_torch.train import CTCTrainer, GANState, GeneratorInfer, TrainState, make_optimizer
 
@@ -363,7 +373,7 @@ def restore_trainer(cfg, device):
     if mode in ("gan", "gan+eodm", "eodm"):
         from uasr_torch.models.models import build_discriminator
 
-        trainer = GeneratorInfer(cfg, device=device)
+        trainer = GeneratorInfer(cfg, device=device, mesh=mesh)
         params = dict(trainer.gen.named_parameters())
         opt = make_optimizer(cfg)
         if mode == "eodm":
@@ -375,11 +385,12 @@ def restore_trainer(cfg, device):
     elif mode == "ssl":
         from uasr_torch.pretrain import SSLTrainer
 
-        trainer = SSLTrainer(cfg, device=device)
+        trainer = SSLTrainer(cfg, device=device, mesh=mesh)
         template = trainer.init_state()
     else:
-        trainer = CTCTrainer(cfg, device=device)
+        trainer = CTCTrainer(cfg, device=device, mesh=mesh)
         template = trainer.init_state()
+    template = trainer.whole_state(template)
     if cfg.train.average_checkpoints > 1:
         restored = restore_averaged(mgr, template, cfg.train.average_checkpoints)
     else:
@@ -388,18 +399,19 @@ def restore_trainer(cfg, device):
     if restored is None:
         raise SystemExit(f"no checkpoint under {ckpt_dir}")
     state, step = restored
-    trainer.model.load_state_dict(state[1])
+    plan = trainer.plans[0]
+    trainer.model.load_state_dict(state[1] if plan is None else plan.shard(state[1]))
     return trainer, step
 
 
-def _infer(cfg, source, vocab, device):
+def _infer(cfg, source, vocab, device, mesh=None):
     from uasr_torch.infer import run_inference
 
     if cfg.train.mode == "ssl":
         raise SystemExit("ssl checkpoints have no decode path; dump features with `python -m "
                          "uasr_torch.tools.featurize` and train/infer a downstream recipe on "
                          "the cache")
-    trainer, step = restore_trainer(cfg, device)
+    trainer, step = restore_trainer(cfg, device, mesh)
     logits_fn = getattr(trainer, "logits_fn", None)
     # a feature cache bypasses the frontend, whose state (global CMVN
     # statistics, say) the recipe then need not provide
@@ -408,11 +420,13 @@ def _infer(cfg, source, vocab, device):
         cfg, trainer.model, fstate,
         _batches(cfg, source, num_epochs=1, drop_remainder=False, device=device),
         vocab=vocab, hyp_path=f"{cfg.model_dir}/hyp.txt", device=device, logits_fn=logits_fn,
-        fold_timit=cfg.ctc.fold_timit,
+        fold_timit=cfg.ctc.fold_timit, mesh=mesh,
     )
     folded = f" PER_folded={res['per_folded']:.4f}" if "per_folded" in res else ""
     avg = (f" (avg of last {cfg.train.average_checkpoints})"
            if cfg.train.average_checkpoints > 1 else "")
+    if mesh is not None and not mesh.is_writer:
+        return 0
     print(f"step {step}{avg}: PER={res['per']:.4f}{folded} RTF={res['rtf']:.4f} "
           f"({res['audio_seconds']:.1f}s audio)")
     return 0
@@ -432,26 +446,32 @@ def main(argv=None):
 
     from uasr_torch import resolve_device
     from uasr_torch.config import load_config
+    from uasr_torch.parallel import init_distributed, local_device, make_mesh
 
     cfg = load_config(args.config)
     apply_overrides(cfg, args.set)
-    device = resolve_device(args.device)
+    mesh = None
+    if init_distributed(args.device):
+        device = resolve_device(local_device(args.device))
+        mesh = make_mesh(cfg.parallel.model_parallel, device.type)
+    else:
+        device = resolve_device(args.device)
     mode = cfg.train.mode
     if mode not in ("ctc", "frame_ce", "gan", "gan+eodm", "eodm", "ssl"):
         raise SystemExit(f"unknown train.mode {mode!r}")
     source, vocab = _load_source(cfg, "train" if args.mode == "train" else "test")
     if cfg.vocab_size is None:
         cfg = cfg.replace(vocab_size=len(vocab))
-    print(f"device: {device}", file=sys.stderr)
+    print(f"device: {device}" + (f" {mesh}" if mesh is not None else ""), file=sys.stderr)
     if args.mode == "infer":
-        return _infer(cfg, source, vocab, device)
+        return _infer(cfg, source, vocab, device, mesh)
     if mode in ("gan", "gan+eodm"):
-        return _train_gan(cfg, source, vocab, device, with_eodm="+eodm" in mode)
+        return _train_gan(cfg, source, vocab, device, with_eodm="+eodm" in mode, mesh=mesh)
     if mode == "eodm":
-        return _train_eodm(cfg, source, vocab, device)
+        return _train_eodm(cfg, source, vocab, device, mesh)
     if mode == "ssl":
-        return _train_ssl(cfg, source, device)
-    return _train_ctc(cfg, source, device)
+        return _train_ssl(cfg, source, device, mesh)
+    return _train_ctc(cfg, source, device, mesh)
 
 
 if __name__ == "__main__":

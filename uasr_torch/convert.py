@@ -223,3 +223,44 @@ def cpc_to_state_dict(params: dict, cfg: SSLConfig | Config) -> dict[str, torch.
     _gru(out, "context", p["context"])
     _dense(out, "heads", p["heads"])
     return out
+
+
+def flax_shapes(model: torch.nn.Module) -> dict[str, tuple[int, ...]]:
+    """The shape each of ``model``'s parameters has in the flax tree it
+    maps from (the inverse of the layouts above): Dense ``weight [out,
+    in]`` -> ``[in, out]``; attention ``query``/``key``/``value`` ->
+    ``[D, heads, dh]`` with biases ``[heads, dh]``, and ``out`` -> ``[heads,
+    dh, D]``; 1-D convs ``[out,
+    in, k]`` -> ``[k, in, out]``; the 2-D conv blocks ``[out, in, kh, kw]``
+    -> ``[kh, kw, in, out]``; the patch front's ``context_weight`` as a
+    1-D conv; the GRUs, LayerNorms, biases and ``rel_bias`` as they are.
+    ``uasr_torch.parallel.param_shardings`` applies the JAX package's
+    sharding rule to these."""
+    from uasr_torch.models.layers import Conv1d, ConvBlock, Dense, MultiHeadAttention
+
+    heads = {name: m.num_heads for name, m in model.named_modules()
+             if isinstance(m, MultiHeadAttention)}
+    out: dict[str, tuple[int, ...]] = {}
+    for mname, mod in model.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            name = f"{mname}.{pname}" if mname else pname
+            shape = tuple(p.shape)
+            parent, _, leaf = mname.rpartition(".")
+            if (isinstance(mod, Dense) and pname == "bias" and parent in heads
+                    and leaf in ("query", "key", "value")):
+                shape = (heads[parent], shape[0] // heads[parent])
+            elif isinstance(mod, Dense) and pname == "weight":
+                if parent in heads and leaf in ("query", "key", "value", "out"):
+                    h = heads[parent]
+                    if leaf == "out":
+                        shape = (h, shape[1] // h, shape[0])
+                    else:
+                        shape = (shape[1], h, shape[0] // h)
+                else:
+                    shape = shape[::-1]
+            elif (isinstance(mod, Conv1d) and pname == "weight") or pname == "context_weight":
+                shape = shape[::-1]
+            elif isinstance(mod, ConvBlock) and pname == "weight":
+                shape = (shape[2], shape[3], shape[1], shape[0])
+            out[name] = shape
+    return out

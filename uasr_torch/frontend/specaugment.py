@@ -8,7 +8,8 @@ uniform inside the row's valid region), and ``band_keep`` builds the mask
 from them with the JAX package's formula. The draws are B integers per
 mask, so they are made on the CPU whatever the features' device, and the
 same seed gives the same masks on the CPU and on the card. They are not
-``jax.random``'s numbers.
+``jax.random``'s numbers. Under a mesh each draw is made for the global
+batch and cut to the rank's rows.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from uasr_torch.config import FrontendConfig
+from uasr_torch.parallel.collectives import global_rows, local_rows
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -27,8 +29,9 @@ def draw_bands(generator: torch.Generator, batch: int, max_width: int,
 
     limit: [B] upper bound of the band start (the valid size along the
     axis)."""
-    width = torch.randint(0, max_width + 1, (batch,), generator=generator)
-    raw = torch.randint(0, _INT32_MAX, (batch,), generator=generator)
+    n = global_rows(batch)
+    width = local_rows(torch.randint(0, max_width + 1, (n,), generator=generator))
+    raw = local_rows(torch.randint(0, _INT32_MAX, (n,), generator=generator))
     width, raw = width.to(limit.device), raw.to(limit.device)
     max_start = torch.clamp(limit.long() - width, min=1)
     return width, raw % max_start

@@ -18,6 +18,14 @@ EODM generator decodes through ``logits_fn`` (``train.GeneratorInfer``:
 the frontend, segmentation, classifier and repeat merge it trained on),
 which replaces the frontend and the model, for the probe as for the
 decode.
+
+Over a mesh (``mesh``; one process per device under torchrun) each batch
+is split over the data group: a ragged batch is zero-padded to a multiple
+of the data size (zero-length rows decode to nothing and score nothing),
+each rank runs the frontend (K1), the encoder and the decode (K4, greedy
+or Viterbi) on its rows, the error and reference counts are summed over
+the group, and rank 0 gathers the hypotheses and writes them. The rate
+probe of ``ctc.use_viterbi`` runs whole batches on every rank.
 """
 
 from __future__ import annotations
@@ -36,12 +44,25 @@ from uasr_torch.frontend.features import FrontendState, compute_features
 from uasr_torch.ops.decode import ctc_beam_search_decode, ctc_greedy_decode
 from uasr_torch.ops.edit_distance import batch_edit_distance
 from uasr_torch.ops.lm import load_decode_table
-from uasr_torch.train import _audio_seconds, _to_device
+from uasr_torch.parallel.collectives import _all_gather
+from uasr_torch.parallel.mesh import Mesh, shard_batch
+from uasr_torch.train import _audio_seconds, _global_counts, _to_device, pad_rows
 from uasr_torch.vocab import Vocab
 
 # which beam recursion the last run_inference ran: "cuda" (K4) or
-# "reference" (its plain version, CPU tensors); None for greedy
+# "reference" (its plain version, CPU tensors), with "_sharded" when the
+# batches were split over a mesh's data group; None for greedy
 LAST_BEAM_IMPL: str | None = None
+
+
+def _gather_hyps(hyps: torch.Tensor, hyp_len: torch.Tensor, mesh: Mesh):
+    """Every rank's (hyps, lengths) concatenated in data-rank order; the
+    hypotheses padded with zeros to the widest rank's."""
+    w = torch.tensor([hyps.shape[1]], device=hyps.device)
+    torch.distributed.all_reduce(w, op=torch.distributed.ReduceOp.MAX, group=mesh.data_group)
+    hyps = torch.nn.functional.pad(hyps, (0, int(w) - hyps.shape[1]))
+    return (_all_gather(hyps, 0, mesh.data_group),
+            _all_gather(hyp_len.to(hyps.dtype), 0, mesh.data_group))
 
 
 def _logits(cfg: Config, model, fstate: FrontendState, audio, alen, logits_fn=None):
@@ -85,6 +106,7 @@ def run_inference(
     device="cuda",
     logits_fn=None,
     fold_timit: bool = False,
+    mesh: Mesh | None = None,
 ) -> dict:
     """Decode + score. Returns {"per", "rtf", "audio_seconds", "errors",
     "ref_tokens"}, and "per_folded" with ``fold_timit`` and a ``vocab``:
@@ -95,10 +117,13 @@ def run_inference(
     given, computes the logits in place of ``model`` over
     ``compute_features``. Batches of [B, T, D] features bypass the
     frontend (``frontend_state`` may then be None), and the RTF's audio
-    seconds count their frames by ``frontend.frame_shift_ms``."""
+    seconds count their frames by ``frontend.frame_shift_ms``. Over
+    ``mesh`` every rank passes the same batches and gets the same result;
+    rank 0 writes ``hyp_path``."""
     global LAST_BEAM_IMPL
     LAST_BEAM_IMPL = None
     device = resolve_device(device)
+    dp = 1 if mesh is None else mesh.data_size
     model = model.to(device).eval()
     fstate = frontend_state.to(device) if frontend_state is not None else None
     V = cfg.dim_output
@@ -139,23 +164,31 @@ def run_inference(
     wall = 0.0
     n_utts = 0
     fold_pairs: list[tuple[list[str], list[str]]] = []
-    hyp_f = open(hyp_path, "w") if hyp_path else None
+    writes = mesh is None or mesh.is_writer
+    hyp_f = open(hyp_path, "w") if hyp_path and writes else None
     try:
         for b in batches:
-            db = _to_device(b[:4], device)
+            B0 = len(b[0])
+            rows = b[:4] if dp == 1 else shard_batch(pad_rows(b[:4], dp), mesh)
+            db = _to_device(rows, device)
             sync(device)
             t0 = time.perf_counter()
             with torch.inference_mode():
                 hyps, hyp_len, e, t = _decode_batch(cfg, model, fstate, db, logits_fn,
                                                     lm_table, viterbi_fn)
+                if dp > 1:
+                    hyps, hyp_len = (x[:B0] for x in _gather_hyps(hyps, hyp_len, mesh))
+                    if LAST_BEAM_IMPL is not None:
+                        LAST_BEAM_IMPL += "_sharded"
             sync(device)
             wall += time.perf_counter() - t0
             hyps, hyp_len = hyps.cpu().numpy(), hyp_len.cpu().numpy()
-            audio_sec += _audio_seconds(cfg, db)
+            audio_sec += _audio_seconds(cfg, b)
             errs += int(e)
             total += int(t)
             if vocab is not None and (hyp_f is not None or fold_timit):
-                labels, label_len = db[2].cpu().numpy(), db[3].cpu().numpy()
+                labels, label_len = (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                                     else np.asarray(x) for x in b[2:4])
                 for i in range(hyps.shape[0]):
                     toks = vocab.decode_for_scoring(hyps[i, : int(hyp_len[i])],
                                                     fold_timit=fold_timit)
@@ -169,6 +202,7 @@ def run_inference(
     finally:
         if hyp_f is not None:
             hyp_f.close()
+    errs, total = _global_counts(mesh, errs, total)
     out = {
         "per": errs / max(total, 1),
         "rtf": wall / max(audio_sec, 1e-9),

@@ -11,6 +11,15 @@ Initialisation draws only from the ``torch.Generator`` it is given.
 Padding-aware: the reversed direction of the BiGRU starts at each
 utterance's own last frame, and hidden state stops updating past the
 end of each utterance, so results do not depend on batch padding.
+
+Tensor parallelism (``uasr_torch.parallel.shard_model``): a layer whose
+parameter is a model-group shard (``_tp``) runs column-parallel with its
+output gathered over the model group (Dense, Conv1d, ConvBlock: the
+replicated input enters through ``reduce_bwd``, the replicated bias is
+added after the gather), or gathers the GRU weights a kernel reads whole;
+the attention splits its heads (``MultiHeadAttention``). ``dropout``
+draws its keep mask for the global batch and keeps the rank's rows, so a
+rank's step is the one-process step.
 """
 
 from __future__ import annotations
@@ -24,6 +33,77 @@ from torch import nn
 from uasr_torch.models.cuda_gru import bigru_scan, bigru_scan_reference, gru_scan
 from uasr_torch.ops.attention import dot_product_attention
 from uasr_torch.ops.cuda_attention import fused_dot_product_attention
+from uasr_torch.parallel import collectives as C
+
+
+def _tp(mod: nn.Module, pname: str):
+    """The mesh when ``mod``'s parameter ``pname`` is a model-group shard
+    (``parallel.shard_model``), else None."""
+    mesh = getattr(mod, "tp", None)
+    return mesh if mesh is not None and pname in mod.tp_sharded else None
+
+
+def _whole(mod: nn.Module, pname: str) -> torch.Tensor:
+    """``mod``'s parameter ``pname`` whole: gathered over the model group
+    on its last axis (the GRUs' sharded axis) when it is a shard."""
+    t = getattr(mod, pname)
+    mesh = _tp(mod, pname)
+    return t if mesh is None else C.gather(t, t.ndim - 1, mesh.model_group)
+
+
+def _col_parallel(x: torch.Tensor, fn, bias: torch.Tensor, out_dim: int,
+                  group) -> torch.Tensor:
+    """A column-parallel product over a model group: the replicated input
+    ``x`` enters through ``reduce_bwd`` (the ranks' partial input gradients
+    summed), ``fn`` makes this rank's output columns on axis ``out_dim``,
+    they are gathered over the group, and the replicated ``bias``
+    (broadcast against the whole output) is added after the gather."""
+    return C.gather(fn(C.reduce_bwd(x, group)), out_dim, group) + bias
+
+
+def _tp_in(x: torch.Tensor, seq: bool, group) -> torch.Tensor:
+    """The input of a Megatron sublayer (attention, FFN): sequence-sharded
+    ``x`` [B, T / m, D] gathered over time (``gather_partial``), else the
+    replicated ``x`` through ``reduce_bwd``."""
+    return C.gather_partial(x, 1, group) if seq else C.reduce_bwd(x, group)
+
+
+def _row_out(y: torch.Tensor, bias: torch.Tensor, seq: bool, group,
+             dt: torch.dtype) -> torch.Tensor:
+    """The exit of a row-parallel product whose partial sums are ``y``
+    (f32): summed over the group (``reduce_fwd``) with the replicated
+    ``bias`` added, or, sequence-sharded, reduce-scattered over time, the
+    bias then meeting only this rank's frames, so its gradient is summed
+    over the group (``reduce_bwd``)."""
+    if seq:
+        return C.reduce_scatter(y, 1, group).to(dt) + C.reduce_bwd(bias, group).to(dt)
+    return C.reduce_fwd(y, group).to(dt) + bias.to(dt)
+
+
+def _heads_bias(proj: nn.Module, group) -> torch.Tensor:
+    """The bias of this rank's heads of a query/key/value projection:
+    stored as the rank's shard where JAX's rule shards it ([heads, dh] in
+    flax), else cut from the replicated bias."""
+    return proj.bias if "bias" in proj.tp_sharded else C.split(proj.bias, 0, group)
+
+
+def dropout(x: torch.Tensor, p: float, training: bool, batch_dim: int = 0,
+            seq: tuple[int, object] | None = None) -> torch.Tensor:
+    """Inverted dropout whose keep mask is drawn from the device's default
+    generator for the global batch (``batch_dim`` times the active mesh's
+    data size, and with ``seq = (dim, mesh)`` the whole padded sequence of
+    a sequence-sharded tensor) and cut to this rank's part, so ranks that
+    share the generator's seed drop what one process would."""
+    if p <= 0.0 or not training:
+        return x
+    shape = list(x.shape)
+    shape[batch_dim] = C.global_rows(shape[batch_dim])
+    if seq is not None:
+        shape[seq[0]] *= seq[1].model_size
+    u = C.local_rows(torch.rand(shape, device=x.device), batch_dim)
+    if seq is not None:
+        u = u.chunk(seq[1].model_size, seq[0])[seq[1].model_rank]
+    return torch.where(u >= p, x / (1.0 - p), 0.0).to(x.dtype)
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
@@ -55,6 +135,8 @@ class Dense(nn.Module):
     ``ops.quantize.int8_linear``: an f32 result, to which the bias is
     added in the compute dtype."""
 
+    tp_role: str | None = None  # "col" / "row": a Megatron product its parent runs
+
     def __init__(self, in_dim: int, out_dim: int, int8: bool = False):
         super().__init__()
         self.int8 = int8
@@ -66,6 +148,12 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        mesh = _tp(self, "weight")
+        if mesh is not None:
+            if self.int8:
+                raise ValueError("model.int8_compute serves on one device, not over a mesh")
+            return _col_parallel(x.to(dtype), lambda v: F.linear(v, self.weight.to(dtype)),
+                                 self.bias.to(dtype), -1, mesh.model_group)
         if self.int8:
             from uasr_torch.ops.quantize import int8_linear
 
@@ -127,6 +215,21 @@ class Conv1d(nn.Module):
         lo, hi = 0, 0
         if self.padding == "SAME":
             lo, hi = same_padding(x.shape[1], (self.kernel - 1) * self.dilation + 1, self.stride)
+        mesh = _tp(self, "weight")
+        if mesh is not None:
+            if self.int8:
+                raise ValueError("model.int8_compute serves on one device, not over a mesh")
+            g, x, bias = mesh.model_group, x.to(dtype), self.bias.to(dtype)
+
+            def conv(v, groups):
+                return F.conv1d(F.pad(v.transpose(1, 2), (lo, hi)), self.weight.to(dtype), None,
+                                stride=self.stride, dilation=self.dilation,
+                                groups=groups).transpose(1, 2)
+
+            if self.groups > 1:  # depthwise: this rank's channels in and out
+                return C.gather(conv(C.split(x, -1, g), self.groups // mesh.model_size), -1,
+                                g) + bias
+            return _col_parallel(x, lambda v: conv(v, 1), bias, -1, g)
         if self.int8:
             from uasr_torch.ops.quantize import int8_conv1d
 
@@ -163,7 +266,13 @@ class ConvBlock(nn.Module):
         t_lo, t_hi = same_padding(T, self.kernel, self.strides[0])
         f_lo, f_hi = same_padding(Fq, self.kernel, self.strides[1])
         xc = F.pad(xc, (f_lo, f_hi, t_lo, t_hi))
-        y = F.conv2d(xc, self.weight.to(dt), self.bias.to(dt), stride=self.strides)
+        mesh = _tp(self, "weight")
+        if mesh is not None:  # this rank's output channels, gathered
+            y = _col_parallel(xc, lambda v: F.conv2d(v, self.weight.to(dt), None,
+                                                     stride=self.strides),
+                              self.bias.to(dt)[:, None, None], 1, mesh.model_group)
+        else:
+            y = F.conv2d(xc, self.weight.to(dt), self.bias.to(dt), stride=self.strides)
         return F.relu(self.norm(y.permute(0, 2, 3, 1)))
 
 
@@ -209,12 +318,18 @@ class BiGRU(nn.Module):
         T, B, _ = x.shape
         dt = self.dtype
         x = x.to(dt)
-        wx, wh, bx, bh = (p.to(dt) for p in (self.wx, self.wh, self.bx, self.bh))
+        wx = self.wx.to(dt)
+        wh, bx, bh = (_whole(self, n).to(dt) for n in ("wh", "bx", "bh"))
         tpos = torch.arange(T, device=x.device)[:, None]
         tmask = torch.stack([tpos < lengths[None, :], tpos >= (T - lengths)[None, :]],
                             dim=1)  # [T, 2, B] in kernel time
-        p0 = x @ wx[0] + bx[0]
-        p1 = x @ wx[1] + bx[1]
+        mesh = _tp(self, "wx")
+        if mesh is not None:  # column-parallel input projections, gathered
+            p0, p1 = _col_parallel(x, lambda v: torch.stack([v @ wx[0], v @ wx[1]]),
+                                   bx[:, None, None, :], -1, mesh.model_group)
+        else:
+            p0 = x @ wx[0] + bx[0]
+            p1 = x @ wx[1] + bx[1]
         scan = bigru_scan if self.use_pallas else bigru_scan_reference
         out = scan(p0.contiguous(), p1.contiguous(), wh.contiguous(), bh.contiguous(), tmask)
         valid = (tpos < lengths[None, :])[..., None]
@@ -266,13 +381,19 @@ class GRULayer(nn.Module):
         B, T, D = x.shape
         H, dt = self.hidden, self.dtype
         x = x.to(dt)
-        wx, wh, bx, bh = (p.to(dt) for p in (self.wx, self.wh, self.bx, self.bh))
+        wx = self.wx.to(dt)
+        wh, bx, bh = (_whole(self, n).to(dt) for n in ("wh", "bx", "bh"))
         tpos = torch.arange(T, device=x.device)
         if self.reverse:
             # reverse within each utterance's valid length
             idx = torch.clamp(lengths[:, None] - 1 - tpos[None, :], 0, T - 1)
             x = x.gather(1, idx[..., None].expand(B, T, D))
-        xproj = (x.reshape(B * T, D) @ wx + bx).reshape(B, T, 3 * H).transpose(0, 1)
+        mesh = _tp(self, "wx")
+        if mesh is not None:  # column-parallel input projection, gathered
+            xw = _col_parallel(x.reshape(B * T, D), lambda v: v @ wx, bx, -1, mesh.model_group)
+        else:
+            xw = x.reshape(B * T, D) @ wx + bx
+        xproj = xw.reshape(B, T, 3 * H).transpose(0, 1)
         tmask = tpos[:, None] < lengths[None, :]  # [T, B]
         if h0 is not None and self.reverse:
             raise ValueError("GRULayer h0 carry is a forward-scan feature (streaming); "
@@ -314,7 +435,17 @@ class MultiHeadAttention(nn.Module):
     ``fused_dot_product_attention`` (K6 forward and K6-bwd backward for
     CUDA tensors, their plain versions for CPU tensors), else
     ``dot_product_attention`` (flax's).
-    ``dropout`` drops attention weights in ``train()`` mode."""
+    ``dropout`` drops attention weights in ``train()`` mode.
+
+    Over a model group (``parallel.shard_model``) each rank owns
+    ``num_heads / m`` heads: its rows of ``query``/``key``/``value`` and
+    columns of ``out``, so K6 / K6-bwd run on its own heads. The input
+    enters through ``reduce_bwd`` (or, sequence-sharded, ``gather_partial``
+    over time), ``out``'s partial sums leave through ``reduce_fwd`` (or
+    ``reduce_scatter`` over time) in f32, and the replicated biases are
+    split with the heads (q, k, v) or added after the sum (out; its
+    gradient summed over the group when the sum is scattered over time);
+    a ``bias`` [1, heads, T, T] must already hold this rank's heads."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  attn_pallas: bool = False, dropout: float = 0.0):
@@ -326,17 +457,32 @@ class MultiHeadAttention(nn.Module):
         # flax's DenseGeneral kernels [D, heads, dh] and [heads, dh, D],
         # flattened to Dense
         self.query, self.key, self.value, self.out = (Dense(dim, dim) for _ in range(4))
+        for p in (self.query, self.key, self.value):
+            p.tp_role = "col"
+        self.out.tp_role = "row"
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for p in (self.query, self.key, self.value, self.out):
             p.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
-                bias: torch.Tensor | None = None) -> torch.Tensor:
-        B, T, D = x.shape
-        dt, H = self.dtype, self.num_heads
-        q, k, v = (p(x, dt).view(B, T, H, D // H) for p in (self.query, self.key, self.value))
+                bias: torch.Tensor | None = None, seq: bool = False) -> torch.Tensor:
         attn = fused_dot_product_attention if self.attn_pallas else dot_product_attention
+        dt, H = self.dtype, self.num_heads
+        mesh = _tp(self.query, "weight")
+        if mesh is None:
+            B, T, D = x.shape
+            q, k, v = (p(x, dt).view(B, T, H, D // H) for p in (self.query, self.key, self.value))
+            o = attn(q, k, v, bias=bias, mask=mask, dropout_rate=self.dropout,
+                     deterministic=not self.training)
+            return self.out(o.reshape(B, T, D), dt)
+        g = mesh.model_group
+        x = _tp_in(x, seq, g)
+        B, T, D = x.shape
+        hl = H // mesh.model_size
+        q, k, v = (F.linear(x.to(dt), p.weight.to(dt), _heads_bias(p, g).to(dt))
+                   .view(B, T, hl, D // H) for p in (self.query, self.key, self.value))
         o = attn(q, k, v, bias=bias, mask=mask, dropout_rate=self.dropout,
                  deterministic=not self.training)
-        return self.out(o.reshape(B, T, D), dt)
+        y = F.linear(o.reshape(B, T, hl * (D // H)), self.out.weight.to(dt)).float()
+        return _row_out(y, self.out.bias, seq, g, dt)

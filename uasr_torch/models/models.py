@@ -23,9 +23,18 @@ All encoders take (features [B, T, D], lengths [B]) and return
 (logits [B, T', V], lengths [B]). ``model.dropout`` acts in ``train()``
 mode only (after each BiGRU; on the attention weights and after each
 transformer FFN); ``build_model`` returns the model in ``eval()`` mode and
-the trainer switches it. ``model.sequence_shard`` constrains a device
-mesh in the JAX package and does nothing without one, as here (one
-device).
+the trainer switches it.
+
+Over a mesh (``uasr_torch.parallel.shard_model``) the layers whose
+parameters are model-group shards run tensor-parallel (``layers``); the
+attention encoders split heads and FFN columns Megatron-style, one
+``reduce_fwd`` per sublayer after its row-parallel product. With
+``model.sequence_shard`` the residual stream between their sublayers
+holds ``T / m`` frames per model rank (time padded up to a multiple of
+``m`` with masked frames): an all-gather over time before each attention
+and FFN sublayer, a reduce-scatter after it; the conformer's conv module
+gathers the whole sequence, runs, and keeps the rank's frames. Without a
+mesh ``sequence_shard`` does nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,9 +48,11 @@ from torch import nn
 from uasr_torch import resolve_device
 from uasr_torch.config import ModelConfig
 from uasr_torch.models.layers import (
-    BiGRU, Conv1d, ConvBlock, Dense, GRULayer, LayerNorm, MultiHeadAttention, conv_out_length,
-    lecun_normal_, lecun_truncated_normal_, same_padding,
+    BiGRU, Conv1d, ConvBlock, Dense, GRULayer, LayerNorm, MultiHeadAttention, _col_parallel,
+    _row_out, _tp, _tp_in, conv_out_length, dropout, lecun_normal_, lecun_truncated_normal_,
+    same_padding,
 )
+from uasr_torch.parallel import collectives as C
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -85,8 +96,13 @@ class PatchFront(nn.Module):
         x = F.relu(self.norm0(self.embed(x, dt)))
         x = x * _length_mask(x, lengths)
         lo, hi = same_padding(x.shape[1], self.kernel, 1)
-        y = F.conv1d(F.pad(x.transpose(1, 2), (lo, hi)), self.context_weight.to(dt),
-                     self.context_bias.to(dt)).transpose(1, 2)
+        xc = F.pad(x.transpose(1, 2), (lo, hi))
+        mesh = _tp(self, "context_weight")
+        if mesh is not None:  # this rank's output channels, gathered
+            y = _col_parallel(xc, lambda v: F.conv1d(v, self.context_weight.to(dt)).transpose(1, 2),
+                              self.context_bias.to(dt), -1, mesh.model_group)
+        else:
+            y = F.conv1d(xc, self.context_weight.to(dt), self.context_bias.to(dt)).transpose(1, 2)
         x = x + F.relu(self.norm1(y))  # residual context block
         return x * _length_mask(x, lengths), lengths
 
@@ -161,8 +177,7 @@ class ConvBiGRUEncoder(nn.Module):
         x = x.transpose(0, 1)
         for i in range(cfg.num_gru_layers):
             x = getattr(self, f"bigru{i}")(x, lengths)
-            if cfg.dropout > 0:
-                x = F.dropout(x, cfg.dropout, self.training)
+            x = dropout(x, cfg.dropout, self.training, batch_dim=1)
         logits = self.logits(x, torch.float32)
         return logits.transpose(0, 1), lengths
 
@@ -447,8 +462,9 @@ class _AttentionBase(nn.Module):
         self.in_proj = Dense(_front_width(cfg, input_dim), cfg.hidden_size)
         self.logits = Dense(cfg.hidden_size, vocab_size)
 
-    def _dense(self, name: str, d_in: int, d_out: int) -> None:
+    def _dense(self, name: str, d_in: int, d_out: int, tp_role: str | None = None) -> None:
         self.add_module(name, Dense(d_in, d_out))
+        getattr(self, name).tp_role = tp_role
 
     def _norm(self, name: str) -> None:
         self.add_module(name, LayerNorm(self.cfg.hidden_size))
@@ -468,8 +484,75 @@ class _AttentionBase(nn.Module):
         return self.in_proj(x, _dtype(self.cfg)), lengths
 
     def _ffn(self, x, first: str, second: str, act):
+        """An FFN sublayer; over a model group ``first`` is column- and
+        ``second`` row-parallel (``x`` sequence-sharded with
+        ``sequence_shard``)."""
         dt = _dtype(self.cfg)
-        return getattr(self, second)(act(getattr(self, first)(x, dt)), dt)
+        f, s = getattr(self, first), getattr(self, second)
+        mesh = _tp(f, "weight")
+        if mesh is None:
+            return s(act(f(x, dt)), dt)
+        g, seq = mesh.model_group, self._seq_mesh() is not None
+        x = _tp_in(x, seq, g)
+        h = act(F.linear(x.to(dt), f.weight.to(dt), C.split(f.bias, 0, g).to(dt)))
+        return _row_out(F.linear(h, s.weight.to(dt)).float(), s.bias, seq, g, dt)
+
+    def _seq_mesh(self):
+        """The mesh the residual stream is sequence-sharded over, or None."""
+        mesh = getattr(self, "tp", None)
+        if self.cfg.sequence_shard and mesh is not None and mesh.model_size > 1:
+            return mesh
+        return None
+
+    def _ln(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """LayerNorm ``name`` on the residual stream; sequence-sharded, its
+        parameters meet only this rank's frames, so their gradients are
+        summed over the model group (``reduce_bwd``)."""
+        norm, mesh = getattr(self, name), self._seq_mesh()
+        if mesh is None:
+            return norm(x)
+        g = mesh.model_group
+        y = F.layer_norm(x.float(), (x.shape[-1],), C.reduce_bwd(norm.weight, g),
+                         C.reduce_bwd(norm.bias, g), norm.eps)
+        return y.to(x.dtype)
+
+    def _seq_split(self, x: torch.Tensor, lengths: torch.Tensor):
+        """(this rank's frames of ``x``, their length mask, the key mask
+        [B, T'] over the whole (padded) sequence). Without sequence
+        sharding the frames are all of them."""
+        mesh = self._seq_mesh()
+        if mesh is not None:
+            m = mesh.model_size
+            x = F.pad(x, (0, 0, 0, (-x.shape[1]) % m))
+        key_mask = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
+        if mesh is None:
+            return x, key_mask[..., None], key_mask
+        own = key_mask.chunk(mesh.model_size, 1)[mesh.model_rank]
+        return C.split(x, 1, mesh.model_group), own[..., None], key_mask
+
+    def _seq_join(self, x: torch.Tensor, T: int) -> torch.Tensor:
+        """The whole sequence of a residual stream ``_seq_split`` cut."""
+        mesh = self._seq_mesh()
+        return x if mesh is None else C.gather(x, 1, mesh.model_group)[:, :T]
+
+    def _dropout(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = self._seq_mesh()
+        return dropout(x, self.cfg.dropout, self.training,
+                       seq=None if mesh is None else (1, mesh))
+
+    def check_tensor_parallel(self, dims: dict, m: int) -> None:
+        """Over a model group the attention and FFN products split
+        Megatron-style: every one of them must be sharded (JAX's rule marks
+        them) and the heads must divide the group."""
+        if self.cfg.num_heads % m:
+            raise ValueError(f"model.num_heads {self.cfg.num_heads} does not split over "
+                             f"parallel.model_parallel={m}")
+        for name, mod in self.named_modules():
+            if getattr(mod, "tp_role", None) and f"{name}.weight" not in dims:
+                raise ValueError(
+                    f"{name} is too narrow to split over parallel.model_parallel={m} (JAX's "
+                    "rule leaves it replicated); the attention encoders split every attention "
+                    "and FFN product")
 
 
 class TransformerEncoder(_AttentionBase):
@@ -486,8 +569,8 @@ class TransformerEncoder(_AttentionBase):
             self._norm(f"ln_a{i}")
             self._mha(f"mha{i}")
             self._norm(f"ln_f{i}")
-            self._dense(f"ffn_in{i}", H, ffn)
-            self._dense(f"ffn_out{i}", ffn, H)
+            self._dense(f"ffn_in{i}", H, ffn, "col")
+            self._dense(f"ffn_out{i}", ffn, H, "row")
         self._norm("ln_out")
 
     def forward(self, feats: torch.Tensor, lengths: torch.Tensor):
@@ -497,18 +580,18 @@ class TransformerEncoder(_AttentionBase):
         T2 = x.shape[1]
         x = x + _sinusoidal_positions(T2, cfg.hidden_size, x.device).to(dt)
         x = x * _length_mask(x, lengths)
-        key_mask = torch.arange(T2, device=x.device)[None, :] < lengths[:, None]
+        x, own_mask, key_mask = self._seq_split(x, lengths)
         attn_mask = key_mask[:, None, None, :]  # [B, 1, 1(q), T(k)]
+        seq = self._seq_mesh() is not None
         for i in range(cfg.transformer_layers):
-            x = x + getattr(self, f"mha{i}")(getattr(self, f"ln_a{i}")(x), attn_mask)
-            h = self._ffn(getattr(self, f"ln_f{i}")(x), f"ffn_in{i}", f"ffn_out{i}",
+            x = x + getattr(self, f"mha{i}")(self._ln(f"ln_a{i}", x), attn_mask, seq=seq)
+            h = self._ffn(self._ln(f"ln_f{i}", x), f"ffn_in{i}", f"ffn_out{i}",
                           lambda y: F.gelu(y, approximate="tanh"))
-            if cfg.dropout > 0:
-                h = F.dropout(h, cfg.dropout, self.training)
+            h = self._dropout(h)
             # bias/LN terms make padding rows nonzero; the key mask guards
             # keys, this keeps the padding region of the output clean
-            x = (x + h) * _length_mask(x, lengths)
-        x = self.ln_out(x)
+            x = (x + h) * own_mask
+        x = self._seq_join(self._ln("ln_out", x), T2)
         logits = self.logits(x, torch.float32)
         return logits * _length_mask(logits, lengths), lengths
 
@@ -554,8 +637,8 @@ class ConformerEncoder(_AttentionBase):
         R = cfg.conformer_rel_clip
         for i in range(cfg.transformer_layers):
             self._norm(f"ln_f1_{i}")
-            self._dense(f"ffn1_in{i}", H, ffn)
-            self._dense(f"ffn1_out{i}", ffn, H)
+            self._dense(f"ffn1_in{i}", H, ffn, "col")
+            self._dense(f"ffn1_out{i}", ffn, H, "row")
             self.register_parameter(f"rel_bias{i}",
                                     nn.Parameter(torch.zeros(cfg.num_heads, 2 * R + 1)))
             self._norm(f"ln_a{i}")
@@ -564,8 +647,8 @@ class ConformerEncoder(_AttentionBase):
             self.add_module(f"cfm_conv{i}", ConformerConvModule(H, cfg.conformer_kernel,
                                                                 _dtype(cfg)))
             self._norm(f"ln_f2_{i}")
-            self._dense(f"ffn2_in{i}", H, ffn)
-            self._dense(f"ffn2_out{i}", ffn, H)
+            self._dense(f"ffn2_in{i}", H, ffn, "col")
+            self._dense(f"ffn2_out{i}", ffn, H, "row")
             self._norm(f"ln_post{i}")
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -579,22 +662,34 @@ class ConformerEncoder(_AttentionBase):
         x, lengths = self._embed(feats, lengths)
         T = x.shape[1]
         x = x * _length_mask(x, lengths)
-        ar = torch.arange(T, device=x.device)
-        key_mask = ar[None, :] < lengths[:, None]
+        x, own_mask, key_mask = self._seq_split(x, lengths)
         attn_mask = key_mask[:, None, None, :]  # [B, 1, 1(q), T(k)]
+        ar = torch.arange(key_mask.shape[1], device=x.device)
         R = cfg.conformer_rel_clip
         rel_idx = torch.clamp(ar[None, :] - ar[:, None], -R, R) + R  # [T, T] in [0, 2R]
+        mesh, seq = _tp(self.mha0.query, "weight"), self._seq_mesh()
         for i in range(cfg.transformer_layers):
-            h = self._ffn(getattr(self, f"ln_f1_{i}")(x), f"ffn1_in{i}", f"ffn1_out{i}", F.silu)
+            h = self._ffn(self._ln(f"ln_f1_{i}", x), f"ffn1_in{i}", f"ffn1_out{i}", F.silu)
             x = x + 0.5 * h  # macaron half-FFN
-            bias = getattr(self, f"rel_bias{i}")[:, rel_idx][None]  # [1, H, T, T]
-            h = getattr(self, f"mha{i}")(getattr(self, f"ln_a{i}")(x), attn_mask, bias.to(dt))
-            x = (x + h) * _length_mask(x, lengths)
-            x = x + getattr(self, f"cfm_conv{i}")(getattr(self, f"ln_c{i}")(x), lengths)
-            h = self._ffn(getattr(self, f"ln_f2_{i}")(x), f"ffn2_in{i}", f"ffn2_out{i}", F.silu)
+            table = getattr(self, f"rel_bias{i}")
+            if mesh is not None:  # the bias of this rank's heads
+                table = C.split(table, 0, mesh.model_group)
+            bias = table[:, rel_idx][None]  # [1, H, T, T]
+            h = getattr(self, f"mha{i}")(self._ln(f"ln_a{i}", x), attn_mask, bias.to(dt),
+                                         seq=seq is not None)
+            x = (x + h) * own_mask
+            h = self._ln(f"ln_c{i}", x)
+            if seq is not None:  # the conv module sees the whole sequence
+                full = C.gather(h, 1, seq.model_group)
+                h = C.split(getattr(self, f"cfm_conv{i}")(full, lengths), 1, seq.model_group)
+            else:
+                h = getattr(self, f"cfm_conv{i}")(h, lengths)
+            x = x + h
+            h = self._ffn(self._ln(f"ln_f2_{i}", x), f"ffn2_in{i}", f"ffn2_out{i}", F.silu)
             x = x + 0.5 * h
-            x = getattr(self, f"ln_post{i}")(x)
-            x = x * _length_mask(x, lengths)
+            x = self._ln(f"ln_post{i}", x)
+            x = x * own_mask
+        x = self._seq_join(x, T)
         logits = self.logits(x, torch.float32)
         return logits * _length_mask(logits, lengths), lengths
 

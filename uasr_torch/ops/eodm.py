@@ -25,6 +25,8 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from uasr_torch.parallel.collectives import batch_sum
+
 
 class NgramTable(NamedTuple):
     """Top-K n-grams of one order: ids [K, n] int32, probs [K] float32."""
@@ -99,7 +101,8 @@ def expected_ngram_logprobs(probs: torch.Tensor, lengths: torch.Tensor,
     # positions with a full n-gram inside the valid region
     pos_valid = (torch.arange(Tp, device=probs.device)[None, :]
                  < torch.clamp(lengths - n + 1, min=0)[:, None]).to(probs.dtype)  # [B, Tp]
-    denom = torch.clamp(pos_valid.sum(), min=1)
+    # over a mesh both sums are the global batch's
+    denom = torch.clamp(batch_sum(pos_valid.sum()), min=1)
 
     def chunk_totals(ids: torch.Tensor) -> torch.Tensor:
         # ids [C, n] -> [C] batch totals of the n-gram product
@@ -115,6 +118,7 @@ def expected_ngram_logprobs(probs: torch.Tensor, lengths: torch.Tensor,
     else:
         total = torch.cat([chunk_totals(ngram_ids[s : s + k_chunk])
                            for s in range(0, K, k_chunk)])
+    total = batch_sum(total)
     return torch.log(torch.clamp(total / denom, min=log_floor))
 
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from uasr_torch.parallel.collectives import batch_sum
+
 
 def _valid(logits: torch.Tensor, logit_lengths: torch.Tensor, frame_labels: torch.Tensor,
            label_pad: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -29,12 +31,12 @@ def frame_ce_loss(logits: torch.Tensor, logit_lengths: torch.Tensor, frame_label
                   label_pad: int = -1) -> torch.Tensor:
     """Masked mean CE. logits [B, T, V]; frame_labels [B, >= T] with
     ``label_pad`` marking frames without a label (padding or a downsample
-    mismatch)."""
+    mismatch). Over a mesh both sums are the global batch's."""
     labels, valid = _valid(logits, logit_lengths, frame_labels, label_pad)
     B, T, V = logits.shape
     ce = F.cross_entropy(logits.float().reshape(B * T, V), labels.clamp_min(0).reshape(-1),
                          reduction="none").reshape(B, T)
-    return torch.where(valid, ce, 0.0).sum() / valid.sum().clamp_min(1)
+    return batch_sum(torch.where(valid, ce, 0.0).sum()) / batch_sum(valid.sum()).clamp_min(1)
 
 
 def frame_accuracy(logits: torch.Tensor, logit_lengths: torch.Tensor, frame_labels: torch.Tensor,
@@ -42,4 +44,4 @@ def frame_accuracy(logits: torch.Tensor, logit_lengths: torch.Tensor, frame_labe
     """Share of the labelled frames whose argmax is the label."""
     labels, valid = _valid(logits, logit_lengths, frame_labels, label_pad)
     hit = valid & (torch.argmax(logits, dim=-1) == labels)
-    return hit.sum().float() / valid.sum().clamp_min(1)
+    return batch_sum(hit.sum().float()) / batch_sum(valid.sum()).clamp_min(1)

@@ -9,7 +9,9 @@ copy of the predictions), negatives are every valid in-utterance
 position (exact softmax) or N sampled positions, and a sampled negative
 that is the target itself is masked out. Products of the compute dtype
 accumulate in f32 (``preferred_element_type``): operands are cast to f32
-first, whose products of bf16 values are exact.
+first, whose products of bf16 values are exact. Under a mesh the loss and
+the accuracy are the global batch's (``batch_sum`` of their sums and
+counts) and the negatives are drawn for the global batch.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from uasr_torch.parallel.collectives import batch_sum, global_rows, local_rows
 
 _NEG_INF = -1e30
 
@@ -79,9 +83,9 @@ def info_nce_loss(preds: torch.Tensor, z: torch.Tensor, lengths: torch.Tensor,
     else:
         nll, win = _sampled_terms(preds, pos, inv_pn, _gather_rows(zn, neg_indices),
                                   neg_indices, targets, temperature)
-    denom = torch.clamp(pair_valid.sum(), min=1)
-    loss = torch.sum(torch.where(pair_valid, nll, 0.0)) / denom
-    acc = (pair_valid & win).sum() / denom
+    denom = torch.clamp(batch_sum(pair_valid.sum()), min=1)
+    loss = batch_sum(torch.sum(torch.where(pair_valid, nll, 0.0))) / denom
+    acc = batch_sum((pair_valid & win).sum()) / denom
     return loss, acc
 
 
@@ -131,8 +135,8 @@ def info_nce_loss_fused(c: torch.Tensor, weight: torch.Tensor, bias: torch.Tenso
         else:
             terms = body(c_chunk, i * chunk)
         nll_sum, win_sum, cnt = nll_sum + terms[0], win_sum + terms[1], cnt + terms[2]
-    denom = torch.clamp(cnt, min=1)
-    return nll_sum / denom, win_sum / denom
+    denom = torch.clamp(batch_sum(cnt), min=1)
+    return batch_sum(nll_sum) / denom, batch_sum(win_sum) / denom
 
 
 def sample_negatives(generator: torch.Generator, lengths: torch.Tensor,
@@ -140,6 +144,7 @@ def sample_negatives(generator: torch.Generator, lengths: torch.Tensor,
     """[B, N] uniform positions in [0, length_b) per utterance, drawn on the
     CPU from ``generator`` and placed on ``lengths``' device; an empty
     utterance gives position 0."""
-    u = torch.rand((lengths.shape[0], num), generator=generator).to(lengths.device)
+    u = local_rows(torch.rand((global_rows(lengths.shape[0]), num),
+                              generator=generator)).to(lengths.device)
     return torch.minimum((u * torch.clamp(lengths, min=1)[:, None]).long(),
                          torch.clamp(lengths[:, None] - 1, min=0))

@@ -12,7 +12,12 @@ second backward through it.
 (a ``PhoneDiscriminator`` or ``functional_call`` over one). The
 interpolation weights ε [B, 1, 1] are drawn from ``generator`` (a
 ``torch.Generator``; the draw is made on the CPU and moved, so a seed
-gives the same ε on every device), or passed in as ``eps``.
+gives the same ε on every device), or passed in as ``eps`` (for the
+global batch).
+
+Under a mesh (``parallel.collectives.active``) every mean over the batch
+is the global batch's (``batch_mean``), and ε is drawn for the global
+batch and cut to the rank's rows.
 """
 
 from __future__ import annotations
@@ -22,10 +27,13 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from uasr_torch.parallel.collectives import batch_mean, global_rows, local_rows
+
 
 def draw_eps(batch: int, generator: torch.Generator | None, device) -> torch.Tensor:
-    """ε ~ U[0, 1) of shape [batch, 1, 1] on ``device``."""
-    return torch.rand((batch, 1, 1), generator=generator).to(device)
+    """ε ~ U[0, 1) of shape [batch, 1, 1] on ``device`` (this rank's rows
+    of a draw for the global batch)."""
+    return local_rows(torch.rand((global_rows(batch), 1, 1), generator=generator)).to(device)
 
 
 def gradient_penalty(disc: Callable, real: torch.Tensor, fake: torch.Tensor,
@@ -37,13 +45,15 @@ def gradient_penalty(disc: Callable, real: torch.Tensor, fake: torch.Tensor,
     them)."""
     if eps is None:
         eps = draw_eps(real.shape[0], generator, real.device)
+    else:  # given for the global batch
+        eps = local_rows(eps)
     eps = eps.to(device=real.device, dtype=real.dtype)
     interp = eps * real + (1.0 - eps) * fake
     if not interp.requires_grad:
         interp = interp.detach().requires_grad_()
     (grads,) = torch.autograd.grad(disc(interp, lengths).sum(), interp, create_graph=True)
     norms = torch.sqrt(torch.sum(torch.square(grads), dim=(1, 2)) + 1e-12)
-    return torch.mean(torch.square(norms - 1.0))
+    return batch_mean(torch.square(norms - 1.0))
 
 
 def _scores_and_gp(disc, real, real_lengths, fake, fake_lengths, generator, eps):
@@ -66,14 +76,14 @@ def d_loss_fn(disc: Callable, real: torch.Tensor, real_lengths: torch.Tensor,
     differ in T. Returns (loss, {"d_loss", "wasserstein", "gp"})."""
     score_real, score_fake, gp = _scores_and_gp(disc, real, real_lengths, fake, fake_lengths,
                                                 generator, eps)
-    wdist = torch.mean(score_real) - torch.mean(score_fake)
+    wdist = batch_mean(score_real) - batch_mean(score_fake)
     loss = -wdist + lambda_gp * gp
     return loss, {"d_loss": loss, "wasserstein": wdist, "gp": gp}
 
 
 def g_loss_fn(score_fake: torch.Tensor) -> torch.Tensor:
     """Generator loss -E[D(G(x))]."""
-    return -torch.mean(score_fake)
+    return -batch_mean(score_fake)
 
 
 def bce_d_loss_fn(disc: Callable, real: torch.Tensor, real_lengths: torch.Tensor,
@@ -84,12 +94,12 @@ def bce_d_loss_fn(disc: Callable, real: torch.Tensor, real_lengths: torch.Tensor
     Wasserstein diagnostic as ``d_loss_fn``."""
     score_real, score_fake, gp = _scores_and_gp(disc, real, real_lengths, fake, fake_lengths,
                                                 generator, eps)
-    loss = (torch.mean(F.softplus(-score_real)) + torch.mean(F.softplus(score_fake))
+    loss = (batch_mean(F.softplus(-score_real)) + batch_mean(F.softplus(score_fake))
             + lambda_gp * gp)
-    wdist = torch.mean(score_real) - torch.mean(score_fake)
+    wdist = batch_mean(score_real) - batch_mean(score_fake)
     return loss, {"d_loss": loss, "wasserstein": wdist, "gp": gp}
 
 
 def bce_g_loss_fn(score_fake: torch.Tensor) -> torch.Tensor:
     """Non-saturating generator loss softplus(-D(G(x)))."""
-    return torch.mean(F.softplus(-score_fake))
+    return batch_mean(F.softplus(-score_fake))

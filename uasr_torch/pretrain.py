@@ -9,7 +9,9 @@ One step: (with ``ssl.input_type: fbank`` the log-mel frontend, K1 on the
 card) -> the conv encoder -> the causal GRU context (K5 forward and K5-bwd
 backward on the card with ``ssl.context_pallas``) -> the K prediction
 heads -> InfoNCE over sampled in-utterance negatives (or the fused chunked
-loss) -> global-norm clip -> Adam, on one device.
+loss) -> global-norm clip -> Adam, on one device or over a mesh (each
+rank on its rows of the global batch, the loss and the negatives the
+global batch's, as ``uasr_torch.train`` describes).
 
 The negatives come from a ``torch.Generator`` seeded by (train.seed,
 step), so a resumed run draws what an unbroken one would; dev evaluation
@@ -26,34 +28,33 @@ from typing import Iterator
 import torch
 
 from uasr_torch import resolve_device
-from uasr_torch.checkpoint import CheckpointManager
 from uasr_torch.config import Config
 from uasr_torch.frontend.features import compute_features, frontend_state_from_config
-from uasr_torch.metrics import MetricWriter, log_stdout
 from uasr_torch.models.ssl import build_cpc_model
 from uasr_torch.ops.infonce import info_nce_loss, info_nce_loss_fused, sample_negatives
+from uasr_torch.parallel import collectives as C
+from uasr_torch.parallel.mesh import Mesh, shard_batch
 from uasr_torch.train import (
-    PreemptionGuard, TrainState, _apply, _apply_updates, _audio_seconds, _leaves, _to_device,
-    make_optimizer,
+    PreemptionGuard, RunIO, TrainState, _apply, _apply_updates, _audio_seconds, _check_mesh,
+    _leaves, _OnMesh, _shard, _sum_grads, _to_device, make_optimizer,
 )
 
 
-class SSLTrainer:
-    """Contrastive pretraining on one device, with the ``TrainState`` and
-    checkpoint contract of the CTC trainer."""
+class SSLTrainer(_OnMesh):
+    """Contrastive pretraining on one device or a mesh, with the
+    ``TrainState`` and checkpoint contract of the CTC trainer."""
 
-    def __init__(self, cfg: Config, device="cuda"):
-        if cfg.parallel.model_parallel > 1:
-            raise NotImplementedError(
-                "parallel.model_parallel > 1 (a device mesh) is not ported yet (ROADMAP.md "
-                "Queue 1, item 14: distribution)")
-        self.cfg = cfg
+    def __init__(self, cfg: Config, device="cuda", mesh: Mesh | None = None):
+        _check_mesh(cfg, mesh)
+        self.cfg, self.mesh = cfg, mesh
         self.device = resolve_device(device)
         dt = torch.bfloat16 if cfg.model.dtype == "bfloat16" else torch.float32
         self.model = build_cpc_model(cfg.ssl, dt, cfg.frontend.dim_input,
                                      generator=torch.Generator().manual_seed(cfg.train.seed),
                                      device=self.device)
+        self.plans = (_shard(self.model, mesh), None)
         self.optimizer = make_optimizer(cfg)
+        self.optimizer.plan = self.plans[0]
         self._frontend_state = None
 
     @property
@@ -96,7 +97,10 @@ class SSLTrainer:
         neg = (sample_negatives(generator, flen, ssl.num_negatives)
                if ssl.num_negatives > 0 else None)
         if ssl.fused_loss:
-            loss, acc = info_nce_loss_fused(c, params["heads.weight"], params["heads.bias"], z,
+            heads = params["heads.weight"]
+            if self.plans[0] is not None and "heads.weight" in self.plans[0].dims:
+                heads = C.gather(heads, 0, self.mesh.model_group)  # the loss reads it whole
+            loss, acc = info_nce_loss_fused(c, heads, params["heads.bias"], z,
                                             flen, num_steps=ssl.predict_steps,
                                             temperature=ssl.temperature, neg_indices=neg,
                                             chunk=ssl.loss_chunk)
@@ -111,9 +115,10 @@ class SSLTrainer:
         self.model.train()
         params = _leaves(params)
         db = batch if isinstance(batch, list) else self.to_device(batch)
-        loss, aux = self._loss(params, db, generator)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return aux, dict(zip(params, grads))
+        with C.active(self.mesh):
+            loss, aux = self._loss(params, db, generator)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        return aux, _sum_grads(self.mesh, dict(zip(params, grads)))
 
     def train_step(self, state: TrainState, batch, generator: torch.Generator | None = None):
         """One update. Returns (new state, aux: ``nce_loss``, ``nce_acc`` and
@@ -127,16 +132,22 @@ class SSLTrainer:
 
     @torch.no_grad()
     def eval_step(self, params: dict, batch, generator: torch.Generator):
+        """(nce_loss, nce_acc) of one batch (on a mesh, this rank's rows of
+        it; the values are the batch's)."""
         self.model.eval()
-        loss, aux = self._loss(params, self.to_device(batch), generator)
+        with C.active(self.mesh):
+            loss, aux = self._loss(params, self.to_device(batch), generator)
         return loss, aux["nce_acc"]
 
     def evaluate(self, params: dict, batches) -> tuple[float, float]:
         """Mean (nce_loss, nce_acc) over dev batches, each batch's negatives
-        drawn from seed 0, so evals are comparable across steps."""
+        drawn from seed 0, so evals are comparable across steps. On a mesh
+        a ragged batch is zero-padded to split evenly (empty rows add
+        nothing to InfoNCE's global sums)."""
         tot_l = tot_a = n = 0.0
         for b in batches:
-            loss, acc = self.eval_step(params, b, torch.Generator().manual_seed(0))
+            loss, acc = self.eval_step(params, self.eval_rows(b),
+                                       torch.Generator().manual_seed(0))
             tot_l += float(loss)
             tot_a += float(acc)
             n += 1
@@ -144,19 +155,18 @@ class SSLTrainer:
 
 
 def run_ssl_pretraining(cfg: Config, train_batches: Iterator, dev_batches_fn=None,
-                        device="cuda") -> tuple[SSLTrainer, TrainState]:
+                        device="cuda", mesh: Mesh | None = None) -> tuple[SSLTrainer, TrainState]:
     """Pretrain with the framework's contract: logging every
     ``train.log_every``, dev eval, keep-N checkpoints, restore-latest
     resume and a preemption-safe save. Runs on ``device`` (default CUDA;
-    raises when no card is present)."""
-    trainer = SSLTrainer(cfg, device=device)
-    writer = MetricWriter(cfg.model_dir, also_tensorboard=cfg.train.tensorboard)
-    ckpt = CheckpointManager(f"{cfg.model_dir}/ckpt", max_to_keep=cfg.train.keep_checkpoints)
+    raises when no card is present), over ``mesh`` when given."""
+    trainer = SSLTrainer(cfg, device=device, mesh=mesh)
+    io = RunIO(cfg, trainer)
     state = trainer.init_state()
-    restored = ckpt.restore_latest(state)
+    restored = io.restore_latest(state)
     if restored is not None:
         state, start = restored
-        log_stdout(start, "resume", restored_step=start)
+        io.log(start, "resume", restored_step=start)
     sync = torch.cuda.synchronize if trainer.device.type == "cuda" else (lambda *_: None)
     guard = PreemptionGuard()
     t0 = time.time()
@@ -165,29 +175,28 @@ def run_ssl_pretraining(cfg: Config, train_batches: Iterator, dev_batches_fn=Non
         step = state.step
         if step >= cfg.train.total_steps or guard.triggered:
             if guard.triggered:
-                log_stdout(step, "preempt", saving=1)
+                io.log(step, "preempt", saving=1)
             break
-        state, aux = trainer.train_step(state, batch)
+        state, aux = trainer.train_step(state, shard_batch(batch, mesh))
         audio_sec_acc += _audio_seconds(cfg, batch)
         step = state.step
         if step % cfg.train.log_every == 0:
             sync(trainer.device)
             rate = audio_sec_acc / max(time.time() - t0, 1e-9)
             scalars = {k: float(aux[k]) for k in ("nce_loss", "nce_acc")}
-            writer.write(step, "train", **scalars, grad_norm=float(aux["grad_norm"]),
-                         audio_sec_per_sec=rate)
-            log_stdout(step, "train", **scalars, audio_sec_per_sec=rate)
+            io.write(step, "train", **scalars, grad_norm=float(aux["grad_norm"]),
+                     audio_sec_per_sec=rate)
+            io.log(step, "train", **scalars, audio_sec_per_sec=rate)
             t0, audio_sec_acc = time.time(), 0.0
         if dev_batches_fn and step % cfg.train.eval_every == 0:
             dl, da = trainer.evaluate(state.params, dev_batches_fn())
-            writer.write(step, "dev", nce_loss=dl, nce_acc=da)
-            log_stdout(step, "dev", nce_loss=dl, nce_acc=da)
+            io.write(step, "dev", nce_loss=dl, nce_acc=da)
+            io.log(step, "dev", nce_loss=dl, nce_acc=da)
             t0, audio_sec_acc = time.time(), 0.0
         if step % cfg.train.save_every == 0:
-            ckpt.save(step, state)
-    ckpt.save(state.step, state)
+            io.save(step, state)
+    io.save(state.step, state)
     guard.close()
-    ckpt.close()
-    writer.close()
+    io.close()
     return trainer, state
 

@@ -15,8 +15,10 @@ Over a precomputed-feature corpus (an SSL feature cache: [T, D]
 examples) the frontend is bypassed, and with ``data.device_cache`` on one
 CUDA device the student corpus is uploaded to the card once and each step
 gathers its rows there (``data.cache.device_feature_batches``), as in the
-JAX package. Not ported: JAX's mesh replication of the teacher's weights
-(ROADMAP.md Queue 1, item 14).
+JAX package. Over a mesh (``mesh``) every rank labels every batch (the
+labels are the same everywhere), the teacher's weights that seed round 0
+are broadcast from rank 0 (JAX replicates them over its mesh), and the
+students train over the mesh.
 """
 
 from __future__ import annotations
@@ -172,6 +174,20 @@ def pseudo_label(
     return out, stats
 
 
+@torch.no_grad()
+def broadcast_params(params: dict, mesh, device) -> dict:
+    """Rank 0's whole tensors of ``params`` on every rank of ``mesh`` (the
+    same dict without one), on ``device``."""
+    if mesh is None:
+        return params
+    out = {}
+    for k in sorted(params):
+        t = params[k].detach().to(device=device, dtype=torch.float32).contiguous()
+        torch.distributed.broadcast(t, src=0)
+        out[k] = t
+    return out
+
+
 def self_train(
     cfg: Config,
     label_fn: Callable,
@@ -184,6 +200,7 @@ def self_train(
     init_params: dict | None = None,
     log: Callable = print,
     device="cuda",
+    mesh=None,
 ) -> tuple[CTCTrainer, TrainState, list[dict]]:
     """Iterate: pseudo-label -> student -> the student labels the next
     round. Round r trains into ``<model_dir>/selftrain_r{r}`` with seed
@@ -243,8 +260,10 @@ def self_train(
                                               cfg.data.max_label_len, seed=cfg.train.seed + r))
         if r == 0 and init_params is not None and \
                 _existing_ckpt_step(f"{round_cfg.model_dir}/ckpt") is None:
-            trainer = CTCTrainer(round_cfg, device=device)
-            trainer.model.load_state_dict(init_params)
+            trainer = CTCTrainer(round_cfg, device=device, mesh=mesh)
+            init = broadcast_params(init_params, mesh, trainer.device)
+            plan = trainer.plans[0]
+            trainer.model.load_state_dict(plan.shard(init) if plan is not None else init)
             trainer, state = run_ctc_training(round_cfg, batches, dev_batches_fn=dev_batches_fn,
                                               trainer=trainer, state=trainer.init_state())
         else:
@@ -254,7 +273,7 @@ def self_train(
                 log("[selftrain] round 0: existing student checkpoint found — resuming it "
                     "(teacher init only seeds a fresh directory)")
             trainer, state = run_ctc_training(round_cfg, batches, dev_batches_fn=dev_batches_fn,
-                                              device=device)
+                                              device=device, mesh=mesh)
         stats["round"] = r
         history.append(stats)
         label_fn = make_ctc_label_fn(trainer, state.params, align_frames=aligned)

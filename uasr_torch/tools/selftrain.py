@@ -17,7 +17,9 @@ frame-CE student), trains a student per round under
 ``<model_dir>/selftrain_r<r>`` (each student labels the next round), then
 reports teacher and student PER on the dev split. ``--device`` defaults
 to ``cuda`` (the kernels; raises without a card); ``cpu`` runs the plain
-versions.
+versions. Under torchrun the students train over the mesh: every rank
+holds the whole teacher and labels every batch (the labels are the same
+everywhere), round 0's teacher weights are rank 0's, and rank 0 writes.
 """
 
 from __future__ import annotations
@@ -127,7 +129,7 @@ def run_selftrain(cfg, teacher_dir: str, teacher_mode: str = "gan", rounds: int 
                   conf_threshold: float = 0.0, student_steps: int | None = None,
                   gold_list: str | None = None, restore_best: bool = False,
                   init_from_teacher: bool = False, full_length: bool = True,
-                  align_pseudo_labels: bool = False, device="cuda") -> dict:
+                  align_pseudo_labels: bool = False, device="cuda", mesh=None) -> dict:
     """Pseudo-label cfg's train split with the teacher under
     ``teacher_dir`` and train the students. Returns ``{"teacher_per",
     "student_per", "history", "student_dir"}``.
@@ -193,8 +195,11 @@ def run_selftrain(cfg, teacher_dir: str, teacher_mode: str = "gan", rounds: int 
     hmm = _build_hmm(cfg, probe_logits, probe, device) if cfg.ctc.use_viterbi else None
     label_fn = label_maker(hmm)
 
-    _invalidate_stale_students(cfg, ckpt_dir, int(step), teacher_mode, conf_threshold,
-                               init_from_teacher, gold_list, align_pseudo_labels)
+    if mesh is None or mesh.is_writer:
+        _invalidate_stale_students(cfg, ckpt_dir, int(step), teacher_mode, conf_threshold,
+                                   init_from_teacher, gold_list, align_pseudo_labels)
+    if mesh is not None:
+        mesh.barrier()
 
     def dev_batches_fn():
         dev_source, _ = _load_source(cfg, "dev")
@@ -223,7 +228,8 @@ def run_selftrain(cfg, teacher_dir: str, teacher_mode: str = "gan", rounds: int 
 
     trainer, st_state, history = self_train(
         cfg, label_fn, examples, rounds=rounds, conf_threshold=conf_threshold,
-        steps_per_round=student_steps, gold=gold, init_params=init_params, device=device)
+        steps_per_round=student_steps, gold=gold, init_params=init_params, device=device,
+        mesh=mesh, log=print if mesh is None or mesh.is_writer else (lambda *_: None))
     student_per = (trainer.evaluate(st_state.params, dev_batches_fn()) if has_dev
                    else float("nan"))
     return {
@@ -265,15 +271,22 @@ def main(argv=None):
 
     from uasr_torch.cli import apply_overrides
     from uasr_torch.config import load_config
+    from uasr_torch.parallel import init_distributed, local_device, make_mesh
 
     cfg = load_config(args.config)
     apply_overrides(cfg, args.set)
+    device, mesh = args.device, None
+    if init_distributed(args.device):
+        device = local_device(args.device)
+        mesh = make_mesh(cfg.parallel.model_parallel, device.type)
     res = run_selftrain(
         cfg, args.teacher_dir, teacher_mode=args.teacher_mode, rounds=args.rounds,
         conf_threshold=args.conf_threshold, student_steps=args.student_steps,
         gold_list=args.gold_list, restore_best=args.restore_best,
         init_from_teacher=args.init_from_teacher, full_length=not args.no_full_length,
-        align_pseudo_labels=args.align_pseudo_labels, device=args.device)
+        align_pseudo_labels=args.align_pseudo_labels, device=device, mesh=mesh)
+    if mesh is not None and not mesh.is_writer:
+        return 0
     print(f"teacher PER={res['teacher_per']:.4f} student PER={res['student_per']:.4f} "
           f"({args.rounds} rounds)")
     return 0

@@ -58,9 +58,28 @@ feature_cache``) bypass the frontend, their lengths counted in frames;
 the model's input width is then the cache's D (``model_input_dim``).
 ``train.mode: ssl`` trains through ``uasr_torch.pretrain.SSLTrainer``.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP.md Queue 1 item: ``grad_accum > 1``, meshes and several devices
-(item 14).
+``train.grad_accum: k`` accumulates k calls' gradients in ``ClipAdam``'s
+state (optax's ``MultiSteps``): every call adds its micro-batch gradient
+to the running mean, the k-th runs clip and Adam on that mean and
+advances the count that drives the schedule, the others leave the
+parameters as they are. ``TrainState.step`` counts calls, as JAX's does.
+
+Over a mesh (``mesh``, a ``uasr_torch.parallel.Mesh``; one process per
+device, launched by torchrun) each rank takes its data-group rows of
+every global batch (``shard_batch``, done by the ``run_*`` loops). Every
+loss is the global-batch loss: each sum over the batch goes through
+``collectives.batch_sum`` (all-reduce forward, identity backward), so a
+rank's backward gives its own rows' share of the gradient, and the
+gradient all-reduce over the data group sums the shares. Random draws
+(SpecAugment's bands, dropout, the gradient penalty's ε, the SSL
+negatives) are made for the global batch and cut to the rank's rows, so a
+rank's step is the one-process step on the global batch, and the aux
+values are the global ones, the same on every rank. With
+``parallel.model_parallel > 1`` the model's marked leaves are stored as
+model-group shards (``shard_model``), as are their Adam moments; the
+global-norm clip counts a sharded leaf's shards once. Rank 0 alone writes
+metrics, hypotheses and checkpoints, which hold whole tensors, so they
+restore on any mesh; the other ranks meet it at a barrier.
 """
 
 from __future__ import annotations
@@ -94,12 +113,16 @@ from uasr_torch.ops.edit_distance import batch_edit_distance
 from uasr_torch.ops.eodm import device_ngram_tables, eodm_loss
 from uasr_torch.ops.frame_ce import frame_accuracy, frame_ce_loss
 from uasr_torch.ops.wgan import bce_d_loss_fn, bce_g_loss_fn, d_loss_fn, g_loss_fn
+from uasr_torch.parallel import collectives as C
+from uasr_torch.parallel.mesh import Mesh, ShardPlan, shard_batch, shard_model
 
 
 class TrainState(NamedTuple):
     step: int
     params: dict  # name -> f32 tensor (leaf, requires grad)
-    opt_state: dict  # {"count": int, "mu": {name: tensor}, "nu": {name: tensor}}
+    # {"count": int, "mu": {name: tensor}, "nu": {name: tensor}}, and with
+    # train.grad_accum > 1 "micro": int and "acc": {name: tensor}
+    opt_state: dict
 
 
 class GANState(NamedTuple):
@@ -144,28 +167,58 @@ class ClipAdam:
     """``optax.chain(clip_by_global_norm(max_norm), adam(schedule, b1, b2,
     eps))`` on dicts of tensors, with ``optax.add_decayed_weights
     (weight_decay)`` chained before the clip when ``weight_decay > 0``
-    (coupled L2: ``weight_decay * param`` added to the gradient);
-    ``update`` also returns the global norm before the clip."""
+    (coupled L2: ``weight_decay * param`` added to the gradient), wrapped
+    in ``optax.MultiSteps(accum)`` when ``accum > 1``; ``update`` also
+    returns the global norm of the gradient it was given. With a ``plan``
+    (a ``ShardPlan``: the leaves that are model-group shards) the norm is
+    that of the whole gradient across the model group."""
 
     def __init__(self, schedule, max_norm: float, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, weight_decay: float = 0.0):
+                 eps: float = 1e-8, weight_decay: float = 0.0, accum: int = 1):
         self.schedule, self.max_norm = schedule, max_norm
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.weight_decay = weight_decay
+        self.weight_decay, self.accum = weight_decay, accum
+        self.plan: ShardPlan | None = None
 
     def init(self, params: dict) -> dict:
-        return {"count": 0,
-                "mu": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
-                "nu": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}}
+        zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
+                         for k, p in params.items()}
+        state = {"count": 0, "mu": zeros(), "nu": zeros()}
+        if self.accum > 1:
+            state.update(micro=0, acc=zeros())
+        return state
+
+    def norm(self, grads: dict) -> torch.Tensor:
+        if self.plan is not None:
+            return torch.sqrt(self.plan.sq_norm(grads))
+        return global_norm(grads.values())
 
     @torch.no_grad()
     def update(self, grads: dict, opt_state: dict, params: dict | None = None):
-        """(updates, new opt_state, global norm before the clip). The
-        moments are updated in place; ``params`` are needed with weight
-        decay."""
+        """(updates, new opt_state, global norm of ``grads``). The moments
+        (and the accumulator) are updated in place; ``params`` are needed
+        with weight decay. With ``accum > 1`` the updates are None on every
+        call but each ``accum``-th, which runs the clip and Adam on the mean
+        of the accumulated gradients (optax's running mean) and resets
+        the accumulator."""
         if self.weight_decay > 0:
             grads = {k: g + self.weight_decay * params[k] for k, g in grads.items()}
-        g_norm = global_norm(grads.values())
+        if self.accum <= 1:
+            return self._update(grads, opt_state)
+        g_norm = self.norm(grads)
+        n = opt_state["micro"]
+        for k, g in grads.items():
+            acc = opt_state["acc"][k]
+            acc.add_((g - acc) / (n + 1))
+        if n + 1 < self.accum:
+            return None, dict(opt_state, micro=n + 1), g_norm
+        updates, inner, _ = self._update(opt_state["acc"], opt_state)
+        for acc in opt_state["acc"].values():
+            acc.zero_()
+        return updates, dict(inner, micro=0), g_norm
+
+    def _update(self, grads: dict, opt_state: dict):
+        g_norm = self.norm(grads)
         keep = g_norm < self.max_norm
         count = opt_state["count"] + 1
         f32 = torch.float32
@@ -186,14 +239,11 @@ def make_optimizer(cfg: Config, lr=None, b1: float = 0.9, b2: float = 0.999,
                    weight_decay: float = 0.0) -> ClipAdam:
     """Global-norm clip at ``train.grad_clip``, then Adam on ``lr`` (a
     schedule, a constant, or None for ``train.lr_schedule``)."""
-    if cfg.train.grad_accum > 1:
-        raise NotImplementedError(
-            "train.grad_accum > 1 is not ported yet (ROADMAP.md Queue 1, item 14: "
-            "distribution and scale)")
     if lr is None:
         lr = make_schedule(cfg)
     sched = lr if callable(lr) else (lambda step: lr)
-    return ClipAdam(sched, cfg.train.grad_clip, b1=b1, b2=b2, weight_decay=weight_decay)
+    return ClipAdam(sched, cfg.train.grad_clip, b1=b1, b2=b2, weight_decay=weight_decay,
+                    accum=max(cfg.train.grad_accum, 1))
 
 
 def _to_device(batch, device) -> list[torch.Tensor]:
@@ -235,9 +285,106 @@ def _leaves(params: dict) -> dict:
 
 
 @torch.no_grad()
-def _apply_updates(params: dict, updates: dict) -> None:
-    for k, u in updates.items():
+def _apply_updates(params: dict, updates: dict | None) -> None:
+    """Add ``updates`` in place (None: an accumulating call, no update)."""
+    for k, u in (updates or {}).items():
         params[k].add_(u)
+
+
+# ------------------------------------------------------------- meshes
+
+
+def _check_mesh(cfg: Config, mesh: Mesh | None) -> None:
+    m = 1 if mesh is None else mesh.model_size
+    if cfg.parallel.model_parallel not in (1, m):
+        raise ValueError(f"parallel.model_parallel={cfg.parallel.model_parallel} but the mesh's "
+                         f"model dim is {m}: build the mesh with make_mesh("
+                         f"{cfg.parallel.model_parallel}) under torchrun")
+    if mesh is None and cfg.parallel.model_parallel > 1:
+        raise ValueError(
+            f"parallel.model_parallel={cfg.parallel.model_parallel} needs a mesh of that many "
+            "ranks per model group: launch with torchrun and pass mesh=make_mesh(...)")
+    if mesh is not None:  # dropout draws agree across ranks
+        torch.manual_seed(cfg.train.seed)
+
+
+def _shard(model: torch.nn.Module, mesh: Mesh | None) -> ShardPlan | None:
+    """The model's shard plan over the mesh's model group (None: every
+    leaf replicated)."""
+    return shard_model(model, mesh) if mesh is not None and mesh.model_size > 1 else None
+
+
+def _sum_grads(mesh: Mesh | None, grads: dict) -> dict:
+    """The global gradient: the ranks' shares summed over the data group."""
+    if mesh is None or mesh.data_size == 1:
+        return grads
+    return C.all_reduce_grads(grads, mesh.data_group)
+
+
+def _map_opt(opt: dict, fn) -> dict:
+    return {k: fn(v) if isinstance(v, dict) else v for k, v in opt.items()}
+
+
+def pad_rows(batch, multiple: int):
+    """``batch`` with zero rows appended up to a multiple of ``multiple``
+    rows (zero-length rows decode to nothing and score nothing)."""
+    B = len(batch[0])
+    pad = (-B) % multiple
+    if pad == 0:
+        return batch
+    rows = []
+    for x in batch:
+        if isinstance(x, torch.Tensor):
+            rows.append(torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))]))
+        else:
+            x = np.asarray(x)
+            rows.append(np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)]))
+    return type(batch)(*rows) if hasattr(batch, "_fields") else type(batch)(rows)
+
+
+def _global_counts(mesh: Mesh | None, errs: int, total: int) -> tuple[int, int]:
+    """(errors, reference tokens) summed over the data group."""
+    if mesh is None or mesh.data_size == 1:
+        return errs, total
+    t = torch.tensor([errs, total], dtype=torch.float64)
+    if mesh.device_type == "cuda":
+        t = t.cuda()
+    torch.distributed.all_reduce(t, group=mesh.data_group)
+    return int(t[0]), int(t[1])
+
+
+class _OnMesh:
+    """What every trainer does on a mesh: ``mesh`` (None: one device),
+    its shard plans (``plans``: the model's, and the critic's for the
+    GAN) and the moves between this rank's state and whole tensors."""
+
+    mesh: Mesh | None = None
+    plans: tuple = (None, None)
+
+    def whole_state(self, state):
+        """``state`` with every sharded leaf whole (a collective over the
+        model group): what a checkpoint holds."""
+        return self._map_state(state, "gather")
+
+    def local_state(self, state):
+        """A whole-tensor state (a restored checkpoint) cut to this rank's
+        shards."""
+        return self._map_state(state, "shard")
+
+    def _map_state(self, state, how: str):
+        fns = [(lambda t: t) if p is None else getattr(p, how) for p in self.plans]
+        if isinstance(state, GANState):
+            g, d = fns
+            return state._replace(g_params=g(state.g_params), g_opt=_map_opt(state.g_opt, g),
+                                  d_params=d(state.d_params), d_opt=_map_opt(state.d_opt, d))
+        return state._replace(params=fns[0](state.params),
+                              opt_state=_map_opt(state.opt_state, fns[0]))
+
+    def eval_rows(self, batch):
+        """This rank's rows of an eval batch, zero-padded to split evenly."""
+        if self.mesh is None or self.mesh.data_size == 1:
+            return batch
+        return shard_batch(pad_rows(batch, self.mesh.data_size), self.mesh)
 
 
 def refuse_int8_training(cfg: Config) -> None:
@@ -253,11 +400,11 @@ def refuse_int8_training(cfg: Config) -> None:
 # ---------------------------------------------------------- CTC trainer
 
 
-class CTCTrainer:
-    """Supervised training and eval on one device: CTC, or with
+class CTCTrainer(_OnMesh):
+    """Supervised training and eval on one device or a mesh: CTC, or with
     ``train.mode: frame_ce`` frame-level CE on forced alignments."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, device="cuda", mesh: Mesh | None = None):
         if cfg.train.mode in ("gan", "gan+eodm", "eodm"):
             raise ValueError(
                 f"train.mode {cfg.train.mode!r} trains the generator through GANTrainer / "
@@ -267,16 +414,15 @@ class CTCTrainer:
                              "(run_ssl_pretraining), not CTCTrainer")
         if cfg.train.mode not in ("ctc", "frame_ce"):
             raise ValueError(f"unknown train.mode {cfg.train.mode!r}")
-        if cfg.parallel.model_parallel > 1:
-            raise NotImplementedError(
-                "parallel.model_parallel > 1 (a device mesh) is not ported yet (ROADMAP.md "
-                "Queue 1, item 14: distribution)")
-        self.cfg = cfg
+        _check_mesh(cfg, mesh)
+        self.cfg, self.mesh = cfg, mesh
         self.device = resolve_device(device)
         self.model = build_model(cfg.model, cfg.dim_output, model_input_dim(cfg),
                                  generator=torch.Generator().manual_seed(cfg.train.seed),
                                  device=self.device)
+        self.plans = (_shard(self.model, mesh), None)
         self.optimizer = make_optimizer(cfg)
+        self.optimizer.plan = self.plans[0]
         self._frontend_state = None
         self.frame_ce = cfg.train.mode == "frame_ce"
 
@@ -322,7 +468,7 @@ class CTCTrainer:
         if self.frame_ce:
             return self._frame_ce_loss(logits, out_len, db)
         loss_fn = ctc_loss_kernel if cfg.ctc.use_pallas else ctc_loss
-        loss = loss_fn(logits, out_len, labels, llen, cfg.ctc.blank_id).mean()
+        loss = C.batch_mean(loss_fn(logits, out_len, labels, llen, cfg.ctc.blank_id))
         return loss, {"ctc_loss": loss.detach(), "loss": loss.detach()}
 
     def _frame_ce_loss(self, logits, out_len, db: list[torch.Tensor]):
@@ -349,19 +495,22 @@ class CTCTrainer:
     def loss_and_grads(self, params: dict, batch, generator: torch.Generator):
         """(aux, grads) of the mean CTC loss (or frame-level CE) at
         ``params`` in train mode; ``batch`` is a numpy ``Batch`` /
-        ``AlignedBatch`` or its tensors on the device."""
+        ``AlignedBatch`` or its tensors on the device (on a mesh, this
+        rank's rows; the loss and the gradient are the global batch's)."""
         refuse_int8_training(self.cfg)
         self.model.train()
         params = _leaves(params)
         db = batch if isinstance(batch, list) else self.to_device(batch)
-        loss, aux = self._loss(params, db, generator)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return aux, dict(zip(params, grads))
+        with C.active(self.mesh):
+            loss, aux = self._loss(params, db, generator)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        return aux, _sum_grads(self.mesh, dict(zip(params, grads)))
 
     def train_step(self, state: TrainState, batch, generator: torch.Generator | None = None):
-        """One update. Returns (new state, aux) with aux's values as 0-d
-        tensors on the device (``loss``, ``grad_norm`` and ``ctc_loss``, or
-        with frame-CE ``frame_acc``)."""
+        """One update (or, with ``train.grad_accum``, one accumulating
+        call). Returns (new state, aux) with aux's values as 0-d tensors on
+        the device (``loss``, ``grad_norm`` and ``ctc_loss``, or with
+        frame-CE ``frame_acc``)."""
         aux, grads = self.loss_and_grads(state.params, batch,
                                          generator or self.step_generator(state.step))
         updates, opt_state, g_norm = self.optimizer.update(grads, state.opt_state)
@@ -386,11 +535,14 @@ class CTCTrainer:
         return dist.sum(), llen.sum()
 
     def evaluate(self, params: dict, batches) -> float:
+        """Dev PER; on a mesh each rank decodes its rows of every batch and
+        the counts are summed."""
         errs, total = 0, 0
         for b in batches:
-            e, t = self.eval_step(params, b[:4])
+            e, t = self.eval_step(params, self.eval_rows(b[:4]))
             errs += int(e)
             total += int(t)
+        errs, total = _global_counts(self.mesh, errs, total)
         return errs / max(total, 1)
 
 
@@ -513,23 +665,21 @@ def _apply(module, params, *args):
     return module(*args) if params is None else functional_call(module, params, args)
 
 
-class GeneratorBase:
+class GeneratorBase(_OnMesh):
     """What the trainers built on the ``PhoneClassifier`` generator share
     (GAN, EODM, decode): the frontend, optional k-means segmentation, the
     CTC-style repeat merge and the output regularisers, so every
     unsupervised objective and the decode see the same inputs."""
 
-    def _init_generator(self, cfg: Config, device, centroids=None):
-        if cfg.parallel.model_parallel > 1:
-            raise NotImplementedError(
-                "parallel.model_parallel > 1 (a device mesh) is not ported yet (ROADMAP.md "
-                "Queue 1, item 14: distribution)")
-        self.cfg = cfg
+    def _init_generator(self, cfg: Config, device, centroids=None, mesh: Mesh | None = None):
+        _check_mesh(cfg, mesh)
+        self.cfg, self.mesh = cfg, mesh
         self.device = resolve_device(device)
         self.gen = build_model(dataclasses.replace(cfg.model, encoder="classifier"),
                                cfg.dim_output, model_input_dim(cfg),
                                generator=torch.Generator().manual_seed(cfg.train.seed),
                                device=self.device)
+        self.plans = (_shard(self.gen, mesh), None)
         self._frontend_state = None
         self.centroids = None
         if cfg.gan.segmenter == "kmeans":
@@ -600,7 +750,8 @@ class GeneratorBase:
 
     def _ctc(self, logits, lengths, labels, label_lengths) -> torch.Tensor:
         loss_fn = ctc_loss_kernel if self.cfg.ctc.use_pallas else ctc_loss
-        return loss_fn(logits, lengths, labels, label_lengths, self.cfg.ctc.blank_id).mean()
+        return C.batch_mean(loss_fn(logits, lengths, labels, label_lengths,
+                                    self.cfg.ctc.blank_id))
 
     def _sup_ctc_term(self, g_params, labeled: list[torch.Tensor]) -> torch.Tensor:
         """Supervised CTC on a small labeled batch (the semi-supervised
@@ -615,7 +766,7 @@ class GeneratorBase:
         """Masked mean per-position entropy of posteriors [B, T, V]."""
         mask = torch.arange(probs.shape[1], device=probs.device)[None, :] < lengths[:, None]
         ent = -torch.sum(probs * torch.log(probs + 1e-8), -1)
-        return torch.sum(ent * mask) / torch.clamp(mask.sum(), min=1)
+        return C.batch_sum(torch.sum(ent * mask)) / torch.clamp(C.batch_sum(mask.sum()), min=1)
 
     def _aux_penalties(self, probs, lengths, aux: dict, loss, raw_probs=None, raw_len=None):
         """Entropy (peakiness), diversity (anti-collapse) and smoothness
@@ -628,7 +779,8 @@ class GeneratorBase:
         if g.diversity_weight > 0:
             T = probs.shape[1]
             mask = (torch.arange(T, device=probs.device)[None, :] < lengths[:, None])[..., None]
-            mean_p = torch.sum(probs * mask, dim=(0, 1)) / torch.clamp(mask.sum(), min=1)
+            mean_p = C.batch_sum(torch.sum(probs * mask, dim=(0, 1))) / torch.clamp(
+                C.batch_sum(mask.sum()), min=1)
             div = -torch.sum(mean_p * torch.log(mean_p + 1e-8))
             aux["g_diversity"] = div
             loss = loss - g.diversity_weight * div
@@ -639,7 +791,7 @@ class GeneratorBase:
             # pair (t, t + 1) valid iff t + 1 < len
             pair = torch.arange(T - 1, device=p.device)[None, :] < (plen[:, None] - 1)
             sq = torch.sum((p[:, 1:] - p[:, :-1]) ** 2, -1)
-            sm = torch.sum(sq * pair) / torch.clamp(pair.sum(), min=1)
+            sm = C.batch_sum(torch.sum(sq * pair)) / torch.clamp(C.batch_sum(pair.sum()), min=1)
             aux["g_smooth"] = sm
             loss = loss + g.smoothness_weight * sm
         return loss
@@ -662,13 +814,17 @@ class GeneratorBase:
         return hyps, np.asarray(lens)
 
     def evaluate_per(self, g_params, batches) -> float:
-        """Merged-stream greedy collapse -> PER against the labels."""
+        """Merged-stream greedy collapse -> PER against the labels; on a
+        mesh each rank decodes its rows (zero-length padding rows score
+        nothing) and the counts are summed."""
         errs, total = 0, 0
         for b in batches:
-            db = self.to_device(b)
+            db = self.to_device(self.eval_rows(b[:4]))
             hyps, hyp_len = self._decode(g_params, db)
-            errs += int(batch_edit_distance(db[2], db[3], hyps, hyp_len).sum())
+            dist = batch_edit_distance(db[2], db[3], hyps, hyp_len)
+            errs += int(torch.where(db[1] == 0, 0, dist).sum())
             total += int(db[3].sum())
+        errs, total = _global_counts(self.mesh, errs, total)
         return errs / max(total, 1)
 
 
@@ -679,13 +835,15 @@ class GANTrainer(GeneratorBase):
     term (``tables``: the joint ``gan+eodm`` mode) and the optional
     supervised CTC mix-in."""
 
-    def __init__(self, cfg: Config, device="cuda", centroids=None, tables=None):
+    def __init__(self, cfg: Config, device="cuda", centroids=None, tables=None,
+                 mesh: Mesh | None = None):
         refuse_int8_training(cfg)
-        self._init_generator(cfg, device, centroids)
+        self._init_generator(cfg, device, centroids, mesh)
         self.disc = build_discriminator(cfg.model, cfg.dim_output,
                                         generator=torch.Generator().manual_seed(
                                             cfg.train.seed + 1),
                                         device=self.device)
+        self.plans = (self.plans[0], _shard(self.disc, mesh))
         self.tables = tables
 
         def _lr(peak):
@@ -698,6 +856,7 @@ class GANTrainer(GeneratorBase):
         self.g_opt = make_optimizer(cfg, lr=_lr(g.g_lr), b1=g.adam_b1, b2=0.9)
         self.d_opt = make_optimizer(cfg, lr=_lr(g.d_lr), b1=g.adam_b1, b2=0.9,
                                     weight_decay=g.d_weight_decay)
+        self.g_opt.plan, self.d_opt.plan = self.plans
 
     def init_state(self) -> GANState:
         gp, dp = dict(self.gen.named_parameters()), dict(self.disc.named_parameters())
@@ -740,10 +899,12 @@ class GANTrainer(GeneratorBase):
 
         if generator is None and eps is None:
             generator = self.eps_generator(state.step, 0)
-        loss, aux = d_fn(disc, self._real_dist(ids), tlen, fake, fake_len,
-                         self.cfg.gan.lambda_gp, generator, eps)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        updates, d_opt, _ = self.d_opt.update(dict(zip(params, grads)), state.d_opt, params)
+        with C.active(self.mesh):
+            loss, aux = d_fn(disc, self._real_dist(ids), tlen, fake, fake_len,
+                             self.cfg.gan.lambda_gp, generator, eps)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        grads = _sum_grads(self.mesh, dict(zip(params, grads)))
+        updates, d_opt, _ = self.d_opt.update(grads, state.d_opt, params)
         _apply_updates(params, updates)
         return state._replace(d_params=params, d_opt=d_opt), {k: v.detach()
                                                               for k, v in aux.items()}
@@ -754,6 +915,16 @@ class GANTrainer(GeneratorBase):
         (``gan.supervised_weight``) on ``labeled`` (or, outside the joint
         mode without a labeled stream, on the audio batch's own labels).
         Returns (state, aux)."""
+        with C.active(self.mesh):
+            loss, aux, params = self._g_loss(state, audio, labeled)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        grads = _sum_grads(self.mesh, dict(zip(params, grads)))
+        updates, g_opt, _ = self.g_opt.update(grads, state.g_opt)
+        _apply_updates(params, updates)
+        return (state._replace(step=state.step + 1, g_params=params, g_opt=g_opt),
+                {k: v.detach() for k, v in aux.items()})
+
+    def _g_loss(self, state: GANState, audio, labeled):
         cfg = self.cfg
         self.gen.train()
         db = audio if isinstance(audio, list) else self.to_device(audio)
@@ -780,11 +951,7 @@ class GANTrainer(GeneratorBase):
             if sup is not None:
                 aux["sup_ctc"] = sup
                 loss = loss + cfg.gan.supervised_weight * sup
-        grads = torch.autograd.grad(loss, list(params.values()))
-        updates, g_opt, _ = self.g_opt.update(dict(zip(params, grads)), state.g_opt)
-        _apply_updates(params, updates)
-        return (state._replace(step=state.step + 1, g_params=params, g_opt=g_opt),
-                {k: v.detach() for k, v in aux.items()})
+        return loss, aux, params
 
 
 class EODMTrainer(GeneratorBase):
@@ -794,10 +961,12 @@ class EODMTrainer(GeneratorBase):
     ``gan.segmenter``, ``gan.merge_repeats`` and the output regularisers
     apply here too."""
 
-    def __init__(self, cfg: Config, text_sequences, device="cuda", centroids=None):
+    def __init__(self, cfg: Config, text_sequences, device="cuda", centroids=None,
+                 mesh: Mesh | None = None):
         refuse_int8_training(cfg)
-        self._init_generator(cfg, device, centroids)
+        self._init_generator(cfg, device, centroids, mesh)
         self.optimizer = make_optimizer(cfg)
+        self.optimizer.plan = self.plans[0]
         self.tables = device_ngram_tables(cfg.eodm, text_sequences, self.device)
 
     def init_state(self) -> TrainState:
@@ -818,9 +987,11 @@ class EODMTrainer(GeneratorBase):
         self.gen.train()
         db = batch if isinstance(batch, list) else self.to_device(batch)
         params = _leaves(state.params)
-        loss, aux = self._loss(params, db)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        updates, opt_state, _ = self.optimizer.update(dict(zip(params, grads)), state.opt_state)
+        with C.active(self.mesh):
+            loss, aux = self._loss(params, db)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        grads = _sum_grads(self.mesh, dict(zip(params, grads)))
+        updates, opt_state, _ = self.optimizer.update(grads, state.opt_state)
         _apply_updates(params, updates)
         return TrainState(state.step + 1, params, opt_state), {k: v.detach()
                                                                for k, v in aux.items()}
@@ -832,8 +1003,8 @@ class GeneratorInfer(GeneratorBase):
     optional repeat merge) as ``logits_fn(audio, lengths) -> (logits,
     lengths)`` for ``run_inference``, on the weights ``self.gen`` holds."""
 
-    def __init__(self, cfg: Config, device="cuda", centroids=None):
-        self._init_generator(cfg, device, centroids)
+    def __init__(self, cfg: Config, device="cuda", centroids=None, mesh: Mesh | None = None):
+        self._init_generator(cfg, device, centroids, mesh)
 
     def logits_fn(self, audio: torch.Tensor, lengths: torch.Tensor):
         _, _, _, n, logits = self._gen_probs_full(None, audio, lengths)
@@ -843,6 +1014,60 @@ class GeneratorInfer(GeneratorBase):
 # -------------------------------------------------------------- loops
 
 
+class RunIO:
+    """A run loop's writes: metrics, stdout lines and checkpoints. On a
+    mesh rank 0 alone writes; a checkpoint holds whole tensors (every rank
+    joins the gather over its model group) and the other ranks meet rank 0
+    at a barrier after each save, so a resume on any mesh reads what was
+    committed."""
+
+    def __init__(self, cfg: Config, trainer):
+        self.trainer, self.mesh = trainer, trainer.mesh
+        self.writes = self.mesh is None or self.mesh.is_writer
+        self.metrics = (MetricWriter(cfg.model_dir, also_tensorboard=cfg.train.tensorboard)
+                        if self.writes else None)
+        self.ckpt = CheckpointManager(f"{cfg.model_dir}/ckpt",
+                                      max_to_keep=cfg.train.keep_checkpoints)
+
+    def write(self, step: int, tag: str, **scalars) -> None:
+        if self.writes:
+            self.metrics.write(step, tag, **scalars)
+
+    def log(self, step: int, tag: str, **scalars) -> None:
+        if self.writes:
+            log_stdout(step, tag, **scalars)
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def save(self, step: int, state) -> None:
+        whole = self.trainer.whole_state(state)
+        if self.writes:
+            self.ckpt.save(step, whole)
+        self._barrier()
+
+    def keep(self, keeper, score: float, step: int, state) -> bool:
+        """``keeper.update`` (a best-checkpoint keeper or selector) with the
+        whole state, on rank 0."""
+        whole = self.trainer.whole_state(state)
+        kept = bool(self.writes and keeper.update(score, step, whole))
+        self._barrier()
+        return kept
+
+    def restore_latest(self, state):
+        """(this rank's state, step) of the newest checkpoint, or None."""
+        restored = self.ckpt.restore_latest(self.trainer.whole_state(state))
+        if restored is None:
+            return None
+        return self.trainer.local_state(restored[0]), restored[1]
+
+    def close(self) -> None:
+        self.ckpt.close()
+        if self.metrics is not None:
+            self.metrics.close()
+
+
 def run_ctc_training(
     cfg: Config,
     train_batches: Iterator[Batch],
@@ -850,19 +1075,22 @@ def run_ctc_training(
     trainer: CTCTrainer | None = None,
     state: TrainState | None = None,
     device="cuda",
+    mesh: Mesh | None = None,
 ) -> tuple[CTCTrainer, TrainState]:
     """Train, with periodic dev PER, periodic checkpoints and
     restore-latest resume. Runs on ``device`` (default CUDA; raises when
-    no card is present rather than running on the CPU)."""
-    trainer = trainer or CTCTrainer(cfg, device=device)
-    writer = MetricWriter(cfg.model_dir, also_tensorboard=cfg.train.tensorboard)
-    ckpt = CheckpointManager(f"{cfg.model_dir}/ckpt", max_to_keep=cfg.train.keep_checkpoints)
+    no card is present rather than running on the CPU), over ``mesh``
+    when given: every rank reads the same global batches and trains on
+    its rows."""
+    trainer = trainer or CTCTrainer(cfg, device=device, mesh=mesh)
+    mesh = trainer.mesh
+    io = RunIO(cfg, trainer)
     if state is None:
         state = trainer.init_state()
-        restored = ckpt.restore_latest(state)
+        restored = io.restore_latest(state)
         if restored is not None:
             state, start = restored
-            log_stdout(start, "resume", restored_step=start)
+            io.log(start, "resume", restored_step=start)
     keeper = None
     if cfg.train.keep_best:
         if dev_batches_fn is None:
@@ -878,9 +1106,9 @@ def run_ctc_training(
         step = state.step
         if step >= cfg.train.total_steps or guard.triggered:
             if guard.triggered:
-                log_stdout(step, "preempt", saving=1)
+                io.log(step, "preempt", saving=1)
             break
-        state, aux = trainer.train_step(state, batch)
+        state, aux = trainer.train_step(state, shard_batch(batch, mesh))
         audio_sec_acc += _audio_seconds(cfg, batch)
         step = state.step
         if step % cfg.train.log_every == 0:
@@ -888,27 +1116,25 @@ def run_ctc_training(
             dt = time.time() - t0
             loss = float(aux["loss"])
             extra = {"frame_acc": float(aux["frame_acc"])} if "frame_acc" in aux else {}
-            writer.write(step, "train", loss=loss, grad_norm=float(aux["grad_norm"]),
-                         audio_sec_per_sec=audio_sec_acc / max(dt, 1e-9), **extra)
-            log_stdout(step, "train", loss=loss,
-                       audio_sec_per_sec=audio_sec_acc / max(dt, 1e-9))
+            io.write(step, "train", loss=loss, grad_norm=float(aux["grad_norm"]),
+                     audio_sec_per_sec=audio_sec_acc / max(dt, 1e-9), **extra)
+            io.log(step, "train", loss=loss, audio_sec_per_sec=audio_sec_acc / max(dt, 1e-9))
             t0, audio_sec_acc = time.time(), 0.0
         if dev_batches_fn and step % cfg.train.eval_every == 0:
             per = trainer.evaluate(state.params, dev_batches_fn())
             extra: dict[str, Any] = {}
-            if keeper is not None and keeper.update(per, step, state):
+            if keeper is not None and io.keep(keeper, per, step, state):
                 extra["dev_best"] = per
-            writer.write(step, "dev", per=per, **extra)
-            log_stdout(step, "dev", per=per, **extra)
+            io.write(step, "dev", per=per, **extra)
+            io.log(step, "dev", per=per, **extra)
             t0, audio_sec_acc = time.time(), 0.0
         if step % cfg.train.save_every == 0:
-            ckpt.save(step, state)
-    ckpt.save(state.step, state)
+            io.save(step, state)
+    io.save(state.step, state)
     guard.close()
-    ckpt.close()
+    io.close()
     if keeper is not None:
         keeper.close()
-    writer.close()
     return trainer, state
 
 
@@ -921,9 +1147,11 @@ def _selector(cfg: Config, dev_batches_fn):
     return selector
 
 
-def _dev_eval(trainer: GeneratorBase, g_params, dev_batches_fn, selector, step, state) -> dict:
+def _dev_eval(trainer: GeneratorBase, g_params, dev_batches_fn, selector, step, state,
+              io: RunIO) -> dict:
     """Dev PER and, with a selector, the label-free score (the best state
-    kept under best_ckpt)."""
+    kept under best_ckpt). On a mesh every rank scores the whole dev
+    split (the score is the same everywhere) and rank 0 keeps the best."""
     dev = list(dev_batches_fn()) if selector is not None else dev_batches_fn()
     out = {"per": trainer.evaluate_per(g_params, dev)}
     if selector is not None:
@@ -932,7 +1160,7 @@ def _dev_eval(trainer: GeneratorBase, g_params, dev_batches_fn, selector, step, 
                    unsup_usage_kl=sel["usage_kl"])
         if sel.get("coverage_kl") is not None:
             out["unsup_coverage_kl"] = sel["coverage_kl"]
-        if selector.update(sel["score"], step, state):
+        if io.keep(selector, sel["score"], step, state):
             out["unsup_best"] = sel["score"]
     return out
 
@@ -945,28 +1173,29 @@ def run_gan_training(
     dev_batches_fn=None,
     labeled_batches: Iterator[Batch] | None = None,
     device="cuda",
+    mesh: Mesh | None = None,
 ) -> tuple[GANTrainer, GANState]:
     """The GAN alternation: ``gan.disc_steps`` critic steps (each on an
     audio and a text batch), then one generator step (with the EODM term
     when ``with_eodm``, and the CTC mix-in on ``labeled_batches``), with
     periodic dev PER, label-free selection (``gan.select_lm_path``),
-    checkpoints and restore-latest resume."""
+    checkpoints and restore-latest resume; over ``mesh`` each rank trains
+    on its rows of every audio, text and labeled batch."""
     from uasr_torch.data.dataset import text_batch_iterator
 
     device = resolve_device(device)
     tables = device_ngram_tables(cfg.eodm, text_sequences, device) if with_eodm else None
-    trainer = GANTrainer(cfg, device=device, tables=tables)
-    writer = MetricWriter(cfg.model_dir, also_tensorboard=cfg.train.tensorboard)
-    ckpt = CheckpointManager(f"{cfg.model_dir}/ckpt", max_to_keep=cfg.train.keep_checkpoints)
+    trainer = GANTrainer(cfg, device=device, tables=tables, mesh=mesh)
+    io = RunIO(cfg, trainer)
     state = trainer.init_state()
-    restored = ckpt.restore_latest(state)
+    restored = io.restore_latest(state)
     text_it = text_batch_iterator(text_sequences, cfg.data.batch_size, cfg.data.max_label_len,
                                   seed=cfg.train.seed)
     if restored is not None:
         state, start = restored
         # the text batches an unbroken run would have used by now
         text_it = itertools.islice(text_it, start * cfg.gan.disc_steps, None)
-        log_stdout(start, "resume", restored_step=start)
+        io.log(start, "resume", restored_step=start)
     selector = _selector(cfg, dev_batches_fn)
     labeled_it = None
     if labeled_batches is not None:
@@ -981,30 +1210,30 @@ def run_gan_training(
     while state.step < cfg.train.total_steps and not guard.triggered:
         d_aux: dict = {}
         for k in range(cfg.gan.disc_steps):
-            state, d_aux = trainer.d_step(state, next(audio_it), next(text_it),
+            state, d_aux = trainer.d_step(state, shard_batch(next(audio_it), mesh),
+                                          shard_batch(next(text_it), mesh),
                                           generator=trainer.eps_generator(state.step, k))
-        lab = next(labeled_it) if labeled_it is not None else None
-        state, g_aux = trainer.g_step(state, next(audio_it), lab)
+        lab = shard_batch(next(labeled_it), mesh) if labeled_it is not None else None
+        state, g_aux = trainer.g_step(state, shard_batch(next(audio_it), mesh), lab)
         step = state.step
         if step % cfg.train.log_every == 0:
             scalars = {k: float(v) for k, v in {**d_aux, **g_aux}.items()}
             scalars["steps_per_sec"] = cfg.train.log_every / max(time.time() - t0, 1e-9)
-            writer.write(step, "train", **scalars)
-            log_stdout(step, "train", **scalars)
+            io.write(step, "train", **scalars)
+            io.log(step, "train", **scalars)
             t0 = time.time()
         if dev_batches_fn and step % cfg.train.eval_every == 0:
-            res = _dev_eval(trainer, state.g_params, dev_batches_fn, selector, step, state)
-            writer.write(step, "dev", **res)
-            log_stdout(step, "dev", **res)
+            res = _dev_eval(trainer, state.g_params, dev_batches_fn, selector, step, state, io)
+            io.write(step, "dev", **res)
+            io.log(step, "dev", **res)
             t0 = time.time()
         if step % cfg.train.save_every == 0:
-            ckpt.save(step, state)
-    ckpt.save(state.step, state)
+            io.save(step, state)
+    io.save(state.step, state)
     guard.close()
-    ckpt.close()
+    io.close()
     if selector is not None:
         selector.close()
-    writer.close()
     return trainer, state
 
 
@@ -1014,42 +1243,42 @@ def run_eodm_training(
     text_sequences,
     dev_batches_fn=None,
     device="cuda",
+    mesh: Mesh | None = None,
 ) -> tuple[EODMTrainer, TrainState]:
     """EODM training with periodic dev PER, label-free selection,
-    checkpoints and restore-latest resume."""
-    trainer = EODMTrainer(cfg, text_sequences, device=device)
-    writer = MetricWriter(cfg.model_dir, also_tensorboard=cfg.train.tensorboard)
-    ckpt = CheckpointManager(f"{cfg.model_dir}/ckpt", max_to_keep=cfg.train.keep_checkpoints)
+    checkpoints and restore-latest resume, over ``mesh`` when given."""
+    trainer = EODMTrainer(cfg, text_sequences, device=device, mesh=mesh)
+    mesh = trainer.mesh
+    io = RunIO(cfg, trainer)
     state = trainer.init_state()
-    restored = ckpt.restore_latest(state)
+    restored = io.restore_latest(state)
     if restored is not None:
         state, start = restored
-        log_stdout(start, "resume", restored_step=start)
+        io.log(start, "resume", restored_step=start)
     selector = _selector(cfg, dev_batches_fn)
     guard = PreemptionGuard()
     t0 = time.time()
     for batch in audio_batches:
         if state.step >= cfg.train.total_steps or guard.triggered:
             break
-        state, aux = trainer.train_step(state, batch)
+        state, aux = trainer.train_step(state, shard_batch(batch, mesh))
         step = state.step
         if step % cfg.train.log_every == 0:
             loss = float(aux["eodm_loss"])
-            writer.write(step, "train", eodm_loss=loss,
-                         steps_per_sec=cfg.train.log_every / max(time.time() - t0, 1e-9))
-            log_stdout(step, "train", eodm_loss=loss)
+            io.write(step, "train", eodm_loss=loss,
+                     steps_per_sec=cfg.train.log_every / max(time.time() - t0, 1e-9))
+            io.log(step, "train", eodm_loss=loss)
             t0 = time.time()
         if dev_batches_fn and step % cfg.train.eval_every == 0:
-            res = _dev_eval(trainer, state.params, dev_batches_fn, selector, step, state)
-            writer.write(step, "dev", **res)
-            log_stdout(step, "dev", **res)
+            res = _dev_eval(trainer, state.params, dev_batches_fn, selector, step, state, io)
+            io.write(step, "dev", **res)
+            io.log(step, "dev", **res)
             t0 = time.time()
         if step % cfg.train.save_every == 0:
-            ckpt.save(step, state)
-    ckpt.save(state.step, state)
+            io.save(step, state)
+    io.save(state.step, state)
     guard.close()
-    ckpt.close()
+    io.close()
     if selector is not None:
         selector.close()
-    writer.close()
     return trainer, state
