@@ -30,6 +30,10 @@ def test_step_timer_and_checked():
     with timer.step() as fence:
         fence["y"] = x @ x
     assert timer.stats()["steps"] == 4 and StepTimer().stats() == {}
+    # the rate is all payload over all time, not payload over the median step
+    uneven = StepTimer()
+    uneven.times = [1.0, 1.0, 4.0]
+    assert uneven.stats(payload_per_step=2.0)["throughput"] == pytest.approx(1.0)
 
     ok = checked(lambda a: torch.log(a))
     assert np.isfinite(float(ok(torch.tensor(2.0))))

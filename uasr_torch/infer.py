@@ -2,9 +2,10 @@
 
 Decodes batches on one device (greedy, exact prefix beam search with
 optional shallow n-gram fusion, or HMM Viterbi over an n-gram table) and
-reports PER/CER plus decode RTF (decode wall time / audio seconds), and
-with ``fold_timit`` the PER in TIMIT's folded 39-phone space, scored on
-the host by the native edit distance.
+reports PER/CER plus decode RTF (each request's time from its upload to
+its readback, over audio seconds), and with ``fold_timit`` the PER in
+TIMIT's folded 39-phone space, scored on the host by the native edit
+distance.
 On CUDA the frontend, the BiGRU recurrence and the beam recursion go
 through kernels K1, K2 and K4 when ``frontend.use_pallas``,
 ``model.gru_pallas`` and ``ctc.use_beam`` are set; ``ctc.lm_path`` hands
@@ -37,7 +38,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from uasr_torch import resolve_device
+from uasr_torch import profiling, resolve_device
 from uasr_torch.config import Config
 from uasr_torch.data.dataset import Batch
 from uasr_torch.frontend.features import FrontendState, compute_features
@@ -69,9 +70,12 @@ def _logits(cfg: Config, model, fstate: FrontendState, audio, alen, logits_fn=No
     if logits_fn is not None:
         return logits_fn(audio, alen)
     if audio.ndim == 3:  # precomputed features: frontend bypassed
-        return model(audio, alen)
-    feats, flen = compute_features(audio, alen, fstate, cfg.frontend)
-    return model(feats, flen)
+        feats, flen = audio, alen
+    else:
+        with profiling.span("infer.frontend"):
+            feats, flen = compute_features(audio, alen, fstate, cfg.frontend)
+    with profiling.span("infer.encoder"):
+        return model(feats, flen)
 
 
 def _decode_batch(cfg: Config, model, fstate: FrontendState, db: list[torch.Tensor],
@@ -82,18 +86,38 @@ def _decode_batch(cfg: Config, model, fstate: FrontendState, db: list[torch.Tens
     if viterbi_fn is not None:
         hyps, hyp_len, _ = viterbi_fn(logits, out_len)
     elif cfg.ctc.use_beam:
-        hyps, hyp_len, _ = ctc_beam_search_decode(
-            logits, out_len, cfg.ctc.beam_width, cfg.ctc.blank_id, lm_logp=lm_table,
-            lm_weight=cfg.ctc.lm_weight, lm_bonus=cfg.ctc.lm_bonus)
+        with profiling.span("infer.beam"):
+            hyps, hyp_len, _ = ctc_beam_search_decode(
+                logits, out_len, cfg.ctc.beam_width, cfg.ctc.blank_id, lm_logp=lm_table,
+                lm_weight=cfg.ctc.lm_weight, lm_bonus=cfg.ctc.lm_bonus)
         LAST_BEAM_IMPL = "cuda" if logits.is_cuda else "reference"
     else:
         hyps, hyp_len = ctc_greedy_decode(logits, out_len, cfg.ctc.blank_id)
-    dist = batch_edit_distance(labels, llen, hyps, hyp_len)
-    # zero-length rows (batch padding) score nothing
-    pad_row = alen == 0
-    dist = torch.where(pad_row, 0, dist)
-    hyp_len = torch.where(pad_row, 0, hyp_len)
-    return hyps, hyp_len, dist.sum(), llen.sum()
+    with profiling.span("infer.score"):
+        dist = batch_edit_distance(labels, llen, hyps, hyp_len)
+        # zero-length rows (batch padding) score nothing
+        pad_row = alen == 0
+        dist = torch.where(pad_row, 0, dist)
+        hyp_len = torch.where(pad_row, 0, hyp_len)
+        return hyps, hyp_len, dist.sum(), llen.sum()
+
+
+def _write_hyps(vocab: Vocab, hyps, hyp_len, b, hyp_f, fold_timit: bool, n_utts: int,
+                fold_pairs: list) -> int:
+    """Decode a batch's hypotheses to tokens, write them to ``hyp_f`` (if
+    open) and, with ``fold_timit``, append (reference, hypothesis) token
+    pairs; returns the utterances written so far."""
+    labels, label_len = (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                         else np.asarray(x) for x in b[2:4])
+    for i in range(hyps.shape[0]):
+        toks = vocab.decode_for_scoring(hyps[i, : int(hyp_len[i])], fold_timit=fold_timit)
+        if hyp_f is not None:
+            hyp_f.write(f"utt{n_utts}\t{' '.join(toks)}\n")
+        n_utts += 1
+        if fold_timit:
+            ref = vocab.decode_for_scoring(labels[i, : int(label_len[i])], fold_timit=True)
+            fold_pairs.append((ref, toks))
+    return n_utts
 
 
 def run_inference(
@@ -158,7 +182,6 @@ def run_inference(
             f"ctc.lm_path table shape {shape} does not match the model vocabulary "
             f"([{V + 1}, {V}] bigram or [{V + 1}, {V + 1}, {V}] trigram expected)"))
         lm_table = torch.as_tensor(table, device=device)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda *_: None)
     errs = total = 0
     audio_sec = 0.0
     wall = 0.0
@@ -168,37 +191,32 @@ def run_inference(
     hyp_f = open(hyp_path, "w") if hyp_path and writes else None
     try:
         for b in batches:
-            B0 = len(b[0])
-            rows = b[:4] if dp == 1 else shard_batch(pad_rows(b[:4], dp), mesh)
-            db = _to_device(rows, device)
-            sync(device)
-            t0 = time.perf_counter()
-            with torch.inference_mode():
-                hyps, hyp_len, e, t = _decode_batch(cfg, model, fstate, db, logits_fn,
-                                                    lm_table, viterbi_fn)
-                if dp > 1:
-                    hyps, hyp_len = (x[:B0] for x in _gather_hyps(hyps, hyp_len, mesh))
-                    if LAST_BEAM_IMPL is not None:
-                        LAST_BEAM_IMPL += "_sharded"
-            sync(device)
-            wall += time.perf_counter() - t0
-            hyps, hyp_len = hyps.cpu().numpy(), hyp_len.cpu().numpy()
-            audio_sec += _audio_seconds(cfg, b)
-            errs += int(e)
-            total += int(t)
-            if vocab is not None and (hyp_f is not None or fold_timit):
-                labels, label_len = (x.cpu().numpy() if isinstance(x, torch.Tensor)
-                                     else np.asarray(x) for x in b[2:4])
-                for i in range(hyps.shape[0]):
-                    toks = vocab.decode_for_scoring(hyps[i, : int(hyp_len[i])],
-                                                    fold_timit=fold_timit)
-                    if hyp_f is not None:
-                        hyp_f.write(f"utt{n_utts}\t{' '.join(toks)}\n")
-                    n_utts += 1
-                    if fold_timit:
-                        ref = vocab.decode_for_scoring(labels[i, : int(label_len[i])],
-                                                       fold_timit=True)
-                        fold_pairs.append((ref, toks))
+            with profiling.span("infer.request"):
+                B0 = len(b[0])
+                rows = b[:4] if dp == 1 else shard_batch(pad_rows(b[:4], dp), mesh)
+                # the request's time: from the upload to the readback, which
+                # fences the device's work
+                t0 = time.perf_counter()
+                with profiling.span("infer.upload"):
+                    db = _to_device(rows, device)
+                with torch.inference_mode():
+                    hyps, hyp_len, e, t = _decode_batch(cfg, model, fstate, db, logits_fn,
+                                                        lm_table, viterbi_fn)
+                    if dp > 1:
+                        hyps, hyp_len = (x[:B0] for x in _gather_hyps(hyps, hyp_len, mesh))
+                        if LAST_BEAM_IMPL is not None:
+                            LAST_BEAM_IMPL += "_sharded"
+                with profiling.span("infer.readback"):
+                    hyps, hyp_len = hyps.cpu().numpy(), hyp_len.cpu().numpy()
+                    e, t = int(e), int(t)
+                wall += time.perf_counter() - t0
+                audio_sec += _audio_seconds(cfg, b)
+                errs += e
+                total += t
+                if vocab is not None and (hyp_f is not None or fold_timit):
+                    with profiling.span("infer.write"):
+                        n_utts = _write_hyps(vocab, hyps, hyp_len, b, hyp_f, fold_timit,
+                                             n_utts, fold_pairs)
     finally:
         if hyp_f is not None:
             hyp_f.close()

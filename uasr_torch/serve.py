@@ -75,7 +75,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from uasr_torch import resolve_device
+from uasr_torch import profiling, resolve_device
 from uasr_torch.config import Config, ModelConfig
 from uasr_torch.frontend.features import frontend_state_from_config
 from uasr_torch.frontend.streaming import StreamState, init_stream_state, stream_chunk
@@ -388,17 +388,22 @@ class StreamingRecognizer:
 
     def _upload(self, audio_chunks, mask, stamp_mask, stamp_samples):
         """One host->device copy: the chunks with mask, stamp mask and
-        stamped samples bit-cast into three trailing float32 columns.
-        Returns (chunks, mask, stamp mask, stamped frame caps)."""
+        stamped samples bit-cast into three trailing float32 columns
+        (``h2d_bytes`` off the host). Returns (chunks, mask, stamp mask,
+        stamped frame caps)."""
         self._check_chunk(audio_chunks)
-        B = len(mask)
-        aux = np.zeros((B, 3), np.int32)
-        aux[:, 0] = np.asarray(mask, bool)
-        if stamp_mask is not None:
-            aux[:, 1] = np.asarray(stamp_mask, bool)
-            aux[:, 2] = np.asarray(stamp_samples, np.int64).clip(0, 2 ** 31 - 1)
-        packed = np.concatenate([np.asarray(audio_chunks, np.float32), aux.view(np.float32)], 1)
-        packed = torch.from_numpy(packed).to(self.device)
+        with profiling.span("stream.upload"):
+            B = len(mask)
+            aux = np.zeros((B, 3), np.int32)
+            aux[:, 0] = np.asarray(mask, bool)
+            if stamp_mask is not None:
+                aux[:, 1] = np.asarray(stamp_mask, bool)
+                aux[:, 2] = np.asarray(stamp_samples, np.int64).clip(0, 2 ** 31 - 1)
+            packed = np.concatenate([np.asarray(audio_chunks, np.float32),
+                                     aux.view(np.float32)], 1)
+            if self.device.type != "cpu":
+                profiling.count("h2d_bytes", packed.nbytes)
+            packed = torch.from_numpy(packed).to(self.device)
         S = self.chunk_samples
         aux_d = packed[:, S:].contiguous().view(torch.int32).long()
         fs = self.cfg.frontend.frame_shift
@@ -418,13 +423,15 @@ class StreamingRecognizer:
         those slots' utterance length (set_valid_samples) before the step.
         Returns (state, ids [B, K], counts [B]) as numpy, or with
         ``packed`` (state, [B, K+1] int32 device tensor, column K = count)."""
-        with torch.inference_mode():
-            chunks, m, smask, frames = self._upload(audio_chunks, mask, stamp_mask,
-                                                    stamp_samples)
-            kept, out = self._masked_step(state, chunks, m, smask, frames)
-        if packed:
-            return kept, out
-        o = out.cpu().numpy()
+        with profiling.span("stream.tick"):
+            with torch.inference_mode():
+                chunks, m, smask, frames = self._upload(audio_chunks, mask, stamp_mask,
+                                                        stamp_samples)
+                kept, out = self._masked_step(state, chunks, m, smask, frames)
+            if packed:
+                return kept, out
+            with profiling.span("stream.readback"):
+                o = out.cpu().numpy()
         return kept, o[:, :-1], o[:, -1]
 
     def masked_step_and_finish(self, state, audio_chunks, mask, finish_mask, stamp_mask=None,
@@ -432,7 +439,7 @@ class StreamingRecognizer:
         """masked_step and finish_and_reset over DISJOINT slot sets in one
         call (the daemon's finalize tick). Returns (state, step_out
         [B, K+1], finish_out [B, Kf+1]) as packed device tensors."""
-        with torch.inference_mode():
+        with profiling.span("stream.tick"), torch.inference_mode():
             chunks, m, smask, frames = self._upload(audio_chunks, mask, stamp_mask,
                                                     stamp_samples)
             kept, step_out = self._masked_step(state, chunks, m, smask, frames)
@@ -440,21 +447,24 @@ class StreamingRecognizer:
         return kept, step_out, fin_out
 
     def _finish_and_reset(self, state, mask):
-        mask = _as_tensor(mask, torch.bool, self.device)
-        _fin, ids, counts = self._finish_impl(state)
-        kept = self._select_slots(mask, self._template(len(mask)), state)
-        return kept, torch.cat([ids, counts[:, None].to(ids.dtype)], 1).to(torch.int32)
+        with profiling.span("stream.finish", device=self.device):
+            mask = _as_tensor(mask, torch.bool, self.device)
+            _fin, ids, counts = self._finish_impl(state)
+            kept = self._select_slots(mask, self._template(len(mask)), state)
+            return kept, torch.cat([ids, counts[:, None].to(ids.dtype)], 1).to(torch.int32)
 
     def finish_and_reset(self, state, mask, packed=False):
         """Decode the masked slots' final region AND re-initialise them for
         the next client: returns (state, final_ids, final_counts), or with
         ``packed`` (state, [B, K+1] device tensor). Unmasked slots keep
         their state bit for bit (their outputs are meaningless)."""
-        with torch.inference_mode():
-            kept, out = self._finish_and_reset(state, mask)
-        if packed:
-            return kept, out
-        o = out.cpu().numpy()
+        with profiling.span("stream.tick"):
+            with torch.inference_mode():
+                kept, out = self._finish_and_reset(state, mask)
+            if packed:
+                return kept, out
+            with profiling.span("stream.readback"):
+                o = out.cpu().numpy()
         return kept, o[:, :-1], o[:, -1]
 
     def reset_slots(self, state, mask):
@@ -503,13 +513,14 @@ class StreamingRecognizer:
         [region_start, region_start + chunk). Window rows past a stream's
         own utterance end are masked by the encoder's length handling."""
         C, W, s = self.chunk, self.window, self.subsample
-        valid = torch.clamp(n, max=W)
-        a = torch.clamp(n - W, min=0)  # absolute frame index of buffer row 0
-        lengths = torch.minimum(torch.clamp(valid_frames - a, 0, W), valid)
-        logits, _ = self.model(buf, lengths)
-        off = torch.div(region_start - a, s, rounding_mode="floor")
-        idx = off[:, None] + torch.arange(C // s, device=buf.device)[None, :]
-        return logits.gather(1, idx[..., None].expand(-1, -1, logits.shape[-1]))
+        with profiling.span("stream.encoder"):
+            valid = torch.clamp(n, max=W)
+            a = torch.clamp(n - W, min=0)  # absolute frame index of buffer row 0
+            lengths = torch.minimum(torch.clamp(valid_frames - a, 0, W), valid)
+            logits, _ = self.model(buf, lengths)
+            off = torch.div(region_start - a, s, rounding_mode="floor")
+            idx = off[:, None] + torch.arange(C // s, device=buf.device)[None, :]
+            return logits.gather(1, idx[..., None].expand(-1, -1, logits.shape[-1]))
 
     def _emit(self, ids, prev_id, active):
         """Greedy collapse with the carried previous id: (ids [B, K]
@@ -539,14 +550,15 @@ class StreamingRecognizer:
     def _advance_beam(self, state, region_logits, can, region_logit_start):
         """Evolve the carried beam over the region's logits; rows past
         their utterance end freeze (all rows when ``can`` is false)."""
-        B, K, V = region_logits.shape
-        s = self.subsample
-        logp = torch.log_softmax(region_logits.float(), -1)
-        vlog = (state.valid_frames + s - 1) // s  # frame cap -> logits cap
-        lengths = torch.where(can, torch.clamp(vlog - region_logit_start, 0, K), 0)
-        return beam_advance(state.beam, state.prefix, state.prefix_len, logp, lengths,
-                            self.blank, self.lm_table, self.lm_order, self.cfg.ctc.lm_weight,
-                            self.cfg.ctc.lm_bonus)
+        with profiling.span("stream.beam"):
+            B, K, V = region_logits.shape
+            s = self.subsample
+            logp = torch.log_softmax(region_logits.float(), -1)
+            vlog = (state.valid_frames + s - 1) // s  # frame cap -> logits cap
+            lengths = torch.where(can, torch.clamp(vlog - region_logit_start, 0, K), 0)
+            return beam_advance(state.beam, state.prefix, state.prefix_len, logp, lengths,
+                                self.blank, self.lm_table, self.lm_order,
+                                self.cfg.ctc.lm_weight, self.cfg.ctc.lm_bonus)
 
     def _region(self, state, buf, n, start, can):
         """Decode one region: (region logits, ids, counts, prev)."""
@@ -566,13 +578,14 @@ class StreamingRecognizer:
         at a [B]: (logits, new carry, emitted region's first frame, ids,
         counts, new prev id, can)."""
         C, s = self.chunk, self.subsample
-        if self.delay:
-            logits, new_carry = self.model.step(feats, a, state.valid_frames, carry)
-            estart = a - self.delay * C  # emitted region's first frame
-        else:
-            fv = torch.clamp(state.valid_frames - a, 0, C)
-            logits, new_carry = self.model.step(feats, fv, carry)
-            estart = a
+        with profiling.span("stream.encoder"):
+            if self.delay:
+                logits, new_carry = self.model.step(feats, a, state.valid_frames, carry)
+                estart = a - self.delay * C  # emitted region's first frame
+            else:
+                fv = torch.clamp(state.valid_frames - a, 0, C)
+                logits, new_carry = self.model.step(feats, fv, carry)
+                estart = a
         ids = logits.argmax(-1)
         K = ids.shape[1]
         can = estart >= 0
@@ -586,7 +599,9 @@ class StreamingRecognizer:
         """Frontend chunk -> encoder step with the carried state -> tokens:
         uni_gru's of this chunk, lc_bigru's of the chunk ``delay`` back
         (none until its layer pipeline fills)."""
-        fstate, feats = stream_chunk(state.frontend, audio_chunk, self.fe, self.cfg.frontend)
+        with profiling.span("stream.frontend"):
+            fstate, feats = stream_chunk(state.frontend, audio_chunk, self.fe,
+                                         self.cfg.frontend)
         a = state.n_frames
         logits, carry, estart, out, counts, prev, can = self._recurrent_region(
             state, feats, a, state.carry, state.prev_id)
@@ -635,7 +650,9 @@ class StreamingRecognizer:
         if self.recurrent:
             return self._step_recurrent(state, audio_chunk)
         C = self.chunk
-        fstate, feats = stream_chunk(state.frontend, audio_chunk, self.fe, self.cfg.frontend)
+        with profiling.span("stream.frontend"):
+            fstate, feats = stream_chunk(state.frontend, audio_chunk, self.fe,
+                                         self.cfg.frontend)
         buf = self._push(state.feat_buf, state.n_frames, feats)
         n = state.n_frames + C  # per-slot stream age
         # the previous chunk's region once it has C frames of real right

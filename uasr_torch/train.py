@@ -98,7 +98,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from uasr_torch import resolve_device
+from uasr_torch import profiling, resolve_device
 from uasr_torch.checkpoint import CheckpointManager
 from uasr_torch.config import Config
 from uasr_torch.data.dataset import Batch
@@ -251,10 +251,17 @@ def _to_device(batch, device) -> list[torch.Tensor]:
     labels) of numpy arrays or tensors as tensors on ``device``: audio
     [B, L] or precomputed features [B, T, D] f32, the rest int64. Tensors
     already there in that dtype (a device-resident corpus's gathers) are
-    passed through."""
-    return [x.to(device=device, dtype=dt) if isinstance(x, torch.Tensor)
-            else torch.as_tensor(np.asarray(x), dtype=dt).to(device)
-            for x, dt in zip(batch, [torch.float32] + [torch.long] * (len(batch) - 1))]
+    passed through. Bytes copied off the host to another device count
+    as ``h2d_bytes`` (``profiling.count``)."""
+    device = torch.device(device)
+    out = []
+    for x, dt in zip(batch, [torch.float32] + [torch.long] * (len(batch) - 1)):
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x), dtype=dt)
+        if device.type != "cpu" and x.device.type == "cpu":
+            profiling.count("h2d_bytes", x.nbytes)
+        out.append(x.to(device=device, dtype=dt))
+    return out
 
 
 def _audio_seconds(cfg: Config, batch) -> float:
@@ -460,15 +467,18 @@ class CTCTrainer(_OnMesh):
     def _loss(self, params: dict, db: list[torch.Tensor], generator: torch.Generator):
         cfg = self.cfg
         audio, alen, labels, llen = db[:4]
-        with torch.no_grad():  # the frontend has no parameters
+        # the frontend has no parameters
+        with profiling.span("train.frontend"), torch.no_grad():
             feats, flen = self._feats(audio, alen)
             if cfg.frontend.specaug_time_masks or cfg.frontend.specaug_freq_masks:
                 feats = spec_augment(generator, feats, flen, cfg.frontend)
-        logits, out_len = functional_call(self.model, params, (feats, flen))
-        if self.frame_ce:
-            return self._frame_ce_loss(logits, out_len, db)
-        loss_fn = ctc_loss_kernel if cfg.ctc.use_pallas else ctc_loss
-        loss = C.batch_mean(loss_fn(logits, out_len, labels, llen, cfg.ctc.blank_id))
+        with profiling.span("train.forward"):
+            logits, out_len = functional_call(self.model, params, (feats, flen))
+        with profiling.span("train.loss"):
+            if self.frame_ce:
+                return self._frame_ce_loss(logits, out_len, db)
+            loss_fn = ctc_loss_kernel if cfg.ctc.use_pallas else ctc_loss
+            loss = C.batch_mean(loss_fn(logits, out_len, labels, llen, cfg.ctc.blank_id))
         return loss, {"ctc_loss": loss.detach(), "loss": loss.detach()}
 
     def _frame_ce_loss(self, logits, out_len, db: list[torch.Tensor]):
@@ -500,10 +510,15 @@ class CTCTrainer(_OnMesh):
         refuse_int8_training(self.cfg)
         self.model.train()
         params = _leaves(params)
-        db = batch if isinstance(batch, list) else self.to_device(batch)
+        if isinstance(batch, list):
+            db = batch
+        else:
+            with profiling.span("train.upload"):
+                db = self.to_device(batch)
         with C.active(self.mesh):
             loss, aux = self._loss(params, db, generator)
-            grads = torch.autograd.grad(loss, list(params.values()))
+            with profiling.span("train.backward"):
+                grads = torch.autograd.grad(loss, list(params.values()))
         return aux, _sum_grads(self.mesh, dict(zip(params, grads)))
 
     def train_step(self, state: TrainState, batch, generator: torch.Generator | None = None):
@@ -511,10 +526,12 @@ class CTCTrainer(_OnMesh):
         call). Returns (new state, aux) with aux's values as 0-d tensors on
         the device (``loss``, ``grad_norm`` and ``ctc_loss``, or with
         frame-CE ``frame_acc``)."""
-        aux, grads = self.loss_and_grads(state.params, batch,
-                                         generator or self.step_generator(state.step))
-        updates, opt_state, g_norm = self.optimizer.update(grads, state.opt_state)
-        _apply_updates(state.params, updates)
+        with profiling.span("train.step"):
+            aux, grads = self.loss_and_grads(state.params, batch,
+                                             generator or self.step_generator(state.step))
+            with profiling.span("train.optimizer", device=self.device):
+                updates, opt_state, g_norm = self.optimizer.update(grads, state.opt_state)
+                _apply_updates(state.params, updates)
         aux["grad_norm"] = g_norm
         return TrainState(state.step + 1, state.params, opt_state), aux
 
