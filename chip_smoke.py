@@ -675,6 +675,66 @@ def phase_train_kernels(torch, np, results: dict) -> None:
                              bound_by=by_b, library_ms=lib_b)
 
 
+def phase_adam_kernels(torch, np, results: dict) -> None:
+    """K-norm and K-adam at the librispeech BiGRU's 22 f32 leaves
+    (15,031,264 parameters; ``tools.time_adam``'s problem) against their
+    plain versions: below the clip (global norm 2.5 of 5) the parameters
+    and both moments bit for bit; above it (norm 20) the norm within rtol
+    1e-6 and K-adam from the plain norm bit for bit. Times of the pair, the
+    plain per-leaf version, ``torch._fused_adam_`` after a foreach clip
+    (library) and the foreach form in optax's order; the bound is 32 bytes
+    an f32 element (K-adam's 28, K-norm's 4)."""
+    from uasr_torch.ops import cuda_adam as ka
+    from uasr_torch.tools import time_adam as ta
+
+    dev = torch.device(DEVICE)
+    n = sum(ta.SIZES)
+    flags = [False] * len(ta.SIZES)
+    errs = []
+    for norm in (2.5, 20.0):
+        start = ta.problem(torch, dev, norm, seed=SEED + 5)
+
+        def state():
+            p, g, m, v = start
+            return [[x.clone() for x in p], g, [x.clone() for x in m], [x.clone() for x in v]]
+
+        ref, got, alone = state(), state(), state()
+        ref_norm = ka.sq_norms_reference(ref[1])[2]
+        ka.clip_adam_reference(*ref, ref_norm, **ta.ADAM, **ta.scalars())
+        before = ka.LAUNCHES
+        got_norm = ka.sq_norms_cuda(got[1], flags)[2]
+        ka.clip_adam_cuda(*got, got_norm, **ta.ADAM, **ta.scalars())
+        ka.clip_adam_cuda(*alone, ref_norm, **ta.ADAM, **ta.scalars())
+        torch.cuda.synchronize()
+        check(ka.LAUNCHES - before == 3, f"K-norm + K-adam: {ka.LAUNCHES - before} launches")
+        rel = _rel(float(got_norm), float(ref_norm))
+        check(rel <= 1e-6, f"K-norm at norm {norm}: {float(got_norm)} vs {float(ref_norm)}")
+        trees = [alone, got] if norm < ta.ADAM["max_norm"] else [alone]
+        for fused in trees:
+            for name, a, b in zip(("parameters", "mu", "nu"), (fused[0], fused[2], fused[3]),
+                                  (ref[0], ref[2], ref[3])):
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      f"K-adam at norm {norm}: {name} differ from the plain version's")
+        err = max(float((x - y).abs().max()) for x, y in zip(got[0], ref[0]))
+        errs.append(err)
+        print(f"K-norm + K-adam, 22 BiGRU leaves, global norm {norm} (clip "
+              f"{ta.ADAM['max_norm']}): norm {float(got_norm):.7f} vs plain "
+              f"{float(ref_norm):.7f} (rel {rel:.2e}); parameters and moments bit-equal to the "
+              f"plain version's{'' if len(trees) == 2 else ' from the plain norm'}; own-norm "
+              f"update max|dp| {err:.3e}", flush=True)
+    ms = cuda_ms(torch, lambda: ta.fused(*start), 20)
+    plain = cuda_ms(torch, lambda: ta.plain(*start), 5)
+    foreach = cuda_ms(torch, lambda: ta.foreach(*start), 20)
+    steps = [torch.full((), float(ta.COUNT - 1), device=dev) for _ in ta.SIZES]
+    lib = cuda_ms(torch, lambda: ta.fused_library(*start, steps), 20)
+    bms, by = bound(32 * n, 16 * n, "float32")
+    print(f"  K-norm + K-adam {ms:.4f} ms, plain per-leaf {plain:.4f} ms, foreach in optax's "
+          f"order {foreach:.4f} ms, foreach clip + torch._fused_adam_ {lib:.4f} ms, bound "
+          f"{bms:.4f} ms ({by})", flush=True)
+    results["K-adam:bigru22"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=bms,
+                                     bound_by=by, library_ms=lib)
+
+
 def phase_stream_kernels(torch, np, results: dict) -> None:
     """K7 and K4 at the shapes the streaming path gives them: K7 on one
     chunk of 64 streams in each GEMM tier; K4 at V = 4233, W = 8 over one
@@ -759,6 +819,7 @@ def plain_versions():
     same entry points run the plain path on CUDA tensors."""
     from uasr_torch.frontend import cuda_frontend as k1
     from uasr_torch.models import cuda_gru as k2
+    from uasr_torch.ops import cuda_adam as ka
     from uasr_torch.ops import cuda_attention as k6
     from uasr_torch.ops import cuda_beam as k4
     from uasr_torch.ops import cuda_ctc as k3
@@ -774,7 +835,9 @@ def plain_versions():
              (k2, "bigru_scan_bwd_cuda", k2.bigru_scan_bwd_reference),
              (k3, "ctc_alpha_cuda", k3.ctc_alpha_reference),
              (k3, "ctc_beta_cuda", k3.ctc_beta_reference),
-             (k4, "ctc_beam_cuda", k4.ctc_beam_reference)]
+             (k4, "ctc_beam_cuda", k4.ctc_beam_reference),
+             (ka, "sq_norms_cuda", ka.sq_norms_reference),
+             (ka, "clip_adam_cuda", ka.clip_adam_reference)]
     saved = [getattr(mod, name) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -788,8 +851,10 @@ def plain_versions():
 def _counters():
     from uasr_torch.frontend import cuda_frontend
     from uasr_torch.models import cuda_gru
-    from uasr_torch.ops import cuda_attention, cuda_beam, cuda_ctc
+    from uasr_torch.ops import cuda_adam, cuda_attention, cuda_beam, cuda_ctc
 
+    # "K-adam" counts K-norm's and K-adam's launches: 2 an optimizer update of
+    # up to 64 leaves (adam_launches)
     return {"K1": (cuda_frontend, "LAUNCHES"), "K7": (cuda_frontend, "LAUNCHES_UNFUSED"),
             "K2": (cuda_gru, "LAUNCHES"),
             "K2-bwd": (cuda_gru, "LAUNCHES_BWD"),
@@ -798,7 +863,15 @@ def _counters():
             "K5": (cuda_gru, "LAUNCHES_GRU"), "K6": (cuda_attention, "LAUNCHES_ATTN"),
             "K5-bwd": (cuda_gru, "LAUNCHES_GRU_BWD"),
             "K5-bwd:coeffs": (cuda_gru, "LAUNCHES_GRU_COEFFS"), "K8": (cuda_gru, "LAUNCHES_GRU_LIN"),
-            "K6-bwd": (cuda_attention, "LAUNCHES_ATTN_BWD")}
+            "K6-bwd": (cuda_attention, "LAUNCHES_ATTN_BWD"), "K-adam": (cuda_adam, "LAUNCHES")}
+
+
+def adam_launches(params: dict) -> int:
+    """K-norm's and K-adam's launches in one update of ``params``: two a
+    table of up to ``cuda_adam.TABLE_LEAVES`` leaves."""
+    from uasr_torch.ops import cuda_adam
+
+    return 2 * len(cuda_adam.plan_tables([p.numel() for p in params.values()]))
 
 
 def reset_launches():
@@ -972,7 +1045,8 @@ def phase_train(torch, np, launches: dict) -> None:
     print(f"  set-up step (16 s bucket): wall {(time.perf_counter() - t0) * 1e3:.2f} ms, "
           f"loss {loss:.4f}, grad_norm {gnorm:.4f}", flush=True)
     want = {"K1": 1, "K7": 0, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3, "K3": 1, "K3-bwd": 1,
-            "K4": 0, "K5": 0, "K6": 0, "K5-bwd": 0, "K5-bwd:coeffs": 0, "K8": 0, "K6-bwd": 0}
+            "K4": 0, "K5": 0, "K6": 0, "K5-bwd": 0, "K5-bwd:coeffs": 0, "K8": 0, "K6-bwd": 0,
+            "K-adam": 2}
     total = dict.fromkeys(want, 0)
     for b in batches:
         reset_launches()
@@ -993,7 +1067,7 @@ def phase_train(torch, np, launches: dict) -> None:
             total[k] += v
     check(all(bool(torch.isfinite(p).all()) for p in state.params.values()),
           "non-finite parameters after training")
-    launches.update({k: total[k] for k in ("K2-bwd", "K3", "K3-bwd")})
+    launches.update({k: total[k] for k in ("K2-bwd", "K3", "K3-bwd", "K-adam")})
     profile_call(torch, lambda: step(batches[-1]), "one 16 s training step")
 
     # kernel path vs plain path: loss and gradients of the first step (the
@@ -1016,6 +1090,7 @@ def compare_first_step(torch, cfg, params, db, what: str, floor: float = 0.0) ->
     (the attention key projections' bias, which the softmax ignores) is
     rounding noise on both paths."""
     from uasr_torch import train
+    from uasr_torch.ops import cuda_adam
 
     dev = torch.device(DEVICE)
     for dtype, (tl, tn, tw) in (("bfloat16", (1e-3, 1e-2, 5e-2)), ("float32", (1e-5, 1e-4, 1e-3))):
@@ -1026,8 +1101,8 @@ def compare_first_step(torch, cfg, params, db, what: str, floor: float = 0.0) ->
         with plain_versions():
             aux_p, g_p = t.loss_and_grads(params, db, t.step_generator(0))
         lk, lp = float(aux_k["loss"]), float(aux_p["loss"])
-        nk = float(train.global_norm(g_k.values()))
-        npl = float(train.global_norm(g_p.values()))
+        nk = float(cuda_adam.sq_norms_reference(g_k.values())[2])
+        npl = float(cuda_adam.sq_norms_reference(g_p.values())[2])
         worst = max((float(torch.linalg.vector_norm(g_k[k] - g_p[k])
                            / torch.linalg.vector_norm(g_p[k]).clamp_min(max(floor * npl, 1e-30))),
                      k) for k in g_p)
@@ -1176,7 +1251,7 @@ def phase_stream(torch, np, launches: dict) -> None:
         device=dev)
     want_greedy = {"K1": 0, "K7": 1, "K2": 0, "K2-bwd": 0, "K2-bwd:coeffs": 0, "K3": 0,
                    "K3-bwd": 0, "K4": 0, "K5": 0, "K6": 0, "K5-bwd": 0, "K5-bwd:coeffs": 0,
-                   "K8": 0, "K6-bwd": 0}
+                   "K8": 0, "K6-bwd": 0, "K-adam": 0}
 
     def greedy_step(d):
         check(d == want_greedy, f"greedy step launches {d}, expected {want_greedy}")
@@ -2017,15 +2092,17 @@ def phase_encoder_train(torch, np, launches: dict) -> None:
             layer, each one K5 forward and one K5-bwd (or K8); an attention
             encoder one K6 and one K6-bwd per block; one K3 and one K3-bwd;
             the streaming-CMVN frontend one K7 per 64-frame chunk of the
-            padded audio, the utterance-CMVN one K1."""
+            padded audio, the utterance-CMVN one K1; K-norm and K-adam
+            once a table of leaves."""
+            adam = adam_launches(state.params)
             if recurrent:
                 grus = (2 if encoder == "lc_bigru" else 1) * m.num_gru_layers
                 chunk = cfg.frontend.streaming_chunk_frames * cfg.frontend.frame_shift
                 fused = {"K5-bwd": grus, "K5-bwd:coeffs": grus}  # a chain and its coefficients
                 return dict(zero, K7=-(-b.audio.shape[1] // chunk), K5=grus, K3=1, **{
-                    "K3-bwd": 1, **({"K8": grus} if linear else fused)})
+                    "K3-bwd": 1, "K-adam": adam, **({"K8": grus} if linear else fused)})
             return dict(zero, K1=1, K6=m.transformer_layers, K3=1,
-                        **{"K6-bwd": m.transformer_layers, "K3-bwd": 1})
+                        **{"K6-bwd": m.transformer_layers, "K3-bwd": 1, "K-adam": adam})
 
         t0 = time.perf_counter()
         loss, gnorm = step(batches[-1])
@@ -2203,6 +2280,7 @@ def phase_unsup_full(torch, np) -> None:
     print(f"  launches over {UNSUP_STEPS} alternations: {counts}", flush=True)
     want = dict.fromkeys(counts, 0)
     want["K1"] = UNSUP_STEPS * (g.disc_steps + 1)
+    want["K-adam"] = 2 * UNSUP_STEPS * (g.disc_steps + 1)  # an update a critic or generator step
     check(counts == want, f"gan+eodm launches {counts}, expected {want}")
     secs = cfg.data.batch_size * (g.disc_steps + 1) * cfg.data.max_audio_seconds
     print(f"  step wall (one alternation: {g.disc_steps} critic steps + 1 generator step) mean "
@@ -2273,7 +2351,8 @@ def phase_unsup_wgan(torch, np) -> None:
     print(f"  launches over {steps} steps: {counts}", flush=True)
     want = dict.fromkeys(counts, 0)
     # each critic step's and each generator step's features, and the labeled batch's
-    want.update(K1=steps * (g.disc_steps + 2), K3=steps, **{"K3-bwd": steps})
+    want.update(K1=steps * (g.disc_steps + 2), K3=steps,
+                **{"K3-bwd": steps, "K-adam": 2 * steps * (g.disc_steps + 1)})
     check(counts == want, f"wgan-gp launches {counts}, expected {want}")
 
 
@@ -2720,7 +2799,8 @@ def phase_data(torch, np, root: str) -> None:
           f"{cfg.model.hidden_size} x{cfg.model.num_gru_layers}, B={cfg.data.batch_size}): "
           f"{DATA_STEPS} steps in {wall:.2f} s (start-up included); losses {losses}", flush=True)
     want = dict.fromkeys(counts, 0)
-    want.update({"K1": 1, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3, "K3": 1, "K3-bwd": 1})
+    want.update({"K1": 1, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3, "K3": 1, "K3-bwd": 1,
+                 "K-adam": 2})
     for i, (st, wait) in enumerate(zip(steps, record["waits"])):
         print(f"  step {i + 1} {st['shape'][1] / 16000:5.2f} s bucket: wall {st['wall'] * 1e3:.2f} "
               f"ms, waited {wait * 1e3:.2f} ms on the stream, RSS {st['rss'] / 1e6:.1f} MB",
@@ -3359,7 +3439,7 @@ def phase_frame_ce(torch, np, root: str, launches: dict) -> None:
           f"batch padded to 16 s): {FCE_STEPS} steps in {wall:.2f} s (start-up and the read of "
           f"the lists included)", flush=True)
     want = dict.fromkeys(counts, 0)
-    want.update({"K1": 1, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3})
+    want.update({"K1": 1, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3, "K-adam": 2})
     for i, (st, r) in enumerate(zip(steps, recs)):
         print(f"  step {i + 1} {st['shape'][1] / 16000:5.2f} s batch: wall {st['wall'] * 1e3:.2f} "
               f"ms, loss {r['loss']:.4f}, frame_acc {r['frame_acc']:.4f}, launches "
@@ -3403,7 +3483,7 @@ def phase_frame_ce(torch, np, root: str, launches: dict) -> None:
         if i >= 2:
             walls[name].append(time.perf_counter() - t0)
         counts = {k: v for k, v in read_launches().items() if v}
-        want = {"K1": 1, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3}
+        want = {"K1": 1, "K2": 3, "K2-bwd": 3, "K2-bwd:coeffs": 3, "K-adam": 2}
         if name == "ctc":
             want.update({"K3": 1, "K3-bwd": 1})
         check(counts == want and np.isfinite(float(aux["loss"])),
@@ -3570,7 +3650,8 @@ def ssl_first_step(torch, cfg, batch, what: str):
     batch and negatives, at the training-step bars (f32: loss and grad norm
     rel 1e-4, worst tensor |dg|/|g| 1e-3). Returns (trainer, its initial
     parameters, the batch on the card)."""
-    from uasr_torch import pretrain, train
+    from uasr_torch import pretrain
+    from uasr_torch.ops import cuda_adam
 
     t = pretrain.SSLTrainer(cfg, device=torch.device(DEVICE))
     params = t.init_state().params
@@ -3579,7 +3660,7 @@ def ssl_first_step(torch, cfg, batch, what: str):
     with plain_versions():
         aux_p, g_p = t.loss_and_grads(params, db, t.step_generator(0))
     lk, lp = float(aux_k["nce_loss"]), float(aux_p["nce_loss"])
-    nk, npl = (float(train.global_norm(g.values())) for g in (g_k, g_p))
+    nk, npl = (float(cuda_adam.sq_norms_reference(g.values())[2]) for g in (g_k, g_p))
     worst = max((float(torch.linalg.vector_norm(g_k[k] - g_p[k])
                        / torch.linalg.vector_norm(g_p[k]).clamp_min(1e-30)), k) for k in g_p)
     print(f"  {what}, kernel path vs plain path (f32): loss {lk:.6f} vs {lp:.6f} (rel "
@@ -3630,7 +3711,7 @@ def phase_ssl(torch, np, root: str, launches: dict) -> None:
     data = [f"data.train_list={corpus}/train.tsv", f"data.dev_list={corpus}/dev.tsv",
             f"data.vocab_path={corpus}/vocab.txt", "data.synthetic=false",
             "ssl.context_pallas=true", "train.log_every=1", "train.eval_every=1000000"]
-    want = {"K5": 1, "K5-bwd": 1, "K5-bwd:coeffs": 1}
+    want = {"K5": 1, "K5-bwd": 1, "K5-bwd:coeffs": 1, "K-adam": 2}
     print(f"ssl: formant39_ssl (patch 20, conv 256/256/512, context GRU 512 through K5, K=8, "
           f"100 negatives, B=16 x 6 s, f32) on a {SSL_UTTS}-utterance formant corpus; card "
           f"{card_line()}", flush=True)
@@ -4282,9 +4363,9 @@ def phase_distributed(torch, np, root: str, launches: dict) -> None:
         # the norm of the gradient the clip sees: the accumulated mean's
         clip_norms, inner = [], acc.optimizer._update
 
-        def recorded(grads, opt_state):
-            out = inner(grads, opt_state)
-            clip_norms.append(float(out[2]))
+        def recorded(grads, opt_state, params):
+            out = inner(grads, opt_state, params)
+            clip_norms.append(float(out[1]))
             return out
 
         acc.optimizer._update = recorded
@@ -4307,6 +4388,10 @@ def phase_distributed(torch, np, root: str, launches: dict) -> None:
           "grad_accum: the second call did not update")
     check(all(c2[k] == 2 * c1[k] and c1[k] > 0 for k in ("K2", "K2-bwd")),
           f"grad_accum: K2 / K2-bwd launches {c2} not twice {c1}")
+    # one step: K-norm, K-adam; accumulating: K-norm of each call's gradient,
+    # then of the mean, and K-adam
+    check(c1["K-adam"] == 2 and c2["K-adam"] == 4,
+          f"grad_accum: K-norm + K-adam launches {c2['K-adam']} (one step {c1['K-adam']})")
     mean_loss = (float(auxes[0]["loss"]) + float(auxes[1]["loss"])) / 2
     # the moments hold the clipped gradient and Adam's first step is about
     # lr x its sign, so only the norm before the clip shows the scale
@@ -4353,7 +4438,7 @@ def phase_distributed(torch, np, root: str, launches: dict) -> None:
         print(f"    rank {r}: data-parallel (2, 1) {collective_line(*res['dp']['timed'])}; "
               f"tensor/sequence-parallel (1, 2) {collective_line(*res['tp']['timed'])}",
               flush=True)
-    want_dp = {"K1": 1, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1}
+    want_dp = {"K1": 1, "K2": 3, "K2-bwd": 3, "K3": 1, "K3-bwd": 1, "K-adam": 2}
     for r, res in enumerate(ranks):
         d = res["dp"]
         print(f"  rank {r}, mesh (2, 1): librispeech step on its half, launches "
@@ -4368,6 +4453,7 @@ def phase_distributed(torch, np, root: str, launches: dict) -> None:
         print(f"  rank {r}, mesh (1, 2): transformer step with sequence_shard, K6 heads per "
               f"launch {t['heads']}, launches {t['launches']}", flush=True)
         check(t["launches"]["K6"] == L and t["launches"]["K6-bwd"] == L
+              and t["launches"]["K-adam"] == adam_launches(ts.params)
               and t["heads"] == [tcfg.model.num_heads // 2] * L,
               f"rank {r} tp launches {t['launches']} heads {t['heads']}")
         compare_moments(torch, f"rank {r} tensor/sequence-parallel transformer step vs one "
@@ -4437,6 +4523,7 @@ def main() -> int:
     results: dict = {}
     phase_kernels(torch, np, results)
     phase_train_kernels(torch, np, results)
+    phase_adam_kernels(torch, np, results)
     phase_stream_kernels(torch, np, results)
     launches: dict = {}
     phase_slice(torch, np, launches)
@@ -4494,6 +4581,9 @@ def main() -> int:
         ("K6-bwd fused MHSA backward (conformer, relative-position bias)",
          "uasr_torch/csrc/mhsa_bwd.cu", "uasr/ops/pallas_attention.py:112", "K6-bwd",
          "K6-bwd:bias"),
+        ("K-norm + K-adam, clip and Adam over every leaf (librispeech BiGRU's 22 leaves, f32)",
+         "uasr_torch/csrc/clip_adam.cu", "none: XLA fuses optax's update (uasr/train.py:95)",
+         "K-adam", "K-adam:bigru22"),
     ]
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=launches[key], **results[res])

@@ -40,9 +40,9 @@ def _record_clip_norms(opt) -> list:
     the accumulated mean's, before the clip), appended as it runs."""
     norms, inner = [], opt._update
 
-    def recorded(grads, opt_state):
-        out = inner(grads, opt_state)
-        norms.append(float(out[2]))
+    def recorded(grads, opt_state, params):
+        out = inner(grads, opt_state, params)
+        norms.append(float(out[1]))
         return out
 
     opt._update = recorded

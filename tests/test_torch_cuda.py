@@ -38,7 +38,7 @@ from uasr_torch.frontend import cuda_frontend
 from uasr_torch.frontend.features import compute_features, make_frontend_state
 from uasr_torch.models import cuda_gru
 from uasr_torch.models.models import build_model
-from uasr_torch.ops import cuda_beam, cuda_ctc
+from uasr_torch.ops import cuda_adam, cuda_beam, cuda_ctc
 
 pytestmark = pytest.mark.cuda
 
@@ -1318,7 +1318,7 @@ def test_encoder_training_step_on_card_matches_cpu(dev, encoder):
         runs.append((float(aux["loss"]), {k: g.cpu() for k, g in grads.items()}, steps))
     (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = runs
     assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
-    total = float(train.global_norm(g_cpu.values()))
+    total = float(cuda_adam.sq_norms_reference(g_cpu.values())[2])
     for k, g in g_cpu.items():
         assert float((g_card[k] - g).norm()) <= 1e-4 * max(float(g.norm()), 1e-2 * total), k
     for a, b in zip(s_card, s_cpu):
@@ -1398,3 +1398,207 @@ def test_int_mm_padding_matches_plain(dev, M, K, N):
     assert got.dtype == torch.int32 and got.shape == (M, N) and got.is_cuda
     assert torch.equal(got, int8_matmul_reference(a, b))
     assert torch.equal(got.cpu(), int8_matmul(a.cpu(), b.cpu()))
+
+
+# ------------------------------------------------------- K-norm, K-adam
+
+# the benchmark's librispeech BiGRU (22 leaves, 15,031,264 parameters); odd
+# sizes (scalar tails) and zero-size leaves (first, inside, last: chunks
+# the kernels' search must step over) past one table's 64 leaves, every
+# other leaf a view 4 bytes off its buffer's start (no float4)
+ADAM_LEAVES = {
+    "bigru": [576, 64, 64, 64, 36864, 64, 64, 64, 3932160, 1572864, 3072, 3072, 3145728,
+              1572864, 3072, 3072, 3145728, 1572864, 3072, 3072, 32768, 32],
+    "odd": [0, 1, 5, 4099, 0, 0, 8195, 3] + [7] * 66 + [0],
+}
+
+
+def _adam_problem(dev, sizes, norm, dtype=torch.float32, seed=0, fresh=False,
+                  misaligned=False):
+    """Leaves of ``sizes``: parameters and gradients of ``dtype`` (the
+    gradients scaled to global norm ``norm``) and f32 moments, at
+    mid-training values or, ``fresh``, parameters and moments zero; with
+    ``misaligned`` every other leaf is a view 4 bytes past its buffer's
+    start."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def leaves(fn, dt=torch.float32):
+        out = []
+        for i, n in enumerate(sizes):
+            off = i % 2 if misaligned else 0
+            buf = torch.empty(n + off, device=dev, dtype=dt)
+            buf[off:] = fn(torch.randn(n, device=dev, generator=gen))
+            out.append(buf[off:])
+        return out
+
+    grads = leaves(lambda x: x, dtype)
+    total = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads)))
+    with torch.no_grad():
+        for g in grads:
+            g.mul_(norm / total)
+    scale = 0.0 if fresh else 0.01
+    params = leaves(lambda x: 100 * scale * x, dtype)
+    mu = leaves(lambda x: scale * x)
+    nu = leaves(lambda x: (scale * x) ** 2)
+    return params, grads, mu, nu
+
+
+def _copies(*trees):
+    """Copies that keep each tensor's offset from 16-byte alignment."""
+    def copy(t):
+        off = t.data_ptr() % 16 // t.element_size()
+        out = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)[off:].view(t.shape)
+        return out.copy_(t)
+
+    return [[copy(t) for t in tree] for tree in trees]
+
+
+ADAM = dict(max_norm=5.0, b1=0.9, b2=0.999, eps=1e-8)
+
+
+def _plain_update(params, grads, mu, nu, count=3, lr=6e-4, g_norm=None):
+    if g_norm is None:
+        g_norm = cuda_adam.sq_norms_reference(grads, [False] * len(grads))[2]
+    cuda_adam.clip_adam_reference(params, grads, mu, nu, g_norm, **ADAM,
+                                  **dict(zip(("bc1", "bc2", "step_size"),
+                                             cuda_adam.host_scalars(count, 0.9, 0.999, lr))))
+    return g_norm
+
+
+def _fused_update(params, grads, mu, nu, count=3, lr=6e-4, g_norm=None):
+    if g_norm is None:
+        g_norm = cuda_adam.sq_norms_cuda(grads, [False] * len(grads))[2]
+    cuda_adam.clip_adam_cuda(params, grads, mu, nu, g_norm, **ADAM,
+                             **dict(zip(("bc1", "bc2", "step_size"),
+                                        cuda_adam.host_scalars(count, 0.9, 0.999, lr))))
+    return g_norm
+
+
+@pytest.mark.parametrize("leaves", sorted(ADAM_LEAVES))
+@pytest.mark.parametrize("clip", ["below", "above"])
+def test_fused_adam_matches_plain(dev, leaves, clip):
+    """K-norm + K-adam against the per-leaf plain version on the same f32
+    leaves: the norm within rtol 1e-6 (a ShardPlan's two sums of squares
+    within 2e-6); K-adam from the plain norm gives
+    the parameters, mu and nu bit for bit on both sides of the clip, and
+    the whole fused update (its own norm) does too below the clip. Above
+    it the norm's summation order shows: the fused update from zero
+    parameters and moments (each then its update, with no cancellation to
+    magnify the last bits) is within rtol 1e-6. Two launches a table: 2
+    for the 22 leaves, 4 past one table."""
+    sizes = ADAM_LEAVES[leaves]
+    norm = 2.5 if clip == "below" else 20.0
+    tables = len(cuda_adam.plan_tables(sizes))
+    problem = _adam_problem(dev, sizes, norm, misaligned=leaves == "odd")
+    ref = _copies(*problem)
+    ref_norm = _plain_update(*ref)
+    got = _copies(*problem)
+    before = cuda_adam.LAUNCHES
+    fused_norm = _fused_update(*got)
+    torch.cuda.synchronize()
+    assert cuda_adam.LAUNCHES == before + 2 * tables
+    torch.testing.assert_close(fused_norm, ref_norm, rtol=1e-6, atol=0)
+    # a ShardPlan's split: the sums of squares of the sharded leaves and of
+    # the rest (squares, so twice the norm's rtol)
+    split = [i % 3 == 0 for i in range(len(sizes))]
+    for x, y in zip(cuda_adam.sq_norms_cuda(problem[1], split),
+                    cuda_adam.sq_norms_reference(problem[1], split)):
+        torch.testing.assert_close(x, y, rtol=2e-6, atol=0)
+    alone = _copies(*problem)
+    _fused_update(*alone, g_norm=ref_norm)
+    for fused in [alone, got] if clip == "below" else [alone]:
+        for a, b in zip(fused, ref):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
+    if clip == "above":
+        zero = _adam_problem(dev, sizes, norm, fresh=True, misaligned=leaves == "odd")
+        ref, got = _copies(*zero), _copies(*zero)
+        _plain_update(*ref)
+        _fused_update(*got)
+        for a, b in zip(got, ref):
+            for x, y in zip(a, b):
+                torch.testing.assert_close(x, y, rtol=1e-6, atol=0)
+
+
+def test_fused_adam_bf16_leaves_match_f32_formula(dev):
+    """bf16 parameters and gradients: K-norm and K-adam read them into f32;
+    mu, nu and the parameters (rounded once to bf16) match the plain
+    version evaluated on f32 copies within rtol 1e-6, below the clip."""
+    sizes = ADAM_LEAVES["bigru"]
+    params, grads, mu, nu = _adam_problem(dev, sizes, 2.5, dtype=torch.bfloat16, seed=1)
+    ref = [[p.float() for p in params], [g.float() for g in grads], *_copies(mu, nu)]
+    _plain_update(*ref)
+    torch.testing.assert_close(cuda_adam.sq_norms_cuda(grads, [False] * len(grads))[2],
+                               cuda_adam.sq_norms_reference(ref[1], [False] * len(grads))[2],
+                               rtol=1e-6, atol=0)
+    _fused_update(params, grads, mu, nu)
+    for x, y in zip(params, ref[0]):
+        assert x.dtype == torch.bfloat16
+        torch.testing.assert_close(x.float(), y.to(torch.bfloat16).float(), rtol=1e-6, atol=0)
+    for a, b in ((mu, ref[2]), (nu, ref[3])):
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=1e-6, atol=0)
+
+
+def test_fused_adam_is_deterministic(dev):
+    """Two runs of the same fused update give the same bits: the norm,
+    the parameters and both moments."""
+    problem = _adam_problem(dev, ADAM_LEAVES["bigru"], 20.0, seed=2)
+    runs = []
+    for _ in range(2):
+        trees = _copies(*problem)
+        runs.append((_fused_update(*trees).clone(), trees))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_clip_adam_runs_the_kernels_with_grad_accum(dev):
+    """``ClipAdam`` with grad_accum 2 on CUDA: the accumulating call makes
+    one launch (the norm it reports) and changes no parameter; the second
+    runs K-norm twice (its own gradient's norm, the mean's) and K-adam,
+    and lands within rtol 1e-6 of the same optimizer on the CPU."""
+    from uasr_torch import train
+    sizes = [576, 4099, 32768]
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        opt = train.ClipAdam(lambda step: 1e-3, 5.0, accum=2)
+        gen = torch.Generator().manual_seed(4)
+        params = {f"w{i}": torch.randn(n, generator=gen).to(d) for i, n in enumerate(sizes)}
+        state = opt.init(params)
+        start = {k: p.clone() for k, p in params.items()}
+        for call in range(2):
+            grads = {k: torch.randn(p.shape, generator=gen).to(d) for k, p in params.items()}
+            before = cuda_adam.LAUNCHES
+            state, g_norm = opt.update(grads, state, params)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                assert cuda_adam.LAUNCHES == before + (1 if call == 0 else 3)
+            if call == 0:
+                assert all(torch.equal(p, start[k]) for k, p in params.items())
+        assert state["micro"] == 0 and state["count"] == 1
+        runs.append({k: p.cpu() for k, p in params.items()})
+    for k in runs[1]:
+        torch.testing.assert_close(runs[0][k], runs[1][k], rtol=1e-6, atol=1e-9)
+
+
+def test_fused_adam_rejects_bad_input(dev):
+    params, grads, mu, nu = _adam_problem(dev, [64, 128], 1.0)
+    norm = cuda_adam.sq_norms_cuda(grads, [False, False])[2]
+    cases = [
+        ([p.half() for p in params], grads, mu, nu, norm, "float32 or bfloat16 parameters"),
+        (params, [g.half() for g in grads], mu, nu, norm, "float32 or bfloat16 gradients"),
+        (params, grads, [m.bfloat16() for m in mu], nu, norm, "float32 moments"),
+        (params, grads[:1], mu, nu, norm, "2 parameters, 1 gradients"),
+        (params, [g[:10] for g in grads], mu, nu, norm, "shapes differ"),
+        (params, grads, [m.cpu() for m in mu], nu, norm, "one CUDA device"),
+        (params, grads, mu, nu, norm.reshape(1), "0-d float32"),
+    ]
+    for p, g, m, v, n, match in cases:
+        with pytest.raises(ValueError, match=match):
+            _fused_update(p, g, m, v, g_norm=n)
+    with pytest.raises(ValueError, match="contiguous"):
+        _fused_update([params[0].reshape(8, 8).t(), params[1]], [grads[0].reshape(8, 8),
+                      grads[1]], [mu[0].reshape(8, 8), mu[1]], [nu[0].reshape(8, 8), nu[1]],
+                      g_norm=norm)

@@ -95,7 +95,8 @@ def test_schedules_match_jax(schedule):
 
 def test_clip_matches_optax_above_and_below_the_norm():
     """Gradient clip + Adam against optax on the same gradients: one
-    update below the clip norm and one above it."""
+    update below the clip norm and one above it. ``update`` changes the
+    parameters in place; each step's change is the update."""
     import optax
 
     rng = np.random.RandomState(0)
@@ -112,11 +113,91 @@ def test_clip_matches_optax_above_and_below_the_norm():
     jstate = jopt.init({k: jnp.zeros(v.shape) for k, v in grads.items()})
     for scale in (0.1, 10.0):
         g = {k: v * scale for k, v in grads.items()}
-        upd, ostate, norm = opt.update({k: torch.tensor(v) for k, v in g.items()}, ostate)
+        before = {k: p.clone() for k, p in params.items()}
+        ostate, norm = opt.update({k: torch.tensor(v) for k, v in g.items()}, ostate, params)
         jupd, jstate = jopt.update({k: jnp.asarray(v) for k, v in g.items()}, jstate)
         np.testing.assert_allclose(float(norm), float(optax.global_norm(g)), rtol=1e-6)
         for k in g:
-            np.testing.assert_allclose(upd[k].numpy(), np.asarray(jupd[k]), rtol=1e-5, atol=1e-9)
+            np.testing.assert_allclose((params[k] - before[k]).numpy(), np.asarray(jupd[k]),
+                                       rtol=1e-5, atol=1e-9)
+
+
+# the leaf sizes of the benchmark's librispeech BiGRU (conv2d front, three
+# BiGRU layers of 512, 32 symbols): 22 leaves, 15,031,264 f32 parameters
+BIGRU_LEAVES = [576, 64, 64, 64, 36864, 64, 64, 64, 3932160, 1572864, 3072, 3072, 3145728,
+                1572864, 3072, 3072, 3145728, 1572864, 3072, 3072, 32768, 32]
+
+
+def _chunk_span(sizes, chunk_start, c, chunk):
+    """(leaf, first element, elements) of chunk ``c`` of a table whose
+    leaves have ``sizes`` elements, as ``csrc/clip_adam.cu``'s binary
+    search finds it: the last leaf whose chunk_start is at most ``c``."""
+    lo, hi = 0, len(sizes) - 1
+    while lo < hi:
+        mid = (lo + hi + 1) >> 1
+        if chunk_start[mid] <= c:
+            lo = mid
+        else:
+            hi = mid - 1
+    first = (c - chunk_start[lo]) * chunk
+    return lo, first, min(chunk, sizes[lo] - first)
+
+
+@pytest.mark.parametrize("sizes", [[5], BIGRU_LEAVES, [1 + 3 * i for i in range(150)],
+                                   [7, 0, 4097, 0]],
+                         ids=["one_leaf", "bigru_22", "past_one_table", "zero_size_leaves"])
+def test_fused_adam_launches_cover_every_element_once(sizes):
+    """The host side of K-norm and K-adam (``ops.cuda_adam``): the tables
+    hold every leaf once, in order, ``TABLE_LEAVES`` at most; each launch's
+    CTAs visit every chunk of its table once (grid stride) and the chunks,
+    found by the kernels' binary search, cover every element of every leaf
+    once, starting at multiples of 4 (float4). The ctypes tables hold each
+    leaf's pointers, size and flags. The host scalars are Python floats
+    equal to the CPU f32 values the per-leaf code computed."""
+    from uasr_torch.ops import cuda_adam
+
+    tables = cuda_adam.plan_tables(sizes)
+    assert len(tables) == max(1, -(-len(sizes) // cuda_adam.TABLE_LEAVES))
+    assert [i for leaves, _ in tables for i in leaves] == list(range(len(sizes)))
+    seen = [np.zeros(n, np.int32) for n in sizes]
+    for leaves, start in tables:
+        assert 1 <= len(leaves) <= cuda_adam.TABLE_LEAVES
+        assert len(start) == len(leaves) + 1
+        table_sizes = [sizes[i] for i in leaves]
+        for max_ctas in (1, 7, 1056):
+            grid = cuda_adam.grid(start, max_ctas)
+            assert 1 <= grid <= max_ctas
+            visited = sorted(c for b in range(grid) for c in range(b, start[-1], grid))
+            assert visited == list(range(start[-1]))
+        for c in range(start[-1]):
+            leaf, first, n = _chunk_span(table_sizes, start, c, cuda_adam.CHUNK)
+            assert 0 < n <= cuda_adam.CHUNK and first % 4 == 0
+            seen[leaves[leaf]][first:first + n] += 1
+    assert all((s == 1).all() for s in seen)
+    # the launches' ctypes tables, built from (CPU) tensors of these sizes:
+    # each leaf's pointers, size and flags (float4 where all four f32
+    # arrays are 16-byte aligned; a zero-size leaf's null pointers too)
+    trees = [[torch.empty(n) for n in sizes] for _ in range(4)]
+    built = cuda_adam._tables(trees[1], [i % 2 == 1 for i in range(len(sizes))], trees[0],
+                              trees[2], trees[3])
+    assert [list(t.chunk_start[: len(start)]) for t, start in built] == \
+        [start for _, start in tables]
+    for (t, _), (leaves, _) in zip(built, tables):
+        assert t.n_leaves == len(leaves)
+        for j, i in enumerate(leaves):
+            ptrs = [x[i].data_ptr() for x in trees]
+            assert [t.p[j] or 0, t.g[j] or 0, t.m[j] or 0, t.v[j] or 0] == ptrs
+            assert t.n[j] == sizes[i]
+            vec4 = all(x % 16 == 0 for x in ptrs)
+            assert t.flags[j] == (cuda_adam._SHARDED if i % 2 else 0) | \
+                (cuda_adam._VEC4 if vec4 else 0)
+    f32 = torch.float32
+    for count, lr in ((1, 6e-4), (2, 1e-3), (1000, 3.3e-5)):
+        bc1, bc2, step = cuda_adam.host_scalars(count, 0.9, 0.999, lr)
+        assert all(type(x) is float for x in (bc1, bc2, step))
+        assert bc1 == float(1.0 - torch.tensor(0.9, dtype=f32) ** count)
+        assert bc2 == float(1.0 - torch.tensor(0.999, dtype=f32) ** count)
+        assert step == -float(np.float32(lr))
 
 
 def test_spec_augment_masks_match_jax_formula(monkeypatch):

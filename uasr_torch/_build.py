@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NATIVE = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "_kernels_build"
 SOURCES = ("log_mel", "bigru_fwd", "ctc_beam", "bigru_bwd", "ctc_alpha", "ctc_beta", "gru_fwd",
-           "mhsa_fwd", "gru_bwd", "gru_bwd_lin", "mhsa_bwd")
+           "mhsa_fwd", "gru_bwd", "gru_bwd_lin", "mhsa_bwd", "clip_adam")
 NVCC_FLAGS = (
     "-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC",

@@ -142,18 +142,11 @@ class ShardPlan:
         return {k: (C._all_gather(v.detach(), self.dims[k], self.mesh.model_group)
                     if k in self.dims else v) for k, v in tree.items()}
 
-    def sq_norm(self, grads: dict) -> torch.Tensor:
-        """Sum of squares of the global gradient: each sharded leaf's
-        shards counted once (summed over the model group), each
-        replicated leaf once."""
-        sq = [torch.sum(torch.square(g.float())) for k, g in grads.items() if k in self.dims]
-        rep = [torch.sum(torch.square(g.float())) for k, g in grads.items() if k not in self.dims]
-        total = sum(rep) if rep else torch.zeros((), device=next(iter(grads.values())).device)
-        if sq:
-            s = sum(sq).reshape(1)
-            dist.all_reduce(s, op=dist.ReduceOp.SUM, group=self.mesh.model_group)
-            total = total + s[0]
-        return total
+    def global_sq(self, sharded_sq: torch.Tensor, replicated_sq: torch.Tensor) -> torch.Tensor:
+        """Sum of squares of the global gradient from this rank's two sums:
+        its sharded leaves' (summed over the model group, so each shard
+        counts once) and its replicated leaves' (counted once)."""
+        return replicated_sq + C._all_reduce(sharded_sq.reshape(1), self.mesh.model_group)[0]
 
 
 def shard_model(model: torch.nn.Module, mesh: Mesh) -> ShardPlan:

@@ -35,7 +35,7 @@ from uasr_torch.ops.infonce import info_nce_loss, info_nce_loss_fused, sample_ne
 from uasr_torch.parallel import collectives as C
 from uasr_torch.parallel.mesh import Mesh, shard_batch
 from uasr_torch.train import (
-    PreemptionGuard, RunIO, TrainState, _apply, _apply_updates, _audio_seconds, _check_mesh,
+    PreemptionGuard, RunIO, TrainState, _apply, _audio_seconds, _check_mesh,
     _leaves, _OnMesh, _shard, _sum_grads, _to_device, make_optimizer,
 )
 
@@ -125,8 +125,7 @@ class SSLTrainer(_OnMesh):
         ``grad_norm``, the norm before the clip, as 0-d device tensors)."""
         aux, grads = self.loss_and_grads(state.params, batch,
                                          generator or self.step_generator(state.step))
-        updates, opt_state, g_norm = self.optimizer.update(grads, state.opt_state)
-        _apply_updates(state.params, updates)
+        opt_state, g_norm = self.optimizer.update(grads, state.opt_state, state.params)
         aux["grad_norm"] = g_norm
         return TrainState(state.step + 1, state.params, opt_state), aux
 

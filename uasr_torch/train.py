@@ -12,8 +12,9 @@ of ``uni_gru`` and ``lc_bigru`` through K5 / K5-bwd or K8; the attention of
 (K3 / K3-bwd with ``ctc.use_pallas``, else the scan loss), or with
 ``train.mode: frame_ce`` the masked frame-level CE against an
 ``AlignedBatch``'s per-frame labels (``ops.frame_ce``, plain PyTorch) ->
-gradients -> global-norm clip -> Adam, all on one device. Eval decodes
-greedily (or with the prefix beam) and scores the edit distance.
+gradients -> global-norm clip -> Adam (K-norm and K-adam for CUDA
+tensors, ``ops.cuda_adam``), all on one device. Eval decodes greedily (or
+with the prefix beam) and scores the edit distance.
 
 Parity with the JAX package, which uses optax:
 
@@ -106,6 +107,7 @@ from uasr_torch.frontend.features import compute_features, frontend_state_from_c
 from uasr_torch.frontend.specaugment import spec_augment
 from uasr_torch.metrics import MetricWriter, log_stdout
 from uasr_torch.models.models import build_discriminator, build_model, encoder_time_subsample
+from uasr_torch.ops import cuda_adam
 from uasr_torch.ops.ctc import ctc_loss
 from uasr_torch.ops.cuda_ctc import ctc_loss_kernel
 from uasr_torch.ops.decode import ctc_beam_search_decode, ctc_greedy_decode
@@ -159,10 +161,6 @@ def make_schedule(cfg: Config):
     return sched
 
 
-def global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tensors))
-
-
 class ClipAdam:
     """``optax.chain(clip_by_global_norm(max_norm), adam(schedule, b1, b2,
     eps))`` on dicts of tensors, with ``optax.add_decayed_weights
@@ -171,7 +169,12 @@ class ClipAdam:
     in ``optax.MultiSteps(accum)`` when ``accum > 1``; ``update`` also
     returns the global norm of the gradient it was given. With a ``plan``
     (a ``ShardPlan``: the leaves that are model-group shards) the norm is
-    that of the whole gradient across the model group."""
+    that of the whole gradient across the model group.
+
+    The norm and the clip-and-Adam update are ``ops.cuda_adam``'s: on CUDA
+    tensors two kernel launches over all leaves (K-norm, K-adam), which
+    neither copy to the card nor wait for it; on CPU tensors the plain
+    per-leaf version."""
 
     def __init__(self, schedule, max_norm: float, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0, accum: int = 1):
@@ -189,50 +192,58 @@ class ClipAdam:
         return state
 
     def norm(self, grads: dict) -> torch.Tensor:
-        if self.plan is not None:
-            return torch.sqrt(self.plan.sq_norm(grads))
-        return global_norm(grads.values())
+        """The global norm of ``grads``; with a plan, each sharded leaf's
+        sum of squares is summed over the model group, the rest counted
+        once."""
+        sharded = [self.plan is not None and k in self.plan.dims for k in grads]
+        shard, rest, norm = cuda_adam.sq_norms(list(grads.values()), sharded)
+        if not any(sharded):
+            return norm
+        return torch.sqrt(self.plan.global_sq(shard, rest))
 
     @torch.no_grad()
     def update(self, grads: dict, opt_state: dict, params: dict | None = None):
-        """(updates, new opt_state, global norm of ``grads``). The moments
-        (and the accumulator) are updated in place; ``params`` are needed
-        with weight decay. With ``accum > 1`` the updates are None on every
-        call but each ``accum``-th, which runs the clip and Adam on the mean
-        of the accumulated gradients (optax's running mean) and resets
-        the accumulator."""
+        """Update ``params`` and the moments (and the accumulator) in place;
+        returns (new opt_state, global norm of ``grads``). With ``accum >
+        1`` the parameters change only on every ``accum``-th call, which
+        runs the clip and Adam on the mean of the accumulated gradients
+        (optax's running mean) and resets the accumulator.
+
+        Without ``params`` (optax's form; no weight decay): returns
+        (updates, new opt_state, global norm), the updates applied to
+        parameters that start at zero."""
+        if params is None:
+            if self.weight_decay > 0:
+                raise ValueError("ClipAdam.update needs the parameters for weight decay")
+            updates = {k: torch.zeros_like(m) for k, m in opt_state["mu"].items()}
+            opt_state, g_norm = self.update(grads, opt_state, updates)
+            return updates, opt_state, g_norm
         if self.weight_decay > 0:
             grads = {k: g + self.weight_decay * params[k] for k, g in grads.items()}
         if self.accum <= 1:
-            return self._update(grads, opt_state)
+            return self._update(grads, opt_state, params)
         g_norm = self.norm(grads)
         n = opt_state["micro"]
         for k, g in grads.items():
             acc = opt_state["acc"][k]
             acc.add_((g - acc) / (n + 1))
         if n + 1 < self.accum:
-            return None, dict(opt_state, micro=n + 1), g_norm
-        updates, inner, _ = self._update(opt_state["acc"], opt_state)
+            return dict(opt_state, micro=n + 1), g_norm
+        inner, _ = self._update(opt_state["acc"], opt_state, params)
         for acc in opt_state["acc"].values():
             acc.zero_()
-        return updates, dict(inner, micro=0), g_norm
+        return dict(inner, micro=0), g_norm
 
-    def _update(self, grads: dict, opt_state: dict):
+    def _update(self, grads: dict, opt_state: dict, params: dict):
         g_norm = self.norm(grads)
-        keep = g_norm < self.max_norm
         count = opt_state["count"] + 1
-        f32 = torch.float32
-        dev = g_norm.device
-        bc1 = (1.0 - torch.tensor(self.b1, dtype=f32) ** count).to(dev)
-        bc2 = (1.0 - torch.tensor(self.b2, dtype=f32) ** count).to(dev)
-        step_size = -float(np.float32(self.schedule(opt_state["count"])))
-        updates = {}
-        for k, g in grads.items():
-            g = torch.where(keep, g, (g / g_norm) * self.max_norm)
-            mu = opt_state["mu"][k].mul_(self.b1).add_((1 - self.b1) * g)
-            nu = opt_state["nu"][k].mul_(self.b2).add_((1 - self.b2) * torch.square(g))
-            updates[k] = ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)) * step_size
-        return updates, dict(opt_state, count=count), g_norm
+        bc1, bc2, step_size = cuda_adam.host_scalars(count, self.b1, self.b2,
+                                                     self.schedule(opt_state["count"]))
+        keys = list(grads)
+        cuda_adam.clip_adam([params[k] for k in keys], [grads[k] for k in keys],
+                            [opt_state["mu"][k] for k in keys], [opt_state["nu"][k] for k in keys],
+                            g_norm, self.max_norm, self.b1, self.b2, self.eps, bc1, bc2, step_size)
+        return dict(opt_state, count=count), g_norm
 
 
 def make_optimizer(cfg: Config, lr=None, b1: float = 0.9, b2: float = 0.999,
@@ -289,13 +300,6 @@ def model_input_dim(cfg: Config) -> int:
 def _leaves(params: dict) -> dict:
     """``params`` with every tensor a leaf that requires grad."""
     return {k: p if p.requires_grad else p.requires_grad_() for k, p in params.items()}
-
-
-@torch.no_grad()
-def _apply_updates(params: dict, updates: dict | None) -> None:
-    """Add ``updates`` in place (None: an accumulating call, no update)."""
-    for k, u in (updates or {}).items():
-        params[k].add_(u)
 
 
 # ------------------------------------------------------------- meshes
@@ -530,8 +534,7 @@ class CTCTrainer(_OnMesh):
             aux, grads = self.loss_and_grads(state.params, batch,
                                              generator or self.step_generator(state.step))
             with profiling.span("train.optimizer", device=self.device):
-                updates, opt_state, g_norm = self.optimizer.update(grads, state.opt_state)
-                _apply_updates(state.params, updates)
+                opt_state, g_norm = self.optimizer.update(grads, state.opt_state, state.params)
         aux["grad_norm"] = g_norm
         return TrainState(state.step + 1, state.params, opt_state), aux
 
@@ -921,8 +924,7 @@ class GANTrainer(GeneratorBase):
                              self.cfg.gan.lambda_gp, generator, eps)
             grads = torch.autograd.grad(loss, list(params.values()))
         grads = _sum_grads(self.mesh, dict(zip(params, grads)))
-        updates, d_opt, _ = self.d_opt.update(grads, state.d_opt, params)
-        _apply_updates(params, updates)
+        d_opt, _ = self.d_opt.update(grads, state.d_opt, params)
         return state._replace(d_params=params, d_opt=d_opt), {k: v.detach()
                                                               for k, v in aux.items()}
 
@@ -936,8 +938,7 @@ class GANTrainer(GeneratorBase):
             loss, aux, params = self._g_loss(state, audio, labeled)
             grads = torch.autograd.grad(loss, list(params.values()))
         grads = _sum_grads(self.mesh, dict(zip(params, grads)))
-        updates, g_opt, _ = self.g_opt.update(grads, state.g_opt)
-        _apply_updates(params, updates)
+        g_opt, _ = self.g_opt.update(grads, state.g_opt, params)
         return (state._replace(step=state.step + 1, g_params=params, g_opt=g_opt),
                 {k: v.detach() for k, v in aux.items()})
 
@@ -1008,8 +1009,7 @@ class EODMTrainer(GeneratorBase):
             loss, aux = self._loss(params, db)
             grads = torch.autograd.grad(loss, list(params.values()))
         grads = _sum_grads(self.mesh, dict(zip(params, grads)))
-        updates, opt_state, _ = self.optimizer.update(grads, state.opt_state)
-        _apply_updates(params, updates)
+        opt_state, _ = self.optimizer.update(grads, state.opt_state, params)
         return TrainState(state.step + 1, params, opt_state), {k: v.detach()
                                                                for k, v in aux.items()}
 
